@@ -1,0 +1,109 @@
+"""The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
+
+An AST scan proves that ``src/repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the reference package; the batched entry points must
+raise on ``device="cuda"`` when no card is present.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.core as P  # noqa: E402
+from repro_torch import resolve_device  # noqa: E402
+from repro_torch.core.schedule_state import ScheduleState  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, repro_torch.core, repro_torch.kernels.sched_scoring.ops;"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')];"
+        "sys.exit(1 if bad else 0)"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: 'cuda' requests are valid here")
+
+
+def test_cuda_entry_points_raise_without_a_card(no_card):
+    cl = P.paper_cluster((1, 1, 1))
+    etg = P.schedule(P.linear_topology(), cl, rate_epsilon=0.5).etg
+    tm = etg.task_machine()[None, :]
+    calls = [
+        lambda: resolve_device(),
+        lambda: P.max_stable_rate_batch(etg, cl, tm),
+        lambda: ScheduleState.from_etg(etg, cl).score_task_machine_batch(tm),
+        lambda: P.refine(etg, cl),
+        lambda: P.optimal_schedule(P.linear_topology(), cl, max_total_tasks=5),
+        lambda: P.simulate_batch(etg, cl, tm, 1.0),
+        lambda: P.simulate(etg, cl, 1.0),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # The explicit CPU request works and scores the same as the host path.
+    assert P.max_stable_rate_batch(etg, cl, tm, device="cpu")[1][0] == P.max_stable_rate(etg, cl)[1]
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(no_card, tmp_path):
+    """The chip smoke fails (and prints no result line) without a card,
+    and when it is run alone, away from the repository."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+            env = {"PATH": "/usr/bin:/bin"}
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
+
+
+def test_launch_counts_stay_zero_on_the_cpu_path():
+    from repro_torch.kernels.sched_scoring import ops
+
+    before = dict(ops.LAUNCHES)
+    cl = P.paper_cluster((2, 2, 2))
+    etg = P.schedule(P.star_topology(), cl, rate_epsilon=0.5).etg
+    P.refine(etg, cl, device="cpu", max_rounds=1)
+    assert ops.LAUNCHES == before
+    assert np.all(np.isfinite(P.max_stable_rate_batch(etg, cl, etg.task_machine()[None, :],
+                                                      device="cpu")[0]))
