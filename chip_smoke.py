@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch + CUDA port: builds the kernel, drives the paper's
-main path on one NVIDIA GPU, holds every kernel against its plain PyTorch
-version, and prints the kernels' numbers.
+"""Chip smoke of the PyTorch + CUDA port: builds the kernels, drives the
+paper's main path and the LM serving path on one NVIDIA GPU, holds every
+kernel against its plain PyTorch version, and prints the kernels' numbers.
 
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 Phases (each raises on failure; nothing is caught):
 
-1. build ``csrc/sched_scoring.cu`` for sm_90a; card name and power limit;
+1. build the three kernel sources (``sched_scoring.cu``, ``flash_attention.cu``,
+   ``decode_attention.cu``) for sm_90a, one nvcc each, all at once; card name
+   and power limit;
 2. kernel against its plain version on the card, over the scoring regimes
    and edge shapes (identical feasibility mask and argmax, max abs error 0);
 3. main path at full width: ``schedule`` on ``paper_cluster((20, 70, 90))``
@@ -15,7 +17,18 @@ Phases (each raises on failure; nothing is caught):
 4. resource path: the same cluster with memory and 6 racks, ``refine``
    (3 rounds) on the card equal to the CPU path and the reference's result;
 5. ``optimal_schedule`` on ``paper_cluster((1, 1, 1))``: the reference golden;
-6. timings with CUDA events (cold L2, median) at B=16384, T=478, m=180.
+6. timings with CUDA events (cold L2, median) at B=16384, T=478, m=180;
+7. the attention kernels (B3 flash, B4 decode) against their plain versions
+   on the card: GQA (G 2 and 8), MQA, window, bidirectional, ragged S (192,
+   300, 600), per-row lengths down to 1, float32 and bfloat16;
+8. LM serving at full width: ``qwen1.5-0.5b`` (24 layers, bf16, random
+   weights from a seed) serves 8 requests of 512 prompt tokens and 64
+   generated tokens through ``init_params -> init_caches -> prefill ->
+   decode_step``; 24 B3 launches per prefill, 24 B4 launches per decode
+   step; then 2 requests x 128 prompt tokens x 8 steps on the card against
+   the same weights in float32 on the CPU, fed the card's tokens;
+9. B3 and B4 timed at the serving shapes beside their plain versions and
+   ``scaled_dot_product_attention``.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -25,11 +38,13 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -38,6 +53,7 @@ SRC = ROOT / "src"
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 34e12  # vector FP64, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
 
 # The reference's results (``repro.core``, NumPy scoring) for phases 3-5.
 MAIN_GOLDEN = dict(rate=297.0, n_instances=[2, 56, 210, 210], iterations=46,
@@ -149,6 +165,231 @@ def time_cuda(torch, fn, reps=15, flush_bytes=256 << 20):
     return statistics.median(times)
 
 
+# Phase 7's cases: (label, B, Sq, Sk, H, Hkv, D, causal, window) for B3 and
+# (label, B, H, Hkv, S, D) for B4, whose lengths run from 1 to S.
+FLASH_CASES = [
+    ("serving shape", 8, 512, 512, 16, 16, 64, True, 0),
+    ("GQA G=2, right-aligned queries", 1, 128, 256, 4, 2, 64, True, 0),
+    ("GQA G=8, ragged S=300", 2, 300, 300, 8, 1, 64, True, 0),
+    ("MQA + window 128, D=128", 2, 256, 256, 2, 1, 128, True, 128),
+    ("bidirectional, D=32", 1, 64, 64, 2, 2, 32, False, 0),
+    ("ragged S=192", 1, 192, 192, 2, 2, 64, True, 0),
+    ("window without causal, Sk=300", 1, 100, 300, 4, 2, 32, False, 40),
+    ("ragged S=600, window 200, D=256", 1, 600, 600, 2, 2, 256, True, 200),
+]
+DECODE_CASES = [
+    ("serving shape", 8, 16, 16, 576, 64),
+    ("GQA G=4, S=1024", 2, 8, 2, 1024, 64),
+    ("GQA G=8, ragged S=300", 2, 16, 2, 300, 64),
+    ("MQA, D=128", 4, 4, 1, 512, 128),
+    ("ragged S=600", 3, 16, 16, 600, 64),
+    ("ragged S=192, D=256", 2, 16, 2, 192, 256),
+]
+# Kernel vs plain version on the same card, elementwise |got - want| <=
+# atol + rtol |want|. Both compute in float32 and differ only in the order of
+# sums: float32 2e-5, the tolerance of tests/test_kernels.py. In bfloat16
+# both round that float32 result once, so they may differ by one bf16 ulp,
+# at most 2^-7 |want|; the 1e-5 covers the float32 part near zero.
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 2.0 ** -7)}
+# Card (bf16) against the CPU (float32) on the same weights, per step:
+# ||d||_2 / ||ref||_2 and max|d| / max|ref| of the logits, each at most
+# 16 u with u = 2^-8 the bf16 unit roundoff. The same full-depth model at
+# widths 256-512, bf16 against float32 on a CPU, gives 0.015-0.017.
+LOGIT_TOL = 16 * 2.0 ** -8
+
+
+def attention_error(torch, what, got, want) -> float:
+    """Max abs error of a kernel's output against its plain version, after
+    checking it is finite and within ``ATTN_TOL`` of its type."""
+    atol, rtol = ATTN_TOL[str(got.dtype).split(".")[1]]
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(torch.allclose(got, want, atol=atol, rtol=rtol),
+          f"{what}: max abs error {err}, over atol {atol} + rtol {rtol}")
+    return err
+
+
+def attention_phase(torch, flash_ops, decode_ops, flash_ref, decode_ref):
+    """Phase 7: each attention kernel against its plain version on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for label, B, Sq, Sk, H, Hkv, D, causal, window in FLASH_CASES:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+            got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_ref(q, k, v, causal=causal, window=window)
+            err = attention_error(torch, f"flash_attention {label} {name}", got, want)
+            max_err["flash_attention"] = max(max_err["flash_attention"], err)
+            print(f"  B3 {label:<34} {name:<8} max abs err {err:.3e}")
+        for label, B, H, Hkv, S, D in DECODE_CASES:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for shape in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+            lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
+                                    dtype=torch.int32)
+            lengths[0] = 1
+            if B > 1:
+                lengths[-1] = S
+            got = decode_ops.decode_attention(q, k, v, lengths)
+            want = decode_ref(q, k, v, lengths)
+            err = attention_error(torch, f"decode_attention {label} {name}", got, want)
+            max_err["decode_attention"] = max(max_err["decode_attention"], err)
+            print(f"  B4 {label:<34} {name:<8} lengths {lengths.tolist()} max abs err {err:.3e}")
+    return max_err
+
+
+def serve_phase(torch, flash_ops, decode_ops, M, serve, cfg, wall):
+    """Phase 8: serve at full width on the card, then hold a short run
+    against the same weights in float32 on the CPU. Returns the launch counts
+    of the main run."""
+    params = M.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, prompt_len, gen_len = 8, 512, 64
+    serve(cfg, batch=2, prompt_len=16, gen_len=2, params=params, device="cuda")  # set-up
+    flash_ops.reset_launches()
+    decode_ops.reset_launches()
+    res = serve(cfg, batch=B, prompt_len=prompt_len, gen_len=gen_len, params=params,
+                device="cuda")
+    launches = {**flash_ops.LAUNCHES, **decode_ops.LAUNCHES}
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"prefill launched B3 {launches['flash_attention']} times, not {cfg.n_layers}")
+    check(launches["decode_attention"] == cfg.n_layers * (gen_len - 1),
+          f"decode launched B4 {launches['decode_attention']} times, "
+          f"not {cfg.n_layers * (gen_len - 1)}")
+    toks = res.tokens
+    check(tuple(toks.shape) == (B, gen_len) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, "served tokens out of shape or vocabulary")
+    wall["prefill_s"], wall["decode_s"] = res.prefill_s, res.decode_s
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, {n_params / 1e6:.1f} M parameters in {cfg.param_dtype}")
+    print(f"  served {B} requests x {prompt_len} prompt + {gen_len} generated tokens: prefill "
+          f"{res.prefill_s:.4f} s ({B * prompt_len / res.prefill_s:,.0f} prompt tok/s), decode "
+          f"{res.decode_s:.4f} s for {gen_len - 1} steps ({B * (gen_len - 1) / res.decode_s:,.1f} "
+          f"tok/s, {1e3 * res.decode_s / (gen_len - 1):.3f} ms/step); launches {launches}")
+    print(f"  sample output ids: {toks[0, :12].tolist()}")
+
+    # The same weights on the CPU in float32, teacher-forced with the card's tokens.
+    Bc, Pc, steps = 2, 128, 8
+    prompt = torch.randint(0, cfg.vocab_size, (Bc, Pc),
+                           generator=torch.Generator().manual_seed(2))
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = _map_leaves(params, lambda t: t.float().cpu())
+    card_c = M.init_caches(cfg, Bc, Pc + steps, device="cuda")
+    cpu_c = M.init_caches(cfg32, Bc, Pc + steps, device="cpu")
+    card_l, card_c = M.prefill(params, cfg, {"tokens": prompt}, card_c, device="cuda")
+    cpu_l, cpu_c = M.prefill(params32, cfg32, {"tokens": prompt}, cpu_c, device="cpu")
+    worst = (0.0, 0.0)
+    agree = 0
+    for step in range(steps + 1):
+        got = card_l.float().cpu()
+        check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (Bc, cfg.vocab_size),
+              f"card logits at step {step}: non-finite or misshapen")
+        rel_l2 = float((got - cpu_l).norm() / cpu_l.norm())
+        rel_max = float((got - cpu_l).abs().max() / cpu_l.abs().max())
+        check(rel_l2 <= LOGIT_TOL and rel_max <= LOGIT_TOL,
+              f"step {step}: card vs CPU logits differ by {rel_l2:.4f} (l2) / {rel_max:.4f} "
+              f"(max) over {LOGIT_TOL}")
+        worst = (max(worst[0], rel_l2), max(worst[1], rel_max))
+        tok = got.argmax(-1)
+        agree += int((tok == cpu_l.argmax(-1)).sum())
+        if step < steps:
+            card_l, card_c = M.decode_step(params, cfg, {"tokens": tok[:, None]}, card_c,
+                                           device="cuda")
+            cpu_l, cpu_c = M.decode_step(params32, cfg32, {"tokens": tok[:, None]}, cpu_c,
+                                         device="cpu")
+    print(f"  card (bf16) vs CPU (float32), {Bc} x {Pc} prompt + {steps} steps, teacher-forced: "
+          f"worst relative error {worst[0]:.4f} (l2) / {worst[1]:.4f} (max) <= {LOGIT_TOL}; "
+          f"argmax agrees {agree}/{Bc * (steps + 1)}")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(v, fn) for v in tree]
+    return fn(tree)
+
+
+def attention_timings(torch, flash_ops, decode_ops, flash_ref, decode_ref, cfg, max_err,
+                      launches):
+    """Phase 9: B3 and B4 at the serving shapes; returns their records."""
+    import torch.nn.functional as F
+
+    B, S, H, Hkv, D = 8, 512, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    q, k, v = (torch.randn(shape, generator=gen, **bf16)
+               for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    err = attention_error(torch, "B3 at the serving shape", flash_ops.flash_attention(
+        q, k, v, causal=True), flash_ref(q, k, v, causal=True))
+    max_err["flash_attention"] = max(max_err["flash_attention"], err)
+    ms = time_cuda(torch, lambda: flash_ops.flash_attention(q, k, v, causal=True))
+    plain_ms = time_cuda(torch, lambda: flash_ref(q, k, v, causal=True), reps=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    pairs = B * H * S * (S + 1) // 2  # unmasked (query, key) pairs of the causal mask
+    flops = 4 * D * pairs
+    n_bytes = 2 * B * S * (2 * H + 2 * Hkv) * D  # bf16 q, k, v read and o written once
+    bound = _bound(flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    records = [_record("flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:102",
+                       launches, max_err, ms, plain_ms, bound, lib_ms)]
+    print(f"  B3 flash_attention B={B} S={S} H={H} D={D} bf16 causal: {ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.2f} MB; "
+          f"{100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms")
+
+    S_cache, length = 576, 575  # the last decode step of phase 8: 512 + 63 tokens cached
+    qd = torch.randn(B, H, D, generator=gen, **bf16)
+    kc, vc = (torch.randn(B, S_cache, Hkv, D, generator=gen, **bf16) for _ in range(2))
+    lengths = torch.full((B,), length, dtype=torch.int32, device="cuda")
+    err = attention_error(torch, "B4 at the serving shape", decode_ops.decode_attention(
+        qd, kc, vc, lengths), decode_ref(qd, kc, vc, lengths))
+    max_err["decode_attention"] = max(max_err["decode_attention"], err)
+    ms = time_cuda(torch, lambda: decode_ops.decode_attention(qd, kc, vc, lengths))
+    plain_ms = time_cuda(torch, lambda: decode_ref(qd, kc, vc, lengths), reps=5)
+    qs = qd[:, :, None]
+    ks, vs = (x[:, :length].transpose(1, 2).contiguous() for x in (kc, vc))
+    lib_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs))
+    n_bytes = 2 * B * length * Hkv * D * 2 + 2 * B * H * D * 2 + B * 4
+    flops = 4 * B * H * length * D
+    bound = _bound(flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    records.append(_record("decode_attention", "src/repro_torch/kernels/decode_attention/csrc/"
+                           "decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:75",
+                           launches, max_err, ms, plain_ms, bound, lib_ms))
+    print(f"  B4 decode_attention B={B} H={H} S={S_cache} lengths {length} D={D} bf16: "
+          f"{ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({n_bytes / 1e6:.2f} MB; "
+          f"{100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms")
+    return records
+
+
+def _bound(op_s, byte_s):
+    """(ms, what bounds it): the larger of the operations' and the bytes' times."""
+    return (max(op_s, byte_s) * 1e3, "operations" if op_s >= byte_s else "bytes")
+
+
+def _record(name, source, replaces, launches, max_err, ms, plain_ms, bound, lib_ms):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches[name], max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "core").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch is missing)",
@@ -164,6 +405,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch.core as P
     from repro_torch.core.schedule_state import ScheduleState
+    from repro_torch.kernels._build import build_info
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.sched_scoring import kernel, ops
 
     wall = {}
@@ -173,12 +417,20 @@ def main() -> int:
     # [1] build and device ------------------------------------------------
     print(f"[1] build and device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"  nvidia-smi: {smi}")
-    kernel.load_library()
-    print(f"  built {kernel.SOURCE.relative_to(ROOT)} for sm_90a in "
-          f"{kernel.BUILD_INFO.get('seconds', 0.0):.2f} s -> {kernel.BUILD_INFO['library']}")
-    for line in kernel.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
-            print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, all started together
+        builds = [pool.submit(k.load_library) for k in (kernel, flash_kernel, decode_kernel)]
+        for build in builds:
+            build.result()
+    wall["build_s"] = time.perf_counter() - t0
+    for k in (kernel, flash_kernel, decode_kernel):
+        info = build_info(k.SOURCE)
+        print(f"  built {k.SOURCE.relative_to(ROOT)} for sm_90a in "
+              f"{info.get('seconds', 0.0):.2f} s -> {info['library']}")
+        for line in info.get("log", "").splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                print(f"  ptxas: {line.strip()}")
+    print(f"  all three built in {wall['build_s']:.2f} s")
 
     # [2] kernel against its plain version on the card ---------------------
     print("[2] kernel against its plain PyTorch version on the card")
@@ -366,6 +618,35 @@ def main() -> int:
     wall["sweep_ms"] = statistics.median(sweep)
     print(f"  one host-to-host sweep at {B} x {T} (int32 conversion, copy, kernel, readback): "
           f"{wall['sweep_ms']:.3f} ms median of 5")
+
+    # [7] attention kernels against their plain versions -------------------
+    print("[7] attention kernels (B3, B4) against their plain PyTorch versions on the card")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.serve_lm import serve
+
+    t_lm = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    attn_err = attention_phase(torch, flash_ops, decode_ops, flash_attention_ref,
+                               decode_attention_ref)
+
+    # [8] LM serving at full width ------------------------------------------
+    print("[8] serving qwen1.5-0.5b at full width: init_params -> init_caches -> prefill -> "
+          "decode_step")
+    lm_cfg = get_config("qwen1.5-0.5b")
+    lm_launches = serve_phase(torch, flash_ops, decode_ops, M, serve, lm_cfg, wall)
+
+    # [9] attention timings -------------------------------------------------
+    print("[9] attention timings at the serving shapes (CUDA events, cold L2, median of 15; "
+          "plain version median of 5)")
+    records += attention_timings(torch, flash_ops, decode_ops, flash_attention_ref,
+                                 decode_attention_ref, lm_cfg, attn_err, lm_launches)
+    wall["phases_7_9_s"] = time.perf_counter() - t_lm
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

@@ -1,0 +1,18 @@
+"""InternLM2-1.8B [arXiv:2403.17297; hf].
+
+24 layers, d_model 2048, 16 heads (GQA kv=8), d_ff 8192, vocab 92544.
+"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    n_layers=24,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab_size=92_544,
+    rope_theta=1e6,
+)

@@ -1,0 +1,172 @@
+"""GQA/MQA attention with a KV cache: prefill and one-token decode.
+
+The port of ``repro.models.attention`` for the branches a dense model's
+serving path takes. The attention itself runs through the port's kernels:
+
+* prefill (Sq > 1) writes the new keys and values into the cache at
+  ``pos``, then ``ops.flash_attention(causal=True)`` attends over the
+  cache's first ``pos + Sq`` slots, read in place. This is the function
+  ``repro``'s ``sdpa`` computes over the whole cache with ``kv_valid``:
+  slots past ``pos + Sq`` contribute nothing;
+* decode (Sq = 1) writes at ``pos``, then ``ops.decode_attention`` attends
+  over the first ``pos + 1`` slots of every row.
+
+Without a cache, ``flash_attention`` runs over the fresh keys and values.
+``sdpa`` is the plain reference of the model path. Unlike the JAX package,
+which returns new arrays, the port writes the cache tensors in place (no
+second copy of every layer's cache per step) and returns a ``KVCache``
+with the advanced ``pos``. Ring (window) caches and cross-attention come
+with the RecurrentGemma and Whisper slices (ROADMAP A12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.layers import dense, init_dense
+
+__all__ = [
+    "KVCache",
+    "init_attention",
+    "attention_block",
+    "init_kv_cache",
+    "sdpa",
+]
+
+NEG_INF = -2.0e38
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Ring-less KV cache: ``k``/``v`` are (B, S_cache, Hkv, D); ``pos`` is the
+    number of valid entries, a host int, the same for every row (batched
+    decode steps run in lockstep, as in the JAX package)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: int
+
+
+def init_kv_cache(
+    batch: int, s_cache: int, n_kv_heads: int, head_dim: int, dtype: torch.dtype,
+    device: str | torch.device = "cuda",
+) -> KVCache:
+    dev = resolve_device(device)
+    shape = (batch, s_cache, n_kv_heads, head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev), pos=0)
+
+
+def init_attention(
+    gen: torch.Generator,
+    d_model: int,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    dtype: torch.dtype,
+    qkv_bias: bool = False,
+) -> dict:
+    return {
+        "wq": init_dense(gen, d_model, n_heads * head_dim, dtype, bias=qkv_bias),
+        "wk": init_dense(gen, d_model, n_kv_heads * head_dim, dtype, bias=qkv_bias),
+        "wv": init_dense(gen, d_model, n_kv_heads * head_dim, dtype, bias=qkv_bias),
+        "wo": init_dense(gen, n_heads * head_dim, d_model, dtype,
+                         scale=(n_heads * head_dim) ** -0.5),
+    }
+
+
+def sdpa(
+    q: torch.Tensor,          # (B, Sq, H, D)
+    k: torch.Tensor,          # (B, Sk, Hkv, D)
+    v: torch.Tensor,          # (B, Sk, Hkv, D)
+    *,
+    causal: bool,
+    window: int = 0,
+    q_positions: torch.Tensor | None = None,  # (Sq,) absolute positions of queries
+    kv_valid: torch.Tensor | None = None,     # (Sk,) bool, valid cache slots
+    k_positions: torch.Tensor | None = None,  # (Sk,) absolute positions of keys
+) -> torch.Tensor:
+    """Grouped scaled-dot-product attention, the plain model-path reference.
+
+    Operands in their own type, products accumulated in float32 (the JAX
+    package's bf16-operand, f32-accumulation einsums), probabilities cast
+    back to the input type before the second product.
+    """
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D) * torch.tensor(D ** -0.5, dtype=q.dtype).item()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    q_pos = q_positions if q_positions is not None else torch.arange(Sq, device=q.device)
+    k_pos = k_positions if k_positions is not None else torch.arange(Sk, device=q.device)
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    if kv_valid is not None:
+        mask &= kv_valid[None, :]
+    scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), v.float())
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def attention_block(
+    p: dict,
+    x: torch.Tensor,                     # (B, Sq, d_model)
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    causal: bool = True,
+    window: int = 0,
+    rope_fn=None,                        # fn(x4d, positions) -> x4d, or None
+    positions: torch.Tensor | None = None,  # (Sq,) absolute positions
+    cache: KVCache | None = None,
+    cross_kv=None,
+) -> tuple[torch.Tensor, KVCache | None]:
+    """Full attention sub-layer: qkv proj -> rope -> (cache write) -> attention -> out.
+
+    Returns (output, updated cache); the cache's tensors are written in place.
+    """
+    if cross_kv is not None:
+        raise NotImplementedError("cross-attention comes with the Whisper slice (ROADMAP A12)")
+    B, Sq, _ = x.shape
+    q = dense(p["wq"], x).reshape(B, Sq, n_heads, head_dim)
+    k = dense(p["wk"], x).reshape(B, Sq, n_kv_heads, head_dim)
+    v = dense(p["wv"], x).reshape(B, Sq, n_kv_heads, head_dim)
+
+    if positions is None:
+        base = cache.pos if cache is not None else 0
+        positions = torch.arange(base, base + Sq, device=x.device)
+    if rope_fn is not None:
+        q = rope_fn(q, positions)
+        k = rope_fn(k, positions)
+
+    if cache is None:
+        out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        s_cache, pos = cache.k.shape[1], cache.pos
+        if window or Sq > s_cache:
+            raise NotImplementedError(
+                "window and ring caches come with the RecurrentGemma slice (ROADMAP A12)")
+        if pos + Sq > s_cache:
+            raise ValueError(f"KV cache full: {pos} + {Sq} tokens > {s_cache} slots")
+        # Rope is applied before caching, so stored keys carry their positions.
+        cache.k[:, pos:pos + Sq] = k.to(cache.k.dtype)
+        cache.v[:, pos:pos + Sq] = v.to(cache.v.dtype)
+        cache = KVCache(k=cache.k, v=cache.v, pos=pos + Sq)
+        qc = q.to(cache.k.dtype)
+        if Sq == 1:
+            lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+            out = decode_ops.decode_attention(qc[:, 0], cache.k, cache.v, lengths)[:, None]
+        else:
+            out = flash_ops.flash_attention(qc, cache.k[:, :pos + Sq], cache.v[:, :pos + Sq],
+                                            causal=causal)
+        out = out.to(q.dtype)
+    return dense(p["wo"], out.reshape(B, Sq, n_heads * head_dim)), cache

@@ -1,0 +1,106 @@
+"""Common layers of a dense GQA block: RMS norm, rotary embeddings, dense
+projections, the SwiGLU MLP and token embeddings.
+
+The port of the parts of ``repro.models.layers`` that a dense block uses,
+with the same parameter dicts (``{"w": (d_in, d_out), "b": (d_out,)}``,
+``{"table": (vocab, d)}``) and the same float32 islands (norms and rotary
+rotation compute in float32 and cast back). Init functions draw from an
+explicit ``torch.Generator`` and create the tensors on its device; they do
+not give ``jax.random``'s numbers, so tests hand both packages the same
+parameters through ``repro_torch.models.convert``. ``MeshCtx`` and the
+sharding helpers are TPU tooling (ROADMAP A15); ``layer_norm``,
+``apply_mrope`` and the GELU MLP come with their families.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "rms_norm",
+    "rope",
+    "apply_rope",
+    "init_dense",
+    "dense",
+    "init_mlp",
+    "mlp",
+    "init_embedding",
+    "embed_tokens",
+]
+
+
+def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+def rope(positions: torch.Tensor, dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., S) int positions -> cos/sin of shape (..., S, dim/2), float32."""
+    exponents = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    freqs = 1.0 / (theta ** exponents)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of the head dim (not interleaved pairs).
+
+    x: (B, S, H, D); cos/sin: (S, D/2) or (B, S, D/2).
+    """
+    dtype = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    if cos.ndim == 2:  # (S, D/2) -> broadcast over batch and heads
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:              # (B, S, D/2)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dtype)
+
+
+def init_dense(
+    gen: torch.Generator,
+    d_in: int,
+    d_out: int,
+    dtype: torch.dtype,
+    bias: bool = False,
+    scale: float | None = None,
+) -> dict:
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn(d_in, d_out, generator=gen, dtype=dtype, device=gen.device) * scale
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=gen.device)
+    return p
+
+
+def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) -> dict:
+    """Gated SwiGLU MLP (llama-style)."""
+    return {
+        "w_gate": init_dense(gen, d_model, d_ff, dtype),
+        "w_up": init_dense(gen, d_model, d_ff, dtype),
+        "w_down": init_dense(gen, d_ff, d_model, dtype, scale=d_ff ** -0.5),
+    }
+
+
+def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return dense(p["w_down"], F.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x))
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype: torch.dtype) -> dict:
+    return {"table": torch.randn(vocab, d_model, generator=gen, dtype=dtype,
+                                 device=gen.device) * 0.02}
+
+
+def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]

@@ -1,0 +1,277 @@
+"""Config-driven composition of a dense decoder: init, prefill and decode.
+
+The port of ``repro.models.model`` for dense GQA architectures (every block
+``attn``, no MoE, MLA, recurrence, encoder or M-RoPE: ``qwen1.5-0.5b``,
+``internlm2-1.8b``, ``yi-9b``, ``starcoder2-7b``). The model is the same
+sequence of segments (``segments_of``); a Python loop over each segment's
+repeats replaces ``lax.scan`` and ``jax.checkpoint``. Parameters are plain
+dicts of tensors with the JAX tree's names; ``params["segments"][s][i]`` is
+the list, over the segment's repeats, of the dicts that the JAX package
+stacks along a leading axis. Caches nest the same way.
+
+Public entry points, each on an explicit device that defaults to
+``"cuda"`` and raises without a card:
+
+* ``init_params(cfg, seed=0, device=...)``
+* ``init_caches(cfg, batch, s_cache, dtype=None, device=...)``
+* ``prefill(params, cfg, batch, caches, device=...)``   — fill caches, last-token logits
+* ``decode_step(params, cfg, batch, caches, device=...)`` — one-token serve step
+
+``loss_fn`` comes with the training slice (ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    apply_rope,
+    embed_tokens,
+    init_dense,
+    init_embedding,
+    init_mlp,
+    mlp,
+    rms_norm,
+    rope,
+)
+
+__all__ = [
+    "Signature",
+    "segments_of",
+    "init_params",
+    "init_caches",
+    "forward",
+    "prefill",
+    "decode_step",
+]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+# ---------------------------------------------------------------------------
+# Segmentation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Signature:
+    kind: str          # attn | local_attn | rglru | mlstm | slstm
+    moe: bool
+    cross: bool = False  # decoder block with cross-attention (Whisper)
+
+
+def _layer_signatures(cfg: ModelConfig) -> list[Signature]:
+    sigs = []
+    for i, kind in enumerate(cfg.resolved_block_pattern):
+        moe = cfg.is_moe and i >= cfg.n_dense_layers and kind in ("attn", "local_attn")
+        sigs.append(Signature(kind=kind, moe=moe, cross=cfg.is_encoder_decoder))
+    return sigs
+
+
+def _smallest_period(seq: list) -> int:
+    n = len(seq)
+    for p in range(1, n + 1):
+        if all(seq[i] == seq[i % p] for i in range(n)):
+            return p
+    return n
+
+
+def segments_of(cfg: ModelConfig) -> list[tuple[tuple[Signature, ...], int]]:
+    """[(pattern, repeats), ...] covering the decoder stack in order."""
+    sigs = _layer_signatures(cfg)
+    n = len(sigs)
+    p = _smallest_period(sigs)
+    if p <= max(4, n // 2):
+        reps = n // p
+        segs = [(tuple(sigs[:p]), reps)]
+        if n % p:
+            segs.append((tuple(sigs[reps * p:]), 1))
+        return segs
+    # Fallback: maximal uniform runs (handles DeepSeek's dense prefix).
+    segs = []
+    start = 0
+    for i in range(1, n + 1):
+        if i == n or sigs[i] != sigs[start]:
+            segs.append(((sigs[start],), i - start))
+            start = i
+    return segs
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    """Raise for any part of a config the port's blocks cannot run yet."""
+    missing = [
+        what for what, present in (
+            ("MLA attention", cfg.use_mla),
+            ("MoE blocks", cfg.is_moe),
+            ("the encoder-decoder stack (Whisper)", cfg.is_encoder_decoder),
+            ("M-RoPE", bool(cfg.mrope_sections)),
+            ("embedding inputs", cfg.embedding_inputs),
+            ("the MTP head", bool(cfg.mtp_depth)),
+        ) if present
+    ]
+    kinds = sorted(set(cfg.resolved_block_pattern) - {"attn"})
+    if kinds:
+        missing.append(f"{'/'.join(kinds)} blocks (RecurrentGemma, xLSTM)")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense attention blocks only; {', '.join(missing)} "
+            "come with later slices (ROADMAP A12)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, dt: torch.dtype) -> dict:
+    zeros = lambda: torch.zeros(cfg.d_model, dtype=dt, device=gen.device)  # noqa: E731
+    p: dict[str, Any] = {"norm1": zeros()}
+    p["attn"] = attn_lib.init_attention(
+        gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
+        qkv_bias=cfg.qkv_bias,
+    )
+    p["norm2"] = zeros()
+    if cfg.d_ff:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda") -> dict:
+    """Random parameters (normal * fan-in^-1/2, zero norms and biases, as the
+    JAX package draws them) from a ``torch.Generator`` seeded with ``seed``
+    on ``device``. The numbers are not ``jax.random``'s."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = _DTYPES[cfg.param_dtype]
+    params: dict[str, Any] = {
+        "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, dt),
+        "final_norm": torch.zeros(cfg.d_model, dtype=dt, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_dense(gen, cfg.d_model, cfg.padded_vocab, dt,
+                                       scale=cfg.d_model ** -0.5)
+    params["segments"] = [
+        [[_init_block(gen, cfg, dt) for _ in range(reps)] for _sig in pattern]
+        for pattern, reps in segments_of(cfg)
+    ]
+    return params
+
+
+def init_caches(cfg: ModelConfig, batch: int, s_cache: int, dtype: torch.dtype | None = None,
+                device: str | torch.device = "cuda") -> list:
+    """Empty KV caches, nested [segment][pattern entry][repeat]."""
+    _check_supported(cfg)
+    dtype = dtype or _DTYPES[cfg.dtype]
+    return [
+        [[attn_lib.init_kv_cache(batch, s_cache, cfg.n_kv_heads, cfg.resolved_head_dim,
+                                 dtype, device) for _ in range(reps)] for _sig in pattern]
+        for pattern, reps in segments_of(cfg)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, *, rope_fn, positions):
+    h = rms_norm(p["norm1"], x, cfg.norm_eps)
+    y, new_cache = attn_lib.attention_block(
+        p["attn"], h,
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim,
+        rope_fn=rope_fn,
+        positions=positions,
+        cache=cache,
+    )
+    x = x + y
+    if "mlp" in p:
+        x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
+    return x, new_cache
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[torch.Tensor, Any]:
+    """Trunk forward. Returns (hidden (B, S, d), new caches).
+
+    ``batch["tokens"]`` is (B, S) on the parameters' device; positions start
+    at ``batch["pos0"]``, else at the caches' ``pos``, else at 0.
+    """
+    _check_supported(cfg)
+    x = embed_tokens(params["embed"], batch["tokens"])
+    # The scale rounded to the activation type first, as the JAX package does.
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+
+    pos0 = batch.get("pos0")
+    if pos0 is None:
+        pos0 = caches[0][0][0].pos if caches is not None else 0
+    S = x.shape[1]
+    positions = torch.arange(int(pos0), int(pos0) + S, device=x.device)
+    cos, sin = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)  # once for all layers
+
+    def rope_fn(t, _positions):
+        return apply_rope(t, cos, sin)
+
+    new_caches = [] if caches is not None else None
+    for si, (pattern, reps) in enumerate(segments_of(cfg)):
+        seg_params = params["segments"][si]
+        seg_out = [[None] * reps for _ in pattern]
+        for r in range(reps):
+            for pi in range(len(pattern)):
+                cache = caches[si][pi][r] if caches is not None else None
+                x, seg_out[pi][r] = _apply_block(seg_params[pi][r], x, cfg, cache,
+                                                 rope_fn=rope_fn, positions=positions)
+        if new_caches is not None:
+            new_caches.append(seg_out)
+    return x, new_caches
+
+
+def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """(B, S, padded_vocab) logits; padding columns masked to -1e30 so they
+    never win an argmax."""
+    h = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    if cfg.tie_embeddings or "lm_head" not in params:
+        logits = h @ params["embed"]["table"].T
+    else:
+        logits = h @ params["lm_head"]["w"]
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits
+
+
+def _on_device(params: dict, batch: dict, device) -> dict:
+    """The batch with its tokens on ``device``, after checking the request
+    and that the parameters lie there."""
+    dev = resolve_device(device)
+    if params["embed"]["table"].device.type != dev.type:
+        raise ValueError(f"parameters lie on {params['embed']['table'].device}, not {dev}")
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"]["table"].device)
+    return {**batch, "tokens": tokens}
+
+
+def prefill(params: dict, cfg: ModelConfig, batch: dict, caches,
+            device: str | torch.device = "cuda"):
+    """Run the full prompt through the model, filling caches.
+
+    Returns (last-token logits (B, vocab_size), caches).
+    """
+    batch = _on_device(params, batch, device)
+    h, caches = forward(params, cfg, batch, caches=caches)
+    logits = _logits(params, cfg, h[:, -1:])
+    return logits[:, 0, :cfg.vocab_size], caches
+
+
+def decode_step(params: dict, cfg: ModelConfig, batch: dict, caches,
+                device: str | torch.device = "cuda"):
+    """One-token decode. batch["tokens"]: (B, 1). Returns (logits (B, vocab_size), caches).
+
+    The same computation as ``prefill`` over one token: the attention block
+    takes its decode branch from the token count."""
+    return prefill(params, cfg, batch, caches, device=device)

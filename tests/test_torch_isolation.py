@@ -45,7 +45,10 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = (
-        "import sys, repro_torch.core, repro_torch.kernels.sched_scoring.ops;"
+        "import sys, repro_torch.core, repro_torch.kernels.sched_scoring.ops,"
+        " repro_torch.kernels.flash_attention.ops, repro_torch.kernels.decode_attention.ops,"
+        " repro_torch.models.model, repro_torch.models.convert, repro_torch.configs,"
+        " repro_torch.launch.steps, repro_torch.launch.profile_serve, repro_torch.serve_lm;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')];"
         "sys.exit(1 if bad else 0)"
     )
@@ -73,6 +76,22 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
         lambda: P.optimal_schedule(P.linear_topology(), cl, max_total_tasks=5),
         lambda: P.simulate_batch(etg, cl, tm, 1.0),
         lambda: P.simulate(etg, cl, 1.0),
+    ]
+    # The LM serving path defaults to the card as well.
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve_lm import serve
+
+    lm = get_config("qwen1.5-0.5b").reduced()
+    params = M.init_params(lm, device="cpu")
+    caches = M.init_caches(lm, 1, 4, device="cpu")
+    tokens = {"tokens": np.zeros((1, 2), np.int64)}
+    calls += [
+        lambda: M.init_params(lm),
+        lambda: M.init_caches(lm, 1, 4),
+        lambda: M.prefill(params, lm, tokens, caches),
+        lambda: M.decode_step(params, lm, tokens, caches),
+        lambda: serve(lm, batch=1, prompt_len=2, gen_len=2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
