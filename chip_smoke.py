@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: builds the kernels, drives the
-paper's main path and the LM serving path on one NVIDIA GPU, holds every
+paper's main path and the LM serving paths on one NVIDIA GPU, holds every
 kernel against its plain PyTorch version, and prints the kernels' numbers.
 
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 Phases (each raises on failure; nothing is caught):
 
-1. build the three kernel sources (``sched_scoring.cu``, ``flash_attention.cu``,
-   ``decode_attention.cu``) for sm_90a, one nvcc each, all at once; card name
-   and power limit;
+1. build the four kernel sources (``sched_scoring.cu``, ``flash_attention.cu``,
+   ``decode_attention.cu``, ``rglru_scan.cu``) for sm_90a, one nvcc each, all
+   at once; card name and power limit;
 2. kernel against its plain version on the card, over the scoring regimes
    and edge shapes (identical feasibility mask and argmax, max abs error 0);
 3. main path at full width: ``schedule`` on ``paper_cluster((20, 70, 90))``
@@ -18,17 +18,27 @@ Phases (each raises on failure; nothing is caught):
    (3 rounds) on the card equal to the CPU path and the reference's result;
 5. ``optimal_schedule`` on ``paper_cluster((1, 1, 1))``: the reference golden;
 6. timings with CUDA events (cold L2, median) at B=16384, T=478, m=180;
-7. the attention kernels (B3 flash, B4 decode) against their plain versions
-   on the card: GQA (G 2 and 8), MQA, window, bidirectional, ragged S (192,
-   300, 600), per-row lengths down to 1, float32 and bfloat16;
+7. the attention kernels (B3 flash, B4 decode) and the RG-LRU scan (B5)
+   against their plain versions on the card: GQA (G 2 and 8), MQA, window,
+   bidirectional, ragged S (192, 300, 600), per-row lengths down to 1,
+   recurrentgemma-2b's shapes (B3 at 8 x 2304, window 2048, 10 heads on 1
+   KV head of 256; B4 over 2048 slots); B5 at ragged S (1, 37, 100, 2304)
+   and W (37, 2560) from a non-zero h0; float32 and bfloat16;
 8. LM serving at full width: ``qwen1.5-0.5b`` (24 layers, bf16, random
    weights from a seed) serves 8 requests of 512 prompt tokens and 64
    generated tokens through ``init_params -> init_caches -> prefill ->
    decode_step``; 24 B3 launches per prefill, 24 B4 launches per decode
    step; then 2 requests x 128 prompt tokens x 8 steps on the card against
    the same weights in float32 on the CPU, fed the card's tokens;
-9. B3 and B4 timed at the serving shapes beside their plain versions and
-   ``scaled_dot_product_attention``.
+   ``recurrentgemma-2b`` at full width and depth (26 layers, bf16) serves 8
+   requests of 2304 prompt tokens and 64 generated tokens over 2048-slot
+   local-attention rings that the prefill rolls and decode wraps; 18 B5 and
+   8 B3 launches per prefill, 8 B4 launches per decode step; then its first
+   6 layers (two periods of the block pattern), 2 requests x 2100 prompt
+   tokens x 16 steps, on the card against float32 on the CPU;
+9. B3 and B4 timed at both models' serving shapes beside their plain
+   versions and ``scaled_dot_product_attention``; B5 at its serving shape
+   beside its plain version.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -53,6 +63,7 @@ SRC = ROOT / "src"
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 34e12  # vector FP64, outside the tensor cores
+FP32_FLOPS_PER_S = 67e12  # vector FP32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
 
 # The reference's results (``repro.core``, NumPy scoring) for phases 3-5.
@@ -176,6 +187,7 @@ FLASH_CASES = [
     ("ragged S=192", 1, 192, 192, 2, 2, 64, True, 0),
     ("window without causal, Sk=300", 1, 100, 300, 4, 2, 32, False, 40),
     ("ragged S=600, window 200, D=256", 1, 600, 600, 2, 2, 256, True, 200),
+    ("recurrentgemma prefill, window 2048, MQA", 8, 2304, 2304, 10, 1, 256, True, 2048),
 ]
 DECODE_CASES = [
     ("serving shape", 8, 16, 16, 576, 64),
@@ -184,7 +196,21 @@ DECODE_CASES = [
     ("MQA, D=128", 4, 4, 1, 512, 128),
     ("ragged S=600", 3, 16, 16, 600, 64),
     ("ragged S=192, D=256", 2, 16, 2, 192, 256),
+    ("recurrentgemma ring of 2048, MQA", 8, 10, 1, 2048, 256),
 ]
+# Phase 7's B5 cases: (label, B, S, W), from a non-zero h0.
+SCAN_CASES = [
+    ("serving shape", 8, 2304, 2560),
+    ("S=1", 2, 1, 2560),
+    ("S=37, W=37 (B x W = 111)", 3, 37, 37),
+    ("S=100, W=100 (B x W = 500)", 5, 100, 100),
+    ("S=2304, W=37", 1, 2304, 37),
+]
+# B5 against its plain version: both carry float32 and round each product
+# and sum once, in the same order, so they agree bit for bit; the bound is
+# the scan tolerance of tests/test_kernels.py, float32 1e-5 (bf16 outputs
+# are the same float32 states, each rounded once).
+SCAN_TOL = 1e-5
 # Kernel vs plain version on the same card, elementwise |got - want| <=
 # atol + rtol |want|. Both compute in float32 and differ only in the order of
 # sums: float32 2e-5, the tolerance of tests/test_kernels.py. In bfloat16
@@ -211,10 +237,27 @@ def attention_error(torch, what, got, want) -> float:
     return err
 
 
-def attention_phase(torch, flash_ops, decode_ops, flash_ref, decode_ref):
-    """Phase 7: each attention kernel against its plain version on the card."""
+def scan_inputs(torch, gen, B, S, W, dtype):
+    a = torch.sigmoid(torch.randn(B, S, W, generator=gen, device="cuda")).to(dtype)
+    b = torch.randn(B, S, W, generator=gen, device="cuda").to(dtype)
+    return a, b, torch.randn(B, W, generator=gen, device="cuda")
+
+
+def scan_error(torch, what, got, want) -> float:
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(torch.allclose(got, want, atol=SCAN_TOL, rtol=SCAN_TOL),
+          f"{what}: max abs error {err}, over {SCAN_TOL}")
+    return err
+
+
+def kernel_phase(torch, flash_ops, decode_ops, scan_ops, flash_ref, decode_ref, scan_ref):
+    """Phase 7: each attention kernel and the scan against its plain version
+    on the card."""
     gen = torch.Generator(device="cuda").manual_seed(7)
-    max_err = {"flash_attention": 0.0, "decode_attention": 0.0}
+    max_err = {"flash_attention": 0.0, "decode_attention": 0.0, "rglru_scan": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         for label, B, Sq, Sk, H, Hkv, D, causal, window in FLASH_CASES:
@@ -238,31 +281,33 @@ def attention_phase(torch, flash_ops, decode_ops, flash_ref, decode_ref):
             err = attention_error(torch, f"decode_attention {label} {name}", got, want)
             max_err["decode_attention"] = max(max_err["decode_attention"], err)
             print(f"  B4 {label:<34} {name:<8} lengths {lengths.tolist()} max abs err {err:.3e}")
+        for label, B, S, W in SCAN_CASES:
+            a, b, h0 = scan_inputs(torch, gen, B, S, W, dtype)
+            err = scan_error(torch, f"rglru_scan {label} {name}", scan_ops.rglru_scan(a, b, h0),
+                             scan_ref(a, b, h0))
+            max_err["rglru_scan"] = max(max_err["rglru_scan"], err)
+            print(f"  B5 {label:<34} {name:<8} max abs err {err:.3e}")
     return max_err
 
 
-def serve_phase(torch, flash_ops, decode_ops, M, serve, cfg, wall):
-    """Phase 8: serve at full width on the card, then hold a short run
-    against the same weights in float32 on the CPU. Returns the launch counts
-    of the main run."""
-    params = M.init_params(cfg, seed=0, device="cuda")
+def serve_run(torch, kernel_ops, M, serve, cfg, params, B, prompt_len, gen_len, expected, wall):
+    """Serve at full width on the card with every launch count set to 0
+    just before; check the launches of the run against ``expected`` and
+    return them. A set-up run at the same batch and prompt length first
+    (allocator growth, cuBLAS's first calls at these shapes), so the times
+    are those of a warm server."""
     n_params = sum(t.numel() for t in _leaves(params))
-    B, prompt_len, gen_len = 8, 512, 64
-    serve(cfg, batch=2, prompt_len=16, gen_len=2, params=params, device="cuda")  # set-up
-    flash_ops.reset_launches()
-    decode_ops.reset_launches()
+    serve(cfg, batch=B, prompt_len=prompt_len, gen_len=2, params=params, device="cuda")
+    for ops in kernel_ops:
+        ops.reset_launches()
     res = serve(cfg, batch=B, prompt_len=prompt_len, gen_len=gen_len, params=params,
                 device="cuda")
-    launches = {**flash_ops.LAUNCHES, **decode_ops.LAUNCHES}
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"prefill launched B3 {launches['flash_attention']} times, not {cfg.n_layers}")
-    check(launches["decode_attention"] == cfg.n_layers * (gen_len - 1),
-          f"decode launched B4 {launches['decode_attention']} times, "
-          f"not {cfg.n_layers * (gen_len - 1)}")
+    launches = {k: v for ops in kernel_ops for k, v in ops.LAUNCHES.items()}
+    check(launches == expected, f"{cfg.name}: launches {launches}, not {expected}")
     toks = res.tokens
     check(tuple(toks.shape) == (B, gen_len) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab_size, "served tokens out of shape or vocabulary")
-    wall["prefill_s"], wall["decode_s"] = res.prefill_s, res.decode_s
+    wall[f"{cfg.name}_prefill_s"], wall[f"{cfg.name}_decode_s"] = res.prefill_s, res.decode_s
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
           f"{cfg.resolved_head_dim}, {n_params / 1e6:.1f} M parameters in {cfg.param_dtype}")
     print(f"  served {B} requests x {prompt_len} prompt + {gen_len} generated tokens: prefill "
@@ -270,9 +315,12 @@ def serve_phase(torch, flash_ops, decode_ops, M, serve, cfg, wall):
           f"{res.decode_s:.4f} s for {gen_len - 1} steps ({B * (gen_len - 1) / res.decode_s:,.1f} "
           f"tok/s, {1e3 * res.decode_s / (gen_len - 1):.3f} ms/step); launches {launches}")
     print(f"  sample output ids: {toks[0, :12].tolist()}")
+    return launches
 
-    # The same weights on the CPU in float32, teacher-forced with the card's tokens.
-    Bc, Pc, steps = 2, 128, 8
+
+def cpu_check(torch, M, cfg, params, Bc, Pc, steps) -> None:
+    """The same weights on the CPU in float32, teacher-forced with the card's
+    tokens: the card's bf16 logits within ``LOGIT_TOL`` at every step."""
     prompt = torch.randint(0, cfg.vocab_size, (Bc, Pc),
                            generator=torch.Generator().manual_seed(2))
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
@@ -303,7 +351,23 @@ def serve_phase(torch, flash_ops, decode_ops, M, serve, cfg, wall):
     print(f"  card (bf16) vs CPU (float32), {Bc} x {Pc} prompt + {steps} steps, teacher-forced: "
           f"worst relative error {worst[0]:.4f} (l2) / {worst[1]:.4f} (max) <= {LOGIT_TOL}; "
           f"argmax agrees {agree}/{Bc * (steps + 1)}")
-    return launches
+
+
+def first_layers(M, cfg, params, n_layers):
+    """The config and parameters of ``cfg``'s first ``n_layers`` layers, the
+    same tensors regrouped into the cut model's segments."""
+    cut = dataclasses.replace(cfg, n_layers=n_layers,
+                              block_pattern=cfg.resolved_block_pattern[:n_layers])
+    layers = [params["segments"][si][pi][r] for si, (pattern, reps) in enumerate(M.segments_of(cfg))
+              for r in range(reps) for pi in range(len(pattern))]
+    segments, i = [], 0
+    for pattern, reps in M.segments_of(cut):
+        seg = [[None] * reps for _ in pattern]
+        for r in range(reps):
+            for pi in range(len(pattern)):
+                seg[pi][r], i = layers[i], i + 1
+        segments.append(seg)
+    return cut, {**params, "segments": segments}
 
 
 def _leaves(tree):
@@ -325,58 +389,92 @@ def _map_leaves(tree, fn):
     return fn(tree)
 
 
-def attention_timings(torch, flash_ops, decode_ops, flash_ref, decode_ref, cfg, max_err,
-                      launches):
-    """Phase 9: B3 and B4 at the serving shapes; returns their records."""
-    import torch.nn.functional as F
+def sdpa_call(torch, F, q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call computing what B3 or B4
+    computes (heads first; a window as a boolean mask; GQA by the call's own
+    flag where the installed PyTorch has it, else K/V repeated beforehand)."""
+    H, Hkv, Sq, Sk = q.shape[2], k.shape[2], q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kw = {}
+    if H != Hkv:
+        if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+            kw["enable_gqa"] = True
+        else:
+            kt, vt = (x.repeat_interleave(H // Hkv, dim=1) for x in (kt, vt))
+    if window:
+        qpos = torch.arange(Sk - Sq, Sk, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        kw["attn_mask"] = (kpos <= qpos) & (kpos > qpos - window)
+    else:
+        kw["is_causal"] = causal
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
-    B, S, H, Hkv, D = 8, 512, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+def time_flash(torch, F, flash_ops, flash_ref, B, S, H, Hkv, D, window):
+    """B3 at (B, S, H, Hkv, D), bf16, causal: (max abs err, ms, plain ms,
+    bound, library ms) and a printed line."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     bf16 = dict(device="cuda", dtype=torch.bfloat16)
     q, k, v = (torch.randn(shape, generator=gen, **bf16)
                for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
-    err = attention_error(torch, "B3 at the serving shape", flash_ops.flash_attention(
-        q, k, v, causal=True), flash_ref(q, k, v, causal=True))
-    max_err["flash_attention"] = max(max_err["flash_attention"], err)
-    ms = time_cuda(torch, lambda: flash_ops.flash_attention(q, k, v, causal=True))
-    plain_ms = time_cuda(torch, lambda: flash_ref(q, k, v, causal=True), reps=5)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    pairs = B * H * S * (S + 1) // 2  # unmasked (query, key) pairs of the causal mask
+    kw = dict(causal=True, window=window)
+    err = attention_error(torch, f"B3 at B={B} S={S} H={H}",
+                          flash_ops.flash_attention(q, k, v, **kw), flash_ref(q, k, v, **kw))
+    ms = time_cuda(torch, lambda: flash_ops.flash_attention(q, k, v, **kw))
+    plain_ms = time_cuda(torch, lambda: flash_ref(q, k, v, **kw), reps=5)
+    lib_ms = time_cuda(torch, sdpa_call(torch, F, q, k, v, True, window))
+    # (query, key) pairs that the causal and window masks leave.
+    pairs = B * H * sum(min(i + 1, window or S) for i in range(S))
     flops = 4 * D * pairs
     n_bytes = 2 * B * S * (2 * H + 2 * Hkv) * D  # bf16 q, k, v read and o written once
     bound = _bound(flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-    records = [_record("flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
-                       "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:102",
-                       launches, max_err, ms, plain_ms, bound, lib_ms)]
-    print(f"  B3 flash_attention B={B} S={S} H={H} D={D} bf16 causal: {ms:.4f} ms, bound "
-          f"{bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.2f} MB; "
-          f"{100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
+    print(f"  B3 flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} window={window} bf16 causal: "
+          f"{ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.2f} GFLOP, "
+          f"{n_bytes / 1e6:.2f} MB; {100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {lib_ms:.4f} ms")
+    return err, ms, plain_ms, bound, lib_ms
 
-    S_cache, length = 576, 575  # the last decode step of phase 8: 512 + 63 tokens cached
+
+def time_decode(torch, F, decode_ops, decode_ref, B, H, Hkv, S_cache, length, D):
+    """B4 over ``length`` of ``S_cache`` slots, bf16: as ``time_flash``."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
     qd = torch.randn(B, H, D, generator=gen, **bf16)
     kc, vc = (torch.randn(B, S_cache, Hkv, D, generator=gen, **bf16) for _ in range(2))
     lengths = torch.full((B,), length, dtype=torch.int32, device="cuda")
-    err = attention_error(torch, "B4 at the serving shape", decode_ops.decode_attention(
+    err = attention_error(torch, f"B4 at B={B} S={S_cache}", decode_ops.decode_attention(
         qd, kc, vc, lengths), decode_ref(qd, kc, vc, lengths))
-    max_err["decode_attention"] = max(max_err["decode_attention"], err)
     ms = time_cuda(torch, lambda: decode_ops.decode_attention(qd, kc, vc, lengths))
     plain_ms = time_cuda(torch, lambda: decode_ref(qd, kc, vc, lengths), reps=5)
-    qs = qd[:, :, None]
-    ks, vs = (x[:, :length].transpose(1, 2).contiguous() for x in (kc, vc))
-    lib_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs))
+    lib_ms = time_cuda(torch, sdpa_call(torch, F, qd[:, None], kc[:, :length], vc[:, :length],
+                                        False, 0))
     n_bytes = 2 * B * length * Hkv * D * 2 + 2 * B * H * D * 2 + B * 4
     flops = 4 * B * H * length * D
     bound = _bound(flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-    records.append(_record("decode_attention", "src/repro_torch/kernels/decode_attention/csrc/"
-                           "decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:75",
-                           launches, max_err, ms, plain_ms, bound, lib_ms))
-    print(f"  B4 decode_attention B={B} H={H} S={S_cache} lengths {length} D={D} bf16: "
+    print(f"  B4 decode_attention B={B} H={H} Hkv={Hkv} S={S_cache} lengths {length} D={D} bf16: "
           f"{ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({n_bytes / 1e6:.2f} MB; "
           f"{100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {lib_ms:.4f} ms")
-    return records
+    return err, ms, plain_ms, bound, lib_ms
+
+
+def time_scan(torch, scan_ops, scan_ref, B, S, W):
+    """B5 at (B, S, W) float32 (the model's a and b): as ``time_flash``,
+    without a library call (no single PyTorch call computes a linear
+    recurrence)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    a, b, h0 = scan_inputs(torch, gen, B, S, W, torch.float32)
+    err = scan_error(torch, "B5 at the serving shape", scan_ops.rglru_scan(a, b, h0),
+                     scan_ref(a, b, h0))
+    ms = time_cuda(torch, lambda: scan_ops.rglru_scan(a, b, h0))
+    plain_ms = time_cuda(torch, lambda: scan_ref(a, b, h0), reps=5)
+    n_bytes = 3 * B * S * W * 4 + B * W * 4  # a, b read and h written once; h0
+    flops = 2 * B * S * W
+    bound = _bound(flops / FP32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    print(f"  B5 rglru_scan B={B} S={S} W={W} float32: {ms:.4f} ms, bound {bound[0]:.4f} ms by "
+          f"{bound[1]} ({n_bytes / 1e6:.2f} MB; {100 * bound[0] / ms:.1f}% of it), plain "
+          f"{plain_ms:.4f} ms; no single PyTorch call computes it, so library_ms is null")
+    return err, ms, plain_ms, bound, None
 
 
 def _bound(op_s, byte_s):
@@ -384,10 +482,11 @@ def _bound(op_s, byte_s):
     return (max(op_s, byte_s) * 1e3, "operations" if op_s >= byte_s else "bytes")
 
 
-def _record(name, source, replaces, launches, max_err, ms, plain_ms, bound, lib_ms):
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches[name], max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+def _record(name, source, replaces, launches, max_err, timing):
+    _err, ms, plain_ms, bound, lib_ms = timing
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=lib_ms)
 
 
 def main() -> int:
@@ -408,6 +507,7 @@ def main() -> int:
     from repro_torch.kernels._build import build_info
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rglru_scan import kernel as scan_kernel
     from repro_torch.kernels.sched_scoring import kernel, ops
 
     wall = {}
@@ -418,19 +518,20 @@ def main() -> int:
     print(f"[1] build and device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"  nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, all started together
-        builds = [pool.submit(k.load_library) for k in (kernel, flash_kernel, decode_kernel)]
+    kernel_modules = (kernel, flash_kernel, decode_kernel, scan_kernel)
+    with ThreadPoolExecutor(len(kernel_modules)) as pool:  # one nvcc per source, all at once
+        builds = [pool.submit(k.load_library) for k in kernel_modules]
         for build in builds:
             build.result()
     wall["build_s"] = time.perf_counter() - t0
-    for k in (kernel, flash_kernel, decode_kernel):
+    for k in kernel_modules:
         info = build_info(k.SOURCE)
         print(f"  built {k.SOURCE.relative_to(ROOT)} for sm_90a in "
               f"{info.get('seconds', 0.0):.2f} s -> {info['library']}")
         for line in info.get("log", "").splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  ptxas: {line.strip()}")
-    print(f"  all three built in {wall['build_s']:.2f} s")
+    print(f"  all four built in {wall['build_s']:.2f} s")
 
     # [2] kernel against its plain version on the card ---------------------
     print("[2] kernel against its plain PyTorch version on the card")
@@ -619,33 +720,93 @@ def main() -> int:
     print(f"  one host-to-host sweep at {B} x {T} (int32 conversion, copy, kernel, readback): "
           f"{wall['sweep_ms']:.3f} ms median of 5")
 
-    # [7] attention kernels against their plain versions -------------------
-    print("[7] attention kernels (B3, B4) against their plain PyTorch versions on the card")
+    # [7] LM kernels against their plain versions ---------------------------
+    print("[7] LM kernels (B3, B4, B5) against their plain PyTorch versions on the card")
+    import torch.nn.functional as F
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.models import model as M
     from repro_torch.serve_lm import serve
 
     t_lm = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
-    attn_err = attention_phase(torch, flash_ops, decode_ops, flash_attention_ref,
-                               decode_attention_ref)
+    lm_err = kernel_phase(torch, flash_ops, decode_ops, scan_ops, flash_attention_ref,
+                          decode_attention_ref, rglru_scan_ref)
+    lm_ops = (flash_ops, decode_ops, scan_ops)
 
     # [8] LM serving at full width ------------------------------------------
-    print("[8] serving qwen1.5-0.5b at full width: init_params -> init_caches -> prefill -> "
-          "decode_step")
+    print("[8] serving at full width: init_params -> init_caches -> prefill -> decode_step")
     lm_cfg = get_config("qwen1.5-0.5b")
-    lm_launches = serve_phase(torch, flash_ops, decode_ops, M, serve, lm_cfg, wall)
+    params = M.init_params(lm_cfg, seed=0, device="cuda")
+    gen_len = 64
+    qwen_launches = serve_run(
+        torch, lm_ops, M, serve, lm_cfg, params, 8, 512, gen_len,
+        dict(flash_attention=lm_cfg.n_layers, decode_attention=lm_cfg.n_layers * (gen_len - 1),
+             rglru_scan=0), wall)
+    cpu_check(torch, M, lm_cfg, params, 2, 128, 8)
+    del params
 
-    # [9] attention timings -------------------------------------------------
-    print("[9] attention timings at the serving shapes (CUDA events, cold L2, median of 15; "
+    rg_cfg = get_config("recurrentgemma-2b")
+    kinds = rg_cfg.resolved_block_pattern
+    n_rec, n_local = kinds.count("rglru"), kinds.count("local_attn")
+    params = M.init_params(rg_cfg, seed=0, device="cuda")
+    rg_launches = serve_run(
+        torch, lm_ops, M, serve, rg_cfg, params, 8, 2304, gen_len,
+        dict(flash_attention=n_local, decode_attention=n_local * (gen_len - 1),
+             rglru_scan=n_rec), wall)
+    print(f"  local-attention rings of {min(2304 + gen_len, rg_cfg.local_window)} slots: the "
+          f"prefill rolls 2304 tokens into them, decode wraps them {gen_len - 1} times")
+    cut, cut_params = first_layers(M, rg_cfg, params, 6)
+    print(f"  CPU check on {cut.n_layers} of {rg_cfg.n_layers} layers "
+          f"({', '.join(cut.resolved_block_pattern)}) at full width, window {cut.local_window}")
+    t0 = time.perf_counter()
+    cpu_check(torch, M, cut, cut_params, 2, 2100, 16)
+    wall["recurrentgemma_cpu_check_s"] = time.perf_counter() - t0
+    del params, cut_params
+
+    # [9] LM kernel timings -------------------------------------------------
+    print("[9] LM kernel timings at the serving shapes (CUDA events, cold L2, median of 15; "
           "plain version median of 5)")
-    records += attention_timings(torch, flash_ops, decode_ops, flash_attention_ref,
-                                 decode_attention_ref, lm_cfg, attn_err, lm_launches)
+    H, Hkv, D = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.resolved_head_dim
+    flash_t = time_flash(torch, F, flash_ops, flash_attention_ref, 8, 512, H, Hkv, D, 0)
+    # The last decode step of the qwen run: 512 + 63 tokens cached of 576.
+    decode_t = time_decode(torch, F, decode_ops, decode_attention_ref, 8, H, Hkv, 576, 575, D)
+    H, Hkv, D = rg_cfg.n_heads, rg_cfg.n_kv_heads, rg_cfg.resolved_head_dim
+    W, window = rg_cfg.lru_width, rg_cfg.local_window
+    rg_flash_t = time_flash(torch, F, flash_ops, flash_attention_ref, 8, 2304, H, Hkv, D, window)
+    # Every decode step of the recurrentgemma run attends over a full ring.
+    rg_decode_t = time_decode(torch, F, decode_ops, decode_attention_ref, 8, H, Hkv, window,
+                              window, D)
+    scan_t = time_scan(torch, scan_ops, rglru_scan_ref, 8, 2304, W)
+    for key, t in (("flash_attention", flash_t), ("flash_attention", rg_flash_t),
+                   ("decode_attention", decode_t), ("decode_attention", rg_decode_t),
+                   ("rglru_scan", scan_t)):
+        lm_err[key] = max(lm_err[key], t[0])
+    kernel_src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+    for key, replaces, timing, rg_timing in (
+        ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:102", flash_t, rg_flash_t),
+        ("decode_attention", "src/repro/kernels/decode_attention/kernel.py:75", decode_t,
+         rg_decode_t),
+    ):
+        # At qwen1.5-0.5b's shapes and launches, as since the kernel was
+        # ported; recurrentgemma-2b's beside them.
+        rec = _record(key, kernel_src.format(key), replaces, qwen_launches[key], lm_err[key],
+                      timing)
+        rg = _record(key, kernel_src.format(key), replaces, rg_launches[key], lm_err[key],
+                     rg_timing)
+        rec["recurrentgemma-2b"] = {k: rg[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms")}
+        records.append(rec)
+    records.append(_record("rglru_scan", kernel_src.format("rglru_scan"),
+                           "src/repro/kernels/rglru_scan/kernel.py:50",
+                           rg_launches["rglru_scan"], lm_err["rglru_scan"], scan_t))
     wall["phases_7_9_s"] = time.perf_counter() - t_lm
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 

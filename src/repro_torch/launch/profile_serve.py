@@ -4,11 +4,14 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch qwen1.5-0.5b]
         [--batch 8] [--prompt-len 512] [--steps 16]
 
+(``--arch recurrentgemma-2b --prompt-len 2304`` profiles the hybrid.)
 Serves the published width and depth with random weights (seed 0). For
 each phase it prints the host wall time (ended by a synchronise), the
 device busy time (the union of the kernels' and copies' intervals in the
-trace), the busy share and the kernels that took the most device time, then
-one JSON line with the same numbers. Needs a card; there is no CPU mode.
+trace), the busy share, the device time of each of the port's own kernels
+(B3 flash attention, B4 decode attention, B5 RG-LRU scan) and the kernels
+that took the most device time, then one JSON line with the same numbers.
+Needs a card; there is no CPU mode.
 """
 
 from __future__ import annotations
@@ -24,7 +27,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
 
-__all__ = ["profile_phase", "main"]
+__all__ = ["PORT_KERNELS", "profile_phase", "main"]
+
+# Substrings of the port's hand-written kernels' names in the trace.
+PORT_KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
 
 
 def profile_phase(fn, top: int = 8) -> dict:
@@ -50,8 +56,11 @@ def profile_phase(fn, top: int = 8) -> dict:
         by_name[name][0] += stop - start
         by_name[name][1] += 1
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    port = {k: dict(device_ms=sum(t for n, (t, _) in by_name.items() if k in n) * 1e-3,
+                    calls=sum(c for n, (_, c) in by_name.items() if k in n))
+            for k in PORT_KERNELS}
     return dict(wall_s=wall, device_busy_s=busy_us * 1e-6, busy_share=busy_us * 1e-6 / wall,
-                launches=len(spans),
+                launches=len(spans), port_kernels=port,
                 top=[dict(name=n[:80], device_ms=t * 1e-3, calls=c) for n, (t, c) in ranked])
 
 
@@ -90,6 +99,8 @@ def main(argv: list[str] | None = None) -> None:
         out[name] = res = profile_phase(fn)
         print(f"[{name}] wall {res['wall_s']:.4f} s, device busy {res['device_busy_s']:.4f} s "
               f"({100 * res['busy_share']:.1f}%), {res['launches']} device activities")
+        print("  port kernels: " + ", ".join(f"{k} {v['device_ms']:.3f} ms x{v['calls']}"
+                                             for k, v in res["port_kernels"].items()))
         for row in res["top"]:
             print(f"  {row['device_ms']:10.3f} ms  x{row['calls']:<6} {row['name']}")
     print(smi)

@@ -11,12 +11,24 @@ serving path takes. The attention itself runs through the port's kernels:
 * decode (Sq = 1) writes at ``pos``, then ``ops.decode_attention`` attends
   over the first ``pos + 1`` slots of every row.
 
+A local-attention block (``window`` > 0) keeps a ring of at most
+``window`` slots; position P lives in slot ``P % S_cache``:
+
+* prefill (at ``pos`` 0 only) runs ``ops.flash_attention(causal=True,
+  window=window)`` over the fresh keys and values, then writes the last
+  ``min(Sq, S_cache)`` positions into their slots;
+* decode writes at ``pos % S_cache``, then ``ops.decode_attention`` attends
+  over ``min(pos + 1, S_cache)`` slots. Every slot of a ring of at most
+  ``window`` slots holds a position inside the query's window and before
+  it, and softmax attention over a set does not depend on the order it is
+  stored in, so the ring's order needs no mask.
+
 Without a cache, ``flash_attention`` runs over the fresh keys and values.
 ``sdpa`` is the plain reference of the model path. Unlike the JAX package,
 which returns new arrays, the port writes the cache tensors in place (no
 second copy of every layer's cache per step) and returns a ``KVCache``
-with the advanced ``pos``. Ring (window) caches and cross-attention come
-with the RecurrentGemma and Whisper slices (ROADMAP A12).
+with the advanced ``pos``. Cross-attention comes with the Whisper slice
+(ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -43,9 +55,11 @@ NEG_INF = -2.0e38
 
 @dataclasses.dataclass
 class KVCache:
-    """Ring-less KV cache: ``k``/``v`` are (B, S_cache, Hkv, D); ``pos`` is the
-    number of valid entries, a host int, the same for every row (batched
-    decode steps run in lockstep, as in the JAX package)."""
+    """KV cache: ``k``/``v`` are (B, S_cache, Hkv, D); ``pos`` is the number
+    of tokens seen, a host int, the same for every row (batched decode
+    steps run in lockstep, as in the JAX package). A dense cache holds
+    them in slots 0..pos-1; a local-attention ring holds the last
+    ``min(pos, S_cache)`` of them, so ``pos`` may exceed ``S_cache``."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -150,11 +164,10 @@ def attention_block(
 
     if cache is None:
         out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    elif window:
+        out, cache = _ring_attention(q, k, v, cache, window, causal)
     else:
         s_cache, pos = cache.k.shape[1], cache.pos
-        if window or Sq > s_cache:
-            raise NotImplementedError(
-                "window and ring caches come with the RecurrentGemma slice (ROADMAP A12)")
         if pos + Sq > s_cache:
             raise ValueError(f"KV cache full: {pos} + {Sq} tokens > {s_cache} slots")
         # Rope is applied before caching, so stored keys carry their positions.
@@ -170,3 +183,32 @@ def attention_block(
                                             causal=causal)
         out = out.to(q.dtype)
     return dense(p["wo"], out.reshape(B, Sq, n_heads * head_dim)), cache
+
+
+def _ring_attention(q, k, v, cache: KVCache, window: int, causal: bool):
+    """Local attention against a ring cache; returns (out, cache)."""
+    B, Sq = q.shape[:2]
+    s_cache, pos = cache.k.shape[1], cache.pos
+    if s_cache > window or not causal:
+        raise ValueError(f"a ring cache serves causal local attention over at most window="
+                         f"{window} slots; got {s_cache} slots, causal={causal}")
+    if Sq > 1 and pos:
+        # The reference clamps such a write at the end of the ring and, from
+        # 2048 tokens on, ignores what the ring holds (ROADMAP C-ref-5);
+        # serving prefills once, at position 0.
+        raise NotImplementedError(
+            f"prefill at pos {pos} > 0 on a local-attention ring cache is not supported: "
+            "prefill once at pos 0, then decode")
+    kc, vc, qc = k.to(cache.k.dtype), v.to(cache.v.dtype), q.to(cache.k.dtype)
+    if Sq > 1:
+        out = flash_ops.flash_attention(qc, kc, vc, causal=True, window=window)
+        n = min(Sq, s_cache)
+        slots = torch.arange(Sq - n, Sq, device=q.device) % s_cache
+        cache.k[:, slots] = kc[:, Sq - n:]
+        cache.v[:, slots] = vc[:, Sq - n:]
+    else:
+        cache.k[:, pos % s_cache] = kc[:, 0]
+        cache.v[:, pos % s_cache] = vc[:, 0]
+        lengths = torch.full((B,), min(pos + 1, s_cache), dtype=torch.int32, device=q.device)
+        out = decode_ops.decode_attention(qc[:, 0], cache.k, cache.v, lengths)[:, None]
+    return out.to(q.dtype), KVCache(k=cache.k, v=cache.v, pos=pos + Sq)

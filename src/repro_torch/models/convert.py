@@ -1,4 +1,4 @@
-"""Parameters of the JAX package, as numpy arrays, to the port's parameters.
+"""Parameters and caches of the JAX package, as numpy arrays, to the port's.
 
 The counterpart of ``repro_torch.core.convert`` for the models: after
 conversion both packages compute the same function (the tests hold the
@@ -13,10 +13,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import segments_of
+from repro_torch.models.rglru import RGLRUState
 
-__all__ = ["params_from_jax"]
+__all__ = ["caches_from_jax", "params_from_jax"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -50,3 +52,24 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device: str | torch.device = "
         for seg_tree, (_pattern, reps) in zip(tree["segments"], segs)
     ]
     return out
+
+
+def caches_from_jax(caches: list, cfg: ModelConfig, device: str | torch.device = "cuda") -> list:
+    """Convert ``repro.models.model.init_caches``' caches (leaves as numpy
+    arrays, stacked over each segment's repeats) to the port's nesting
+    [segment][pattern entry][repeat] of ``KVCache`` and ``RGLRUState``.
+
+    The JAX classes are read by their fields: ``k``/``v``/``pos`` (the
+    stacked int32 ``pos`` becomes a host int) or ``h``/``conv``.
+    """
+    dev = resolve_device(device)
+
+    def one(c, r):
+        if hasattr(c, "conv"):
+            return RGLRUState(h=_tensor(np.asarray(c.h)[r], dev),
+                              conv=_tensor(np.asarray(c.conv)[r], dev))
+        return KVCache(k=_tensor(np.asarray(c.k)[r], dev), v=_tensor(np.asarray(c.v)[r], dev),
+                       pos=int(np.asarray(c.pos)[r]))
+
+    return [[[one(c, r) for r in range(reps)] for c in seg]
+            for seg, (_pattern, reps) in zip(caches, segments_of(cfg), strict=True)]

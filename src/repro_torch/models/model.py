@@ -1,10 +1,12 @@
-"""Config-driven composition of a dense decoder: init, prefill and decode.
+"""Config-driven composition of a decoder: init, prefill and decode.
 
 The port of ``repro.models.model`` for dense GQA architectures (every block
-``attn``, no MoE, MLA, recurrence, encoder or M-RoPE: ``qwen1.5-0.5b``,
-``internlm2-1.8b``, ``yi-9b``, ``starcoder2-7b``). The model is the same
-sequence of segments (``segments_of``); a Python loop over each segment's
-repeats replaces ``lax.scan`` and ``jax.checkpoint``. Parameters are plain
+``attn``: ``qwen1.5-0.5b``, ``internlm2-1.8b``, ``yi-9b``, ``starcoder2-7b``)
+and the Griffin hybrid (``rglru`` and ``local_attn`` blocks:
+``recurrentgemma-2b``); MoE, MLA, xLSTM, the encoder-decoder and M-RoPE
+come with later slices. The model is the same sequence of segments
+(``segments_of``); a Python loop over each segment's repeats replaces
+``lax.scan`` and ``jax.checkpoint``. Parameters are plain
 dicts of tensors with the JAX tree's names; ``params["segments"][s][i]`` is
 the list, over the segment's repeats, of the dicts that the JAX package
 stacks along a leading axis. Caches nest the same way.
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
@@ -115,13 +118,13 @@ def _check_supported(cfg: ModelConfig) -> None:
             ("the MTP head", bool(cfg.mtp_depth)),
         ) if present
     ]
-    kinds = sorted(set(cfg.resolved_block_pattern) - {"attn"})
+    kinds = sorted(set(cfg.resolved_block_pattern) - {"attn", "local_attn", "rglru"})
     if kinds:
-        missing.append(f"{'/'.join(kinds)} blocks (RecurrentGemma, xLSTM)")
+        missing.append(f"{'/'.join(kinds)} blocks (xLSTM)")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention blocks only; {', '.join(missing)} "
-            "come with later slices (ROADMAP A12)")
+            f"{cfg.name}: the port runs attn, local_attn and rglru blocks only; "
+            f"{', '.join(missing)} come with later slices (ROADMAP A12)")
 
 
 # ---------------------------------------------------------------------------
@@ -129,14 +132,18 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, dt: torch.dtype) -> dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dt: torch.dtype) -> dict:
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dt, device=gen.device)  # noqa: E731
     p: dict[str, Any] = {"norm1": zeros()}
-    p["attn"] = attn_lib.init_attention(
-        gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
-        qkv_bias=cfg.qkv_bias,
-    )
-    p["norm2"] = zeros()
+    if sig.kind == "rglru":
+        p["rec"] = rglru_lib.init_rglru_block(gen, cfg, dt)
+    else:
+        p["attn"] = attn_lib.init_attention(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
+            qkv_bias=cfg.qkv_bias,
+        )
+    if cfg.d_ff or sig.kind != "rglru":
+        p["norm2"] = zeros()
     if cfg.d_ff:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
     return p
@@ -158,20 +165,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
         params["lm_head"] = init_dense(gen, cfg.d_model, cfg.padded_vocab, dt,
                                        scale=cfg.d_model ** -0.5)
     params["segments"] = [
-        [[_init_block(gen, cfg, dt) for _ in range(reps)] for _sig in pattern]
+        [[_init_block(gen, cfg, sig, dt) for _ in range(reps)] for sig in pattern]
         for pattern, reps in segments_of(cfg)
     ]
     return params
 
 
+def _init_cache_for(sig: Signature, cfg: ModelConfig, batch: int, s_cache: int,
+                    dtype: torch.dtype, device):
+    if sig.kind == "rglru":
+        return rglru_lib.init_rglru_state(batch, cfg, dtype, device)
+    size = min(s_cache, cfg.local_window) if sig.kind == "local_attn" else s_cache
+    return attn_lib.init_kv_cache(batch, size, cfg.n_kv_heads, cfg.resolved_head_dim,
+                                  dtype, device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, s_cache: int, dtype: torch.dtype | None = None,
                 device: str | torch.device = "cuda") -> list:
-    """Empty KV caches, nested [segment][pattern entry][repeat]."""
+    """Empty caches, nested [segment][pattern entry][repeat]: a ``KVCache``
+    per attention block (a ring of ``min(s_cache, local_window)`` slots for
+    ``local_attn``), an ``RGLRUState`` per ``rglru`` block."""
     _check_supported(cfg)
     dtype = dtype or _DTYPES[cfg.dtype]
     return [
-        [[attn_lib.init_kv_cache(batch, s_cache, cfg.n_kv_heads, cfg.resolved_head_dim,
-                                 dtype, device) for _ in range(reps)] for _sig in pattern]
+        [[_init_cache_for(sig, cfg, batch, s_cache, dtype, device) for _ in range(reps)]
+         for sig in pattern]
         for pattern, reps in segments_of(cfg)
     ]
 
@@ -181,17 +199,22 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, dtype: torch.dtype |
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, cache, *, rope_fn, positions):
+def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cache, *,
+                 rope_fn, positions):
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
-    y, new_cache = attn_lib.attention_block(
-        p["attn"], h,
-        n_heads=cfg.n_heads,
-        n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim,
-        rope_fn=rope_fn,
-        positions=positions,
-        cache=cache,
-    )
+    if sig.kind == "rglru":
+        y, new_cache = rglru_lib.rglru_block(p["rec"], h, cfg, state=cache)
+    else:
+        y, new_cache = attn_lib.attention_block(
+            p["attn"], h,
+            n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim,
+            window=cfg.local_window if sig.kind == "local_attn" else 0,
+            rope_fn=rope_fn,
+            positions=positions,
+            cache=cache,
+        )
     x = x + y
     if "mlp" in p:
         x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
@@ -211,7 +234,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
 
     pos0 = batch.get("pos0")
     if pos0 is None:
-        pos0 = caches[0][0][0].pos if caches is not None else 0
+        pos0 = _first_cache_pos(caches) if caches is not None else 0
     S = x.shape[1]
     positions = torch.arange(int(pos0), int(pos0) + S, device=x.device)
     cos, sin = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)  # once for all layers
@@ -224,13 +247,23 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
         seg_params = params["segments"][si]
         seg_out = [[None] * reps for _ in pattern]
         for r in range(reps):
-            for pi in range(len(pattern)):
+            for pi, sig in enumerate(pattern):
                 cache = caches[si][pi][r] if caches is not None else None
-                x, seg_out[pi][r] = _apply_block(seg_params[pi][r], x, cfg, cache,
+                x, seg_out[pi][r] = _apply_block(seg_params[pi][r], sig, x, cfg, cache,
                                                  rope_fn=rope_fn, positions=positions)
         if new_caches is not None:
             new_caches.append(seg_out)
     return x, new_caches
+
+
+def _first_cache_pos(caches) -> int:
+    """Tokens seen so far: the ``pos`` of the first ``KVCache`` (recurrent
+    states carry none); 0 for a model without attention caches."""
+    for seg in caches:
+        for entry in seg:
+            if isinstance(entry[0], attn_lib.KVCache):
+                return entry[0].pos
+    return 0
 
 
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:

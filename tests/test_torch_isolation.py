@@ -47,6 +47,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch.core, repro_torch.kernels.sched_scoring.ops,"
         " repro_torch.kernels.flash_attention.ops, repro_torch.kernels.decode_attention.ops,"
+        " repro_torch.kernels.rglru_scan.ops, repro_torch.models.rglru,"
         " repro_torch.models.model, repro_torch.models.convert, repro_torch.configs,"
         " repro_torch.launch.steps, repro_torch.launch.profile_serve, repro_torch.serve_lm;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')];"
