@@ -22,8 +22,9 @@ Phases (each raises on failure; nothing is caught):
    against their plain versions on the card: GQA (G 2 and 8), MQA, window,
    bidirectional, ragged S (192, 300, 600), per-row lengths down to 1,
    recurrentgemma-2b's shapes (B3 at 8 x 2304, window 2048, 10 heads on 1
-   KV head of 256; B4 over 2048 slots); B5 at ragged S (1, 37, 100, 2304)
-   and W (37, 2560) from a non-zero h0; float32 and bfloat16;
+   KV head of 256; B4 over 2048 slots, also with lengths on the split
+   pass's slice boundaries, rerun bit-identical); B5 at ragged S (1, 37,
+   100, 2304) and W (37, 2560) from a non-zero h0; float32 and bfloat16;
 8. LM serving at full width: ``qwen1.5-0.5b`` (24 layers, bf16, random
    weights from a seed) serves 8 requests of 512 prompt tokens and 64
    generated tokens through ``init_params -> init_caches -> prefill ->
@@ -37,8 +38,9 @@ Phases (each raises on failure; nothing is caught):
    6 layers (two periods of the block pattern), 2 requests x 2100 prompt
    tokens x 16 steps, on the card against float32 on the CPU;
 9. B3 and B4 timed at both models' serving shapes beside their plain
-   versions and ``scaled_dot_product_attention``; B5 at its serving shape
-   beside its plain version.
+   versions and ``scaled_dot_product_attention`` (B4 with its slice count
+   and the bytes of its partials); B5 at its serving shape beside its plain
+   version.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -237,6 +239,30 @@ def attention_error(torch, what, got, want) -> float:
     return err
 
 
+def decode_boundary_case(torch, gen, decode_ops, decode_ref, dtype) -> float:
+    """B4 over recurrentgemma-2b's ring with lengths on the split pass's
+    slice boundaries and one slot either side; a rerun must be bit-identical
+    (the combine pass sums the slices in a fixed order)."""
+    from repro_torch.kernels.decode_attention.ref import split_starts
+
+    B, H, Hkv, S, D = 8, 10, 1, 2048, 256
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    n_split = decode_ops.split_count(B * Hkv, S, H // Hkv, D, q.element_size())
+    bounds = split_starts(n_split, S)[1:-1]
+    lengths = torch.tensor([bounds[0], bounds[0] + 1, bounds[1] - 1, bounds[1], bounds[-1],
+                            bounds[-1] + 1, S - 1, S], dtype=torch.int32, device="cuda")
+    got = decode_ops.decode_attention(q, k, v, lengths)
+    again = decode_ops.decode_attention(q, k, v, lengths)
+    name = str(dtype).split(".")[1]
+    err = attention_error(torch, f"decode_attention slice boundaries {name}", got,
+                          decode_ref(q, k, v, lengths))
+    check(torch.equal(got, again), f"decode_attention slice boundaries {name}: rerun differs")
+    print(f"  B4 {'ring, lengths on slice boundaries':<34} {name:<8} {n_split} slices, lengths "
+          f"{lengths.tolist()} max abs err {err:.3e}; rerun bit-identical")
+    return err
+
+
 def scan_inputs(torch, gen, B, S, W, dtype):
     a = torch.sigmoid(torch.randn(B, S, W, generator=gen, device="cuda")).to(dtype)
     b = torch.randn(B, S, W, generator=gen, device="cuda").to(dtype)
@@ -281,6 +307,8 @@ def kernel_phase(torch, flash_ops, decode_ops, scan_ops, flash_ref, decode_ref, 
             err = attention_error(torch, f"decode_attention {label} {name}", got, want)
             max_err["decode_attention"] = max(max_err["decode_attention"], err)
             print(f"  B4 {label:<34} {name:<8} lengths {lengths.tolist()} max abs err {err:.3e}")
+        err = decode_boundary_case(torch, gen, decode_ops, decode_ref, dtype)
+        max_err["decode_attention"] = max(max_err["decode_attention"], err)
         for label, B, S, W in SCAN_CASES:
             a, b, h0 = scan_inputs(torch, gen, B, S, W, dtype)
             err = scan_error(torch, f"rglru_scan {label} {name}", scan_ops.rglru_scan(a, b, h0),
@@ -451,10 +479,15 @@ def time_decode(torch, F, decode_ops, decode_ref, B, H, Hkv, S_cache, length, D)
     n_bytes = 2 * B * length * Hkv * D * 2 + 2 * B * H * D * 2 + B * 4
     flops = 4 * B * H * length * D
     bound = _bound(flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    n_split = decode_ops.split_count(B * Hkv, S_cache, H // Hkv, D, 2)
+    # float32 partials, written once and read once
+    scratch = B * Hkv * n_split * (H // Hkv) * (D + 2) * 4
+    kv_bytes = 2 * B * S_cache * Hkv * D * 2
     print(f"  B4 decode_attention B={B} H={H} Hkv={Hkv} S={S_cache} lengths {length} D={D} bf16: "
           f"{ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({n_bytes / 1e6:.2f} MB; "
           f"{100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms")
+          f"scaled_dot_product_attention {lib_ms:.4f} ms; {n_split} slices, partials "
+          f"{scratch / 1e6:.2f} MB ({100 * scratch / kv_bytes:.1f}% of the K/V bytes)")
     return err, ms, plain_ms, bound, lib_ms
 
 

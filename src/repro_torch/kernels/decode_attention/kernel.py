@@ -20,9 +20,9 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _ARGTYPES = [
     _I32, _I32,               # device, dtype (0 float32, 1 bfloat16)
-    _P, _P, _P, _P, _P,       # q, k, v, lengths, o
+    _P, _P, _P, _P, _P, _P,   # q, k, v, lengths, o, float32 scratch of the partials
     _I64, _I64,               # B, S
-    _I32, _I32, _I32,         # H, Hkv, D
+    _I32, _I32, _I32, _I32,   # H, Hkv, D, n_split
     ctypes.c_float, _P,       # scale, stream
 ]
 

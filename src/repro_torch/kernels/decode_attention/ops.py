@@ -4,7 +4,8 @@
 cache k, v (B, S, Hkv, D) and the valid length of each row, as
 ``repro.kernels.decode_attention.ops`` does. On CUDA tensors it launches
 the hand-written kernel (``csrc/decode_attention.cu``, the port of
-``repro/kernels/decode_attention/kernel.py``'s Pallas kernel); on CPU
+``repro/kernels/decode_attention/kernel.py``'s Pallas kernel: a split pass
+over ``split_count`` slices of the cache and a combine pass); on CPU
 tensors it runs the plain PyTorch version (``ref.py``). There is no
 fallback between the two: a launch that fails raises.
 """
@@ -13,9 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import TILE, decode_attention_ref
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "decode_attention", "reset_launches"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "decode_attention", "reset_launches", "split_count"]
 
 # Kernel launches since the last reset. Only a launch of the CUDA kernel
 # counts; the CPU path and empty inputs launch nothing.
@@ -26,9 +27,36 @@ HEAD_DIMS = (32, 64, 128, 256)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# Streaming multiprocessors of an H100; the split pass aims at two blocks
+# on each.
+SMS = 132
+# Largest share of the K/V bytes that the partials may add (written once
+# and read once by the combine pass): about 15 %. At 0.16 recurrentgemma-2b's
+# 2048-slot rings take 32 slices of exactly 2 tiles (15.7 %) rather than 30
+# of 2 or 3 (14.8 %), so no block of the launch walks a third tile.
+SCRATCH_SHARE = 0.16
+
 
 def reset_launches() -> None:
     LAUNCHES["decode_attention"] = 0
+
+
+def split_count(pairs: int, S: int, group: int, head_dim: int, elem_bytes: int) -> int:
+    """Slices of the cache for the split pass over ``pairs`` = B * Hkv
+    (batch row, KV head) pairs of ``S`` slots, ``group`` query heads each.
+
+    From the shapes alone, never from the lengths (reading them would wait
+    for the device): about two blocks per SM, fewer if the float32 partials
+    (``group * (head_dim + 2)`` floats a slice) would pass
+    ``SCRATCH_SHARE`` of the K/V bytes, but never fewer than one block per
+    SM while there are tiles to cut; at least 1, at most the number of
+    ``TILE``-slot tiles.
+    """
+    n_tiles = max(1, -(-S // TILE))
+    fill = -(-SMS // pairs)
+    want = -(-2 * SMS // pairs)
+    cap = int(SCRATCH_SHARE * 2 * S * head_dim * elem_bytes // (group * (head_dim + 2) * 4))
+    return max(1, min(n_tiles, max(fill, min(want, cap))))
 
 
 def decode_attention(
@@ -79,11 +107,14 @@ def _launch(q, k, v, lengths):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     lib = load_library()
+    n_split = split_count(B * Hkv, S, H // Hkv, D, q.element_size())
     out = torch.empty_like(q)
+    part = torch.empty(B * Hkv * n_split * (H // Hkv) * (D + 2), dtype=torch.float32,
+                       device=q.device)
     err = lib.decode_attention_launch(
         q.device.index if q.device.index is not None else torch.cuda.current_device(),
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, S, H, Hkv, D, D ** -0.5,
+        out.data_ptr(), part.data_ptr(), B, S, H, Hkv, D, n_split, D ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

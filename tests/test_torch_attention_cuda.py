@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import split_starts
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -27,6 +28,7 @@ FLASH_SHAPES = [
     (2, 300, 300, 8, 1, 64, True, 0),       # ragged, G = 8
     (1, 100, 300, 4, 2, 32, False, 40),     # window without causal
     (1, 600, 600, 2, 2, 256, True, 200),    # ragged, window, widest head
+    (1, 2304, 2304, 10, 1, 256, True, 2048),  # recurrentgemma-2b's prefill, one row
 ]
 
 DECODE_SHAPES = [
@@ -36,6 +38,7 @@ DECODE_SHAPES = [
     (1, 16, 8, 300, 64),
     (3, 16, 16, 600, 64),
     (2, 16, 2, 192, 256),
+    (2, 10, 1, 2048, 256),  # recurrentgemma-2b's ring, two rows
 ]
 
 
@@ -82,6 +85,26 @@ def test_cuda_decode_kernel_matches_plain_version(cuda_device, B, H, Hkv, S, D, 
     torch.cuda.synchronize()
     assert decode_ops.LAUNCHES["decode_attention"] == before + 1
     torch.testing.assert_close(got.cpu().float(), plain.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_cuda_decode_kernel_at_slice_boundaries(cuda_device, dtype):
+    """Lengths on the split pass's slice boundaries and one slot either side."""
+    B, H, Hkv, S, D = 8, 10, 1, 2048, 256
+    n_split = decode_ops.split_count(B * Hkv, S, H // Hkv, D, dtype.itemsize)
+    bounds = split_starts(n_split, S)[1:-1]
+    lens = torch.tensor([bounds[0], bounds[0] + 1, bounds[1] - 1, bounds[1], bounds[-1],
+                         bounds[-1] + 1, S - 1, S], dtype=torch.int32)
+    g = torch.Generator().manual_seed(21)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype)
+               for shape in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    plain = decode_ops.decode_attention(q, k, v, lens)
+    got = decode_ops.decode_attention(*(x.to(cuda_device) for x in (q, k, v, lens)))
+    again = decode_ops.decode_attention(*(x.to(cuda_device) for x in (q, k, v, lens)))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu().float(), plain.float(), atol=_tol(dtype), rtol=_tol(dtype))
+    assert torch.equal(got, again)  # fixed-order combine: reruns are bit-identical
 
 
 @pytest.mark.cuda
