@@ -6,18 +6,29 @@ kernel against its plain PyTorch version, and prints the kernels' numbers.
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 Phases (each raises on failure; nothing is caught):
 
-1. build the four kernel sources (``sched_scoring.cu``, ``flash_attention.cu``,
-   ``decode_attention.cu``, ``rglru_scan.cu``) for sm_90a, one nvcc each, all
-   at once; card name and power limit;
-2. kernel against its plain version on the card, over the scoring regimes
-   and edge shapes (identical feasibility mask and argmax, max abs error 0);
+1. build the five kernel sources (``sched_scoring.cu``, ``cut_traffic.cu``,
+   ``flash_attention.cu``, ``decode_attention.cu``, ``rglru_scan.cu``) for
+   sm_90a, one nvcc each, all at once; card name and power limit;
+2. the scorer (B1, B2) against its plain version on the card, over the
+   scoring regimes and edge shapes (ids outside [0, m) among them), and the
+   cut-traffic kernel against its plain version over shared, per-row and
+   skew maps, m = 1, 3 and 180 in racks, on the linear, diamond, star and
+   wide-fanout topologies, at shapes past one round of its product, past
+   its widest tiles and past shared memory (98 contracted components at
+   m = 180, 18 at m = 1000), and with ids outside [0, m) (identical
+   feasibility mask and argmax, max abs error 0);
 3. main path at full width: ``schedule`` on ``paper_cluster((20, 70, 90))``
    (the reference golden), ``refine`` on the card (equal to the CPU path
    and to the reference's result), ``simulate`` / ``simulate_batch``;
 4. resource path: the same cluster with memory and 6 racks, ``refine``
    (3 rounds) on the card equal to the CPU path and the reference's result;
+   114 B2 launches, one cut-traffic launch for each, no eager network term
+   on the card;
 5. ``optimal_schedule`` on ``paper_cluster((1, 1, 1))``: the reference golden;
-6. timings with CUDA events (cold L2, median) at B=16384, T=478, m=180;
+6. timings with CUDA events (cold L2, median): B1 and B2 at B=16384,
+   T=478, m=180, the cut-traffic kernel at the resource path's sweep shape
+   (B=5555, m=180, the refined placement's 537 tasks); each on the card
+   alone (``ms``) and with the wrapper's host time (``wrapper_ms``);
 7. the attention kernels (B3 flash, B4 decode) and the RG-LRU scan (B5)
    against their plain versions on the card: GQA (G 2 and 8), MQA, window,
    bidirectional, ragged S (192, 300, 600), per-row lengths down to 1,
@@ -73,6 +84,9 @@ MAIN_GOLDEN = dict(rate=297.0, n_instances=[2, 56, 210, 210], iterations=46,
                    md5="1dfed7471c737dcb63fc259cb03ffe02")
 MAIN_REFINE_REF = ([], 1189.9999999999998)
 RESOURCE_REFINE_REF = (["grow c0x4", "swap c0#0<->c2#0", "swap c0#1<->c1#0"], 1154.5354084899689)
+# B2 sweeps of that refine, each with a network term (one cut_traffic
+# launch apiece): its candidate rows are fixed by the goldens.
+RESOURCE_REFINE_B2_LAUNCHES = 114
 OPTIMAL_REF = dict(evaluated=26136, pruned=35, n_instances=[1, 2, 1, 3],
                    throughput=23.268698060941833)
 
@@ -90,20 +104,8 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def resource_cluster(P, np):
-    """20/70/90 with per-type memory demand, 8 units of memory a machine and
-    six racks of 30 machines (same rack 1, across racks 2)."""
-    base = P.paper_cluster((20, 70, 90))
-    profile = base.profile.with_mem(np.array([0.5, 1.0, 1.5, 2.0]))
-    return P.Cluster(
-        machine_types=base.machine_types, capacity=base.capacity, profile=profile,
-        mem_capacity=np.full(180, 8.0),
-        distance=P.rack_distance_matrix(np.arange(180) % 6), net_penalty=0.05,
-    )
-
-
 def scoring_problem(np, seed, B, T, m, n, per_row=False, skew=False, cap_rows=False,
-                    memory=False, network=False):
+                    memory=False, network=False, outside=False):
     rng = np.random.default_rng(seed)
     tm = rng.integers(0, m, size=(B, T))
     comp = np.sort(rng.integers(0, n, size=(B, T) if per_row else T), axis=-1)
@@ -126,7 +128,65 @@ def scoring_problem(np, seed, B, T, m, n, per_row=False, skew=False, cap_rows=Fa
         # rows fit.
         extras["mem_c"] = mem_c
         extras["mem_capacity"] = np.full(m, np.median(mem_w.max(axis=1)) if B else 1.0)
+    if outside:  # every 7th task on an id outside [0, m): it matches no machine
+        tm[:, ::7] = rng.choice([-1, m, m + 3], size=tm[:, ::7].shape)
     return (tm, comp, uir, e_cm, met_cm, cap), extras
+
+
+def cut_problem(np, P, seed, topology, B, m, regime, outside=False):
+    """Cut-traffic operands as the scorer's sweeps build them: shared
+    counts, per-row counts, or per-row counts with skewed unit rates; six
+    racks at m = 180, three random racks otherwise; with ``outside``, every
+    7th task on an id outside [0, m)."""
+    rng = np.random.default_rng(seed)
+    utg = {"linear": P.linear_topology, "diamond": P.diamond_topology, "star": P.star_topology,
+           "wide fanout": P.wide_fanout_topology,
+           "fanout of 32": lambda: P.wide_fanout_topology(n_mid=32),
+           "fanout of 48": lambda: P.wide_fanout_topology(n_mid=48)}[topology]()
+    n = utg.n_components
+    n_inst = rng.integers(1, 4 if m < 180 else 120, size=n)
+    T = int(n_inst.sum())
+    cir = P.component_rates(utg, 1.0)
+    if regime == "shared":
+        comp = np.repeat(np.arange(n), n_inst)
+        uir = (cir / n_inst)[comp]
+    else:
+        counts = np.tile(n_inst, (B, 1))
+        if np.any(n_inst > 1):
+            counts[np.arange(B), rng.integers(0, n, size=B)] += 1
+            counts[:, np.flatnonzero(n_inst > 1)[0]] -= 1
+        comp, uir = P.cost_model.per_row_task_maps(cir, counts, T)
+        if regime == "skew":
+            uir = uir * rng.uniform(0.3, 1.7, size=uir.shape)
+    racks = np.arange(m) % 6 if m == 180 else rng.integers(0, 3, size=m)
+    dist = np.asarray(P.rack_distance_matrix(racks, 1.0, 2.0))
+    tm = rng.integers(0, m, size=(B, T))
+    if outside:
+        tm[:, ::7] = rng.choice([-1, m, m + 3], size=tm[:, ::7].shape)
+    return (tm, comp, uir, np.asarray(utg.alpha, dtype=np.float64), cir), utg.edges, dist
+
+
+def cut_tensors(torch, np, device, args, dist):
+    tm, comp, uir, alpha, cir = args
+    t = lambda x, dt: torch.from_numpy(np.ascontiguousarray(x, dtype=dt)).to(device)  # noqa: E731
+    return (t(tm, np.int32), t(comp, np.int32), t(uir, np.float64), t(alpha, np.float64),
+            t(cir, np.float64)), t(dist, np.float64)
+
+
+def compare_cut(torch, np, cut_ops, args, edges, dist, penalty):
+    """The cut-traffic kernel on the card vs its plain version (CPU) on the
+    same inputs; returns the max abs error, which must be 0."""
+    c_args, c_dist = cut_tensors(torch, np, "cpu", args, dist)
+    g_args, g_dist = cut_tensors(torch, np, "cuda", args, dist)
+    plain = cut_ops.cut_traffic(*c_args, edges, c_dist, penalty)
+    got = cut_ops.cut_traffic(*g_args, edges, g_dist, penalty)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    check(got.shape == plain.shape and bool(torch.isfinite(got).all()), "cut_traffic output")
+    err = float((got - plain).abs().max()) if got.numel() else 0.0
+    check(err == 0.0 and torch.equal(got, plain),
+          f"cut_traffic differs from its plain version by {err}")
+    return err
 
 
 def to_tensors(torch, np, device, args, extras):
@@ -159,15 +219,21 @@ def compare_kernel(torch, np, ops, args, extras):
     return err, int((plain == 0.0).sum())
 
 
-def time_cuda(torch, fn, reps=15, flush_bytes=256 << 20):
+def time_cuda(torch, fn, reps=15, flush_bytes=256 << 20, spin_cycles=2_000_000):
     """Median ms of ``fn()`` over ``reps`` runs, each after a write of
-    ``flush_bytes`` that evicts the 50 MB L2 (the sweep's caller finds it cold)."""
+    ``flush_bytes`` that evicts the 50 MB L2 (the sweep's caller finds it cold)
+    and a spin of ``spin_cycles`` (~1 ms) on the card, which keeps the card
+    busy while the host prepares the launch: the time is the card's, not the
+    wrapper's host overhead. With ``spin_cycles=0`` the host's time in the
+    wrapper falls inside the window wherever it outlasts the flush."""
     flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -510,6 +576,46 @@ def time_scan(torch, scan_ops, scan_ref, B, S, W):
     return err, ms, plain_ms, bound, None
 
 
+def time_cut_traffic(torch, np, P, cut_ops, etg, cluster, rng, launches, max_err):
+    """The cut-traffic kernel at the resource refine's sweep shape (5 555
+    rows of the refined placement, one task moved per row): checked equal
+    to its plain version on the card, then timed beside it; its record."""
+    from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
+
+    B, base, utg = 5555, etg.task_machine(), etg.utg
+    T, m = base.size, cluster.n_machines
+    batch = np.tile(base, (B, 1))
+    batch[np.arange(B), rng.integers(0, T, B)] = rng.integers(0, m, B)
+    comp = etg.task_component()
+    cir = P.component_rates(utg, 1.0)
+    args = (batch, comp, (cir / etg.n_instances)[comp], np.asarray(utg.alpha, dtype=np.float64),
+            cir)
+    g_args, g_dist = cut_tensors(torch, np, "cuda", args, cluster.distance)
+    pen, edges = cluster.net_penalty, utg.edges
+    got = cut_ops.cut_traffic(*g_args, edges, g_dist, pen)
+    plain = cut_traffic_ref(*g_args, edges, g_dist, pen)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    check(torch.equal(got, plain), f"cut_traffic at the sweep shape differs by {err}")
+    max_err["cut_traffic"] = max(max_err["cut_traffic"], err)
+    ms = time_cuda(torch, lambda: cut_ops.cut_traffic(*g_args, edges, g_dist, pen))
+    wrapper_ms = time_cuda(torch, lambda: cut_ops.cut_traffic(*g_args, edges, g_dist, pen),
+                           spin_cycles=0)
+    plain_ms = time_cuda(torch, lambda: cut_traffic_ref(*g_args, edges, g_dist, pen), reps=5)
+    k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
+    flops = 2 * B * k2 * m * m + 4 * B * len(edges) * m + 3 * B * T  # products and sums
+    n_bytes = sum(x.numel() * x.element_size() for x in (*g_args, g_dist)) + B * m * 8
+    bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    print(f"  cut_traffic B={B} T={T} m={m} ({len(edges)} edges, {k2} contracted rows a row): "
+          f"{ms:.4f} ms ({wrapper_ms:.4f} ms with the wrapper's host time), bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.3f} GFLOP, "
+          f"{n_bytes / 1e6:.2f} MB; {100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.3f} ms; "
+          f"no single PyTorch call computes it, so library_ms is null")
+    return dict(_record("cut_traffic", "src/repro_torch/kernels/cut_traffic/csrc/cut_traffic.cu",
+                        "src/repro/core/cost_model.py:400", launches, max_err["cut_traffic"],
+                        (err, ms, plain_ms, bound, None)), wrapper_ms=wrapper_ms)
+
+
 def _bound(op_s, byte_s):
     """(ms, what bounds it): the larger of the operations' and the bytes' times."""
     return (max(op_s, byte_s) * 1e3, "operations" if op_s >= byte_s else "bytes")
@@ -536,11 +642,14 @@ def main() -> int:
         return 3
     sys.path.insert(0, str(SRC))
     import repro_torch.core as P
+    from repro_torch.launch.profile_refine import resource_cluster
     from repro_torch.core.schedule_state import ScheduleState
     from repro_torch.kernels._build import build_info
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.rglru_scan import kernel as scan_kernel
+    from repro_torch.kernels.cut_traffic import kernel as cut_kernel
+    from repro_torch.kernels.cut_traffic import ops as cut_ops
     from repro_torch.kernels.sched_scoring import kernel, ops
 
     wall = {}
@@ -551,7 +660,7 @@ def main() -> int:
     print(f"[1] build and device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"  nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    kernel_modules = (kernel, flash_kernel, decode_kernel, scan_kernel)
+    kernel_modules = (kernel, cut_kernel, flash_kernel, decode_kernel, scan_kernel)
     with ThreadPoolExecutor(len(kernel_modules)) as pool:  # one nvcc per source, all at once
         builds = [pool.submit(k.load_library) for k in kernel_modules]
         for build in builds:
@@ -564,7 +673,7 @@ def main() -> int:
         for line in info.get("log", "").splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  ptxas: {line.strip()}")
-    print(f"  all four built in {wall['build_s']:.2f} s")
+    print(f"  all five built in {wall['build_s']:.2f} s")
 
     # [2] kernel against its plain version on the card ---------------------
     print("[2] kernel against its plain PyTorch version on the card")
@@ -578,6 +687,9 @@ def main() -> int:
         ("skew per-row unit_ir", dict(B=257, T=478, m=180, n=4, skew=True)),
         ("per-row capacity (B, m)", dict(B=211, T=130, m=180, n=4, cap_rows=True)),
         ("T=130 (not a multiple of 32)", dict(B=129, T=130, m=17, n=3)),
+        ("ids outside [0, m)", dict(B=97, T=478, m=180, n=4, outside=True)),
+        ("B2 ids outside [0, m), m=3", dict(B=65, T=37, m=3, n=4, memory=True, network=True,
+                                           outside=True)),
         ("B2 memory only", dict(B=333, T=478, m=180, n=4, memory=True)),
         ("B2 memory only m=3", dict(B=65, T=37, m=3, n=4, memory=True)),
         ("B2 network only", dict(B=333, T=478, m=180, n=4, network=True)),
@@ -593,10 +705,37 @@ def main() -> int:
         key = "sched_scoring_resources" if extras else "sched_scoring"
         max_err[key] = max(max_err[key], err)
         print(f"  {label:<40} B={kw['B']:<6} -> equal; {n_inf} infeasible rows")
-    before = dict(ops.LAUNCHES)
+    max_err["cut_traffic"] = 0.0
+    for i, topology in enumerate(("linear", "diamond", "star", "wide fanout")):
+        for j, (m, B, regime) in enumerate(((1, 33, "shared"), (3, 65, "per_row"),
+                                           (180, 257, "skew"), (180, 129, "shared"))):
+            args, edges, dist = cut_problem(np, P, 200 + 10 * i + j, topology, B, m, regime)
+            err = compare_cut(torch, np, cut_ops, args, edges, dist, 0.05)
+            max_err["cut_traffic"] = max(max_err["cut_traffic"], err)
+            print(f"  cut_traffic {topology:<12} {regime:<8} m={m:<4} B={B:<4} "
+                  f"T={args[0].shape[1]:<4} -> equal")
+    # Shapes past one round of the product (66 contracted rows a row), past
+    # 16-column distance tiles (m = 1000), past shared memory (98 rows a
+    # row at m = 180, 18 at m = 1000: X^T and Y^T in the global scratch),
+    # and ids outside [0, m).
+    for topology, m, B, regime, outside in (("fanout of 32", 180, 9, "per_row", False),
+                                            ("linear", 1000, 7, "shared", False),
+                                            ("fanout of 48", 180, 9, "per_row", False),
+                                            ("wide fanout", 1000, 5, "per_row", False),
+                                            ("diamond", 180, 65, "skew", True)):
+        args, edges, dist = cut_problem(np, P, 300 + m, topology, B, m, regime, outside)
+        err = compare_cut(torch, np, cut_ops, args, edges, dist, 0.05)
+        max_err["cut_traffic"] = max(max_err["cut_traffic"], err)
+        print(f"  cut_traffic {topology:<12} {regime:<8} m={m:<4} B={B:<4} "
+              f"T={args[0].shape[1]:<4} -> equal" + (" (ids outside [0, m))" if outside else ""))
+    before = dict(ops.LAUNCHES), dict(cut_ops.LAUNCHES)
+    args, edges, dist = cut_problem(np, P, 1, "linear", 0, 180, "shared")
+    g_args, g_dist = cut_tensors(torch, np, "cuda", args, dist)
+    empty = cut_ops.cut_traffic(*g_args, edges, g_dist)
     args, extras = scoring_problem(np, 1, 0, 478, 180, 4)
-    empty = ops.sched_scoring(*to_tensors(torch, np, "cuda", args, extras)[0])
-    check(empty.shape == (0,) and ops.LAUNCHES == before, "B=0 must return empty, no launch")
+    empty_b = ops.sched_scoring(*to_tensors(torch, np, "cuda", args, extras)[0])
+    check(empty.shape == (0, 180) and empty_b.shape == (0,)
+          and (ops.LAUNCHES, cut_ops.LAUNCHES) == before, "B=0 must return empty, no launch")
     print("  B = 0 -> empty result, no launch")
 
     # [3] main path at full width ------------------------------------------
@@ -659,16 +798,32 @@ def main() -> int:
 
     # [4] resource path ----------------------------------------------------
     print("[4] resource path: memory + 6 racks, refine max_rounds=3")
-    rcl = resource_cluster(P, np)
+    rcl = resource_cluster()
     rsched = P.schedule(P.linear_topology(), rcl, r0=1.0, rate_epsilon=1.0)
+    # The network term's plain version must not run on the card: count its
+    # calls on CUDA tensors while the card's refine runs.
+    plain_cut, eager_on_card = cut_ops.cut_traffic_ref, []
+
+    def counting_plain(task_machine, *args, **kwargs):
+        if task_machine.is_cuda:
+            eager_on_card.append(tuple(task_machine.shape))
+        return plain_cut(task_machine, *args, **kwargs)
+
+    cut_ops.cut_traffic_ref = counting_plain
     ops.reset_launches()
+    cut_ops.reset_launches()
     t0 = time.perf_counter()
     res_gpu = P.refine(rsched.etg, rcl, max_rounds=3, device="cuda")
     torch.cuda.synchronize()
     wall["resource_refine_s"] = time.perf_counter() - t0
-    res_launches = dict(ops.LAUNCHES)
-    check(res_launches["sched_scoring_resources"] > 0,
-          "the resource path launched no sched_scoring_resources kernel")
+    res_launches = {**ops.LAUNCHES, **cut_ops.LAUNCHES}
+    cut_ops.cut_traffic_ref = plain_cut
+    check(res_launches["sched_scoring_resources"] == RESOURCE_REFINE_B2_LAUNCHES,
+          f"the resource refine launched B2 {res_launches['sched_scoring_resources']} times, "
+          f"not {RESOURCE_REFINE_B2_LAUNCHES}")
+    check(res_launches["cut_traffic"] == res_launches["sched_scoring_resources"],
+          "the resource refine did not launch one cut_traffic kernel per B2 launch")
+    check(not eager_on_card, f"the network term's eager path ran on the card {eager_on_card}")
     t0 = time.perf_counter()
     res_cpu = P.refine(rsched.etg, rcl, max_rounds=3, device="cpu")
     wall["resource_refine_cpu_s"] = time.perf_counter() - t0
@@ -683,7 +838,8 @@ def main() -> int:
     print(f"  180 machines, 6 racks, memory: schedule rate {rsched.rate}, "
           f"n_instances {rsched.etg.n_instances.tolist()}; moves {res_gpu.moves}, "
           f"throughput {res_gpu.throughput!r} ({wall['resource_refine_s']:.3f} s; cpu path "
-          f"{wall['resource_refine_cpu_s']:.3f} s), launches {res_launches}")
+          f"{wall['resource_refine_cpu_s']:.3f} s), launches {res_launches}; the network "
+          f"term's eager path ran on the card 0 times")
 
     # [5] exhaustive search ------------------------------------------------
     print("[5] exhaustive search: optimal_schedule, paper_cluster((1, 1, 1)), 8 tasks")
@@ -730,20 +886,25 @@ def main() -> int:
         max_err[key] = max(max_err[key], err)
         g_args, g_kw = to_tensors(torch, np, "cuda", host_args, extras)
         ms = time_cuda(torch, lambda: ops.sched_scoring(*g_args, **g_kw))
+        wrapper_ms = time_cuda(torch, lambda: ops.sched_scoring(*g_args, **g_kw), spin_cycles=0)
         plain_ms = time_cuda(torch, lambda: sched_scoring_ref(*g_args, **g_kw), reps=5)
         n_bytes = sum(x.numel() * x.element_size() for x in (*g_args, *g_kw.values())) + B * 8
         flops = B * T * 3 + B * m * 4
         bound_ms = max(n_bytes / HBM_BYTES_PER_S, flops / FP64_FLOPS_PER_S) * 1e3
         launches = main_launches[key] if key == "sched_scoring" else res_launches[key]
-        print(f"  {key}: {ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, "
-              f"{100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.3f} ms; no single PyTorch "
-              f"call computes this function, so library_ms is null")
+        print(f"  {key}: {ms:.4f} ms ({wrapper_ms:.4f} ms with the wrapper's host time; bound "
+              f"{bound_ms:.4f} ms by bytes, {100 * bound_ms / ms:.1f}% of it), plain "
+              f"{plain_ms:.3f} ms; no single PyTorch call computes this function, so "
+              f"library_ms is null")
         records.append(dict(
             name=key, route="cuda",
             source="src/repro_torch/kernels/sched_scoring/csrc/sched_scoring.cu",
             replaces=replaces, launches=launches, max_abs_err=max_err[key], ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+            wrapper_ms=wrapper_ms,
         ))
+    records.append(time_cut_traffic(torch, np, P, cut_ops, res_gpu.etg, rcl, rng,
+                                    res_launches["cut_traffic"], max_err))
     sweep = []
     for _ in range(5):
         t0 = time.perf_counter()

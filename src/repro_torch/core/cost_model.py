@@ -6,7 +6,8 @@ reference; the batched closed form runs on torch tensors on an explicit
 device: ``closed_form_rates`` moves a sweep's operands to the device and
 scores it with the ``kernels.sched_scoring`` wrapper (the hand-written
 CUDA kernel on a card, its plain PyTorch version on the CPU), and
-``network_unit_load`` builds the cut-traffic term there.
+``network_unit_load`` builds the cut-traffic term there with the
+``kernels.cut_traffic`` wrapper.
 
 Conventions
 -----------
@@ -34,6 +35,7 @@ import torch
 
 from repro_torch.core.graph import ExecutionGraph, UserGraph
 from repro_torch.core.profiles import Cluster
+from repro_torch.kernels.cut_traffic.ref import NET_CHUNK_ELEMS
 
 __all__ = [
     "component_rates",
@@ -49,12 +51,9 @@ __all__ = [
     "SkewModel",
 ]
 
-# Element cap for one row chunk of the network accumulation: the cut-traffic
-# term materializes (B_chunk, n_components, n_machines) tensors plus the
-# distance contractions, so wide topologies on large clusters would
-# otherwise blow past the (B, T) sweep memory ``refine._SCORE_CHUNK``
-# budgets for. Rows are independent, so chunking never changes results.
-_NET_CHUNK_ELEMS = 4_000_000
+# Row-chunk cap of the network term's plain version (see
+# ``kernels.cut_traffic.ref``); ``refine`` sizes its network-aware sweeps by it.
+_NET_CHUNK_ELEMS = NET_CHUNK_ELEMS
 
 
 def component_rates(utg: UserGraph, r0: float) -> np.ndarray:
@@ -398,18 +397,6 @@ def per_row_task_maps(
     return comp_u[inverse], unit_ir_u[inverse]
 
 
-def _distance_contract(x: torch.Tensor, dist_cols: torch.Tensor) -> torch.Tensor:
-    """``y[..., w] = sum_v distance[w, v] * x[..., v]``, summed over v in
-    increasing order with one rounding per product and per sum — the same
-    bits on every device (a BLAS product would pick its own order)."""
-    y = torch.zeros_like(x)
-    tmp = torch.empty_like(x)
-    for v in range(dist_cols.shape[0]):
-        torch.mul(x[..., v : v + 1], dist_cols[v], out=tmp)
-        y.add_(tmp)
-    return y
-
-
 def network_unit_load(
     task_machine: np.ndarray,
     comp: np.ndarray,
@@ -437,71 +424,66 @@ def network_unit_load(
 
     The masses accumulate one task column at a time, so every cell adds its
     tasks in row order (the reference's ``np.add.at`` order, bit for bit);
-    the distance contraction sums in machine order (``_distance_contract``)
+    the distance contraction sums in machine order (``kernels.cut_traffic``)
     where the reference uses a BLAS product, so results agree with it to
     rounding (~1e-16 relative) and are identical across devices.
 
     ``comp`` / ``unit_ir`` are (T,) shared or (B, T) per-row task maps —
-    the operands ``closed_form_rates`` receives.
+    the operands ``closed_form_rates`` receives. Each operand is an array
+    or a tensor; a tensor already on ``device`` is not copied again.
+    """
+    from repro_torch import resolve_device
+    from repro_torch.kernels.cut_traffic.ops import cut_traffic
+
+    dev = resolve_device(device)
+
+    # On a card one sweep is one launch of the cut-traffic kernel; on the
+    # CPU its plain version runs: the eager scatters and contractions, in
+    # row chunks.
+    f64 = np.float64
+    return cut_traffic(
+        _to_device(task_machine, np.int32, dev), _to_device(comp, np.int32, dev),
+        _to_device(unit_ir, f64, dev), _to_device(alpha, f64, dev),
+        _to_device(cir_unit, f64, dev), edges, _to_device(distance, f64, dev),
+        net_penalty, chunk_elems,
+    )
+
+
+def _scoring_operands(
+    cluster: Cluster,
+    task_machine,
+    comp,
+    unit_ir: np.ndarray,
+    alpha: np.ndarray,
+    cir_unit: np.ndarray,
+    edges: tuple,
+    component_types: np.ndarray,
+    device: str | torch.device = "cuda",
+) -> tuple:
+    """(task_machine, comp, net_var, mem_c, mem_capacity) for ``closed_form_rates``.
+
+    The resource extras are all ``None`` on a scalar-CPU cluster, so
+    default-parameter scoring takes the scalar kernel. ``net_var`` is a
+    (B, m) tensor on ``device``; ``mem_c`` is the (n,) per-instance memory
+    demand of each component, which the kernel gathers per task. With a
+    network term, ``task_machine`` and ``comp`` come back as int32 tensors on
+    ``device``, so a sweep copies them there once for both kernels.
     """
     from repro_torch import resolve_device
 
-    dev = resolve_device(device)
-    f64 = torch.float64
-    tm = torch.as_tensor(np.asarray(task_machine, dtype=np.int64), device=dev)
-    B, T = tm.shape
-    cir_unit = np.asarray(cir_unit, dtype=np.float64)
-    n = cir_unit.shape[0]
-    distance = np.asarray(distance, dtype=np.float64)
-    m = distance.shape[0]
-    comp_t = torch.as_tensor(np.asarray(comp, dtype=np.int64), device=dev)
-    unit_t = torch.as_tensor(np.asarray(unit_ir, dtype=np.float64), device=dev)
-    comp_bt = comp_t if comp_t.ndim == 2 else comp_t[None, :].expand(B, T)
-    unit_bt = unit_t if unit_t.ndim == 2 else unit_t[None, :].expand(B, T)
-    alpha_t = torch.as_tensor(np.asarray(alpha, dtype=np.float64), device=dev)
-    cir_t = torch.as_tensor(cir_unit, device=dev)
-    # Per-task sender output and receiver share (see docstring). A
-    # zero-input component carries no flow; its receive fraction is moot.
-    out_t = alpha_t[comp_bt] * unit_bt                       # (B, T)
-    cir_of_t = cir_t[comp_bt]
-    rfrac_t = torch.where(
-        cir_of_t > 0.0, unit_bt / cir_of_t.clamp_min(1e-300), torch.zeros_like(unit_bt)
-    )
-    dist_cols = torch.as_tensor(np.ascontiguousarray(distance.T), device=dev)
-    srcs = sorted({a for a, _ in edges})
-    dsts = sorted({b for _, b in edges})
-    nm = n * m
-
-    net = torch.empty((B, m), dtype=f64, device=dev)
-    chunk = max(1, int(chunk_elems) // max(1, nm))
-    for start in range(0, B, chunk):
-        stop = min(start + chunk, B)
-        bc = stop - start
-        key = comp_bt[start:stop] * m + tm[start:stop]       # (bc, T)
-        # (T, bc, 2): per task column, the send and the receive cell of
-        # every row — two distinct cells, so one scatter adds each once.
-        keys = torch.stack([key, key + nm], dim=2).permute(1, 0, 2).contiguous()
-        vals = torch.stack(
-            [out_t[start:stop], rfrac_t[start:stop]], dim=2
-        ).permute(1, 0, 2).contiguous()
-        mass = torch.zeros((bc, 2 * nm), dtype=f64, device=dev)
-        for t in range(T):
-            mass.scatter_add_(1, keys[t], vals[t])
-        send = mass[:, :nm].view(bc, n, m)
-        recv = mass[:, nm:].view(bc, n, m)
-        # Distance contractions, only for components that send / receive:
-        # the charge on machine w is sum_v distance[w, v] x (mass on v).
-        d = _distance_contract(
-            torch.cat([send[:, srcs, :], recv[:, dsts, :]], dim=1), dist_cols
+    net_var = mem_c = mem_capacity = None
+    if cluster.has_network:
+        dev = resolve_device(device)
+        task_machine = _to_device(task_machine, np.int32, dev)
+        comp = _to_device(comp, np.int32, dev)
+        net_var = network_unit_load(
+            task_machine, comp, unit_ir, alpha, cir_unit, edges,
+            cluster.distance, cluster.net_penalty, device=dev,
         )
-        send_d = {a: d[:, i, :] for i, a in enumerate(srcs)}
-        recv_d = {b: d[:, len(srcs) + i, :] for i, b in enumerate(dsts)}
-        acc = torch.zeros((bc, m), dtype=f64, device=dev)
-        for a, b in edges:
-            acc += send[:, a, :] * recv_d[b]                 # sender side
-            acc += recv[:, b, :] * send_d[a]                 # receiver side
-        net[start:stop] = acc
-    return net * float(net_penalty)
+    if cluster.has_memory:
+        mem_c = cluster.profile.mem[component_types]
+        mem_capacity = cluster.mem_capacity
+    return task_machine, comp, net_var, mem_c, mem_capacity
 
 
 def resource_operands(
@@ -515,24 +497,19 @@ def resource_operands(
     component_types: np.ndarray,
     device: str | torch.device = "cuda",
 ) -> tuple[torch.Tensor | None, np.ndarray | None, np.ndarray | None]:
-    """(net_var, mem_c, mem_capacity) extras for ``closed_form_rates``.
+    """(net_var, mem, mem_capacity) extras for ``closed_form_rates``.
 
     All three are ``None`` on a scalar-CPU cluster, so default-parameter
     scoring takes the scalar kernel. ``net_var`` is a (B, m) tensor on
-    ``device``; ``mem_c`` is the (n,) per-instance memory demand of each
-    component, which the kernel gathers per task (the reference passes the
-    gathered (T,)/(B, T) array instead).
+    ``device``; ``mem`` is the per-task memory demand in ``comp``'s shape
+    ((T,) or (B, T)), as the reference returns it.
     """
-    net_var = mem_c = mem_capacity = None
-    if cluster.has_network:
-        net_var = network_unit_load(
-            task_machine, comp, unit_ir, alpha, cir_unit, edges,
-            cluster.distance, cluster.net_penalty, device=device,
-        )
-    if cluster.has_memory:
-        mem_c = cluster.profile.mem[component_types]
-        mem_capacity = cluster.mem_capacity
-    return net_var, mem_c, mem_capacity
+    _, _, net_var, mem_c, mem_capacity = _scoring_operands(
+        cluster, task_machine, comp, unit_ir, alpha, cir_unit, edges, component_types,
+        device=device,
+    )
+    mem = None if mem_c is None else mem_c[np.asarray(comp)]
+    return net_var, mem, mem_capacity
 
 
 def max_stable_rate_batch(
@@ -596,7 +573,7 @@ def max_stable_rate_batch(
     met_cm = cluster.profile.met[ttypes][:, cluster.machine_types]
     net_var = mem_c = mem_cap = None
     if cluster.has_resources:
-        net_var, mem_c, mem_cap = resource_operands(
+        task_machine, comp, net_var, mem_c, mem_cap = _scoring_operands(
             cluster, task_machine, comp, unit_ir, utg.alpha, cir_unit,
             utg.edges, ttypes, device=dev,
         )
@@ -607,6 +584,16 @@ def max_stable_rate_batch(
 
 
 _TORCH_DTYPES = {np.int32: torch.int32, np.float64: torch.float64}
+
+
+def _to_device(x, dtype, dev: torch.device):
+    """``x`` (an array or a tensor) as a contiguous ``dtype`` tensor on
+    ``dev``; ``None`` stays ``None``."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=_TORCH_DTYPES[dtype]).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
 
 
 def closed_form_rates(
@@ -643,24 +630,17 @@ def closed_form_rates(
     dev = resolve_device(device)
     unit_ir = np.asarray(unit_ir, dtype=np.float64)
 
-    def put(x, dtype):
-        if x is None:
-            return None
-        if isinstance(x, torch.Tensor):
-            return x.to(device=dev, dtype=_TORCH_DTYPES[dtype]).contiguous()
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(dev)
-
     f64 = np.float64
     rates = sched_scoring(
-        put(task_machine, np.int32),
-        put(comp, np.int32),
-        put(unit_ir, f64),
-        put(e_cm, f64),
-        put(met_cm, f64),
-        put(capacity, f64),
-        net_var=put(net_var, f64),
-        mem_c=put(mem_c, f64),
-        mem_capacity=put(mem_capacity, f64),
+        _to_device(task_machine, np.int32, dev),
+        _to_device(comp, np.int32, dev),
+        _to_device(unit_ir, f64, dev),
+        _to_device(e_cm, f64, dev),
+        _to_device(met_cm, f64, dev),
+        _to_device(capacity, f64, dev),
+        net_var=_to_device(net_var, f64, dev),
+        mem_c=_to_device(mem_c, f64, dev),
+        mem_capacity=_to_device(mem_capacity, f64, dev),
     ).cpu().numpy()
     if unit_ir.ndim == 2:
         return rates, rates * unit_ir.sum(axis=1)

@@ -534,7 +534,7 @@ class ScheduleState:
             device, task_machine.size, regime=regime,
             n_machines=self.cluster.n_machines, site="score_task_machine_batch",
         )
-        net_var, mem_c, mem_cap = self._resource_operands(
+        task_machine, comp, net_var, mem_c, mem_cap = self._resource_operands(
             task_machine, comp, unit_ir, dev
         )
         e_cm, met_cm, capacity = self._tables(dev)
@@ -562,11 +562,12 @@ class ScheduleState:
         unit_ir: np.ndarray,
         device: torch.device,
     ) -> tuple:
-        """Resource-vector extras for a candidate batch — all ``None`` on
-        scalar-CPU clusters, which score on the scalar kernel."""
+        """(task_machine, comp, net_var, mem_c, mem_capacity) of a candidate
+        batch (``cost_model._scoring_operands``) — the extras all ``None``
+        on scalar-CPU clusters, which score on the scalar kernel."""
         if not self.cluster.has_resources:
-            return None, None, None
-        return cost_model.resource_operands(
+            return task_machine, comp, None, None, None
+        return cost_model._scoring_operands(
             self.cluster,
             task_machine,
             comp,

@@ -20,16 +20,28 @@
 // Bound: bytes. Per row the kernel must read the T task->machine ids
 // (int32) -- plus the per-row maps and the (m,) network row when present --
 // and does ~3 flops per task, far below the card's ratio of flops to bytes.
-// Design: one thread per row; the row's m accumulators live in shared
-// memory laid out [w][thread], so the threads of a warp touch consecutive
-// banks whatever machines they hit; the small profile tables are gathered
-// here from global memory (L1-resident), so per sweep only tm has to cross
-// the bus. Tasks are added in row order with explicit round-to-nearest
-// multiply and add (never contracted into an FMA) and no atomics: results
-// are bit-identical to the reference's sequential np.add.at and to reruns.
-// Shared memory per row caps occupancy at about 50-80 rows per SM for
-// m = 180; staging tm tiles with coalesced loads and splitting a row over
-// several threads is later work.
+//
+// What holds it back is the row's chain of dependent steps, not bytes: a
+// row's m accumulators (2 or 3 doubles each) live in shared memory, which
+// caps the rows resident on an SM at ~50, and each task is a random gather
+// from the profile tables plus a read-modify-write of one accumulator.
+// Design: one warp a row. The row's tiles of TT tasks come into shared
+// memory by cp.async, double-buffered (the next tile's copy overlaps this
+// tile's work), as the 16-byte chunks that hold the tile (coalesced, and
+// past L1, which keeps the profile tables) whatever the row's alignment.
+// Lane l takes task j0 + l of each group of 32: its gathers and product do
+// not depend on the other lanes'. The lanes then add into their machines'
+// accumulators in rounds: in each round the lowest waiting lane on each
+// machine (an atomic minimum on a per-machine tag) adds, so the tasks of
+// one machine add in task order -- the plain version's order -- and no two
+// lanes of a round touch one accumulator. A group of 32 tasks over m = 180
+// machines takes about two rounds. At the end lane l takes the machines
+// w = l (mod 32); the lanes' partial min of head / var and "infeasible"
+// flags combine by warp shuffles (min and or are exact in any order).
+// Products and sums use explicit round-to-nearest intrinsics (and the file
+// builds with -fmad=false): the results are bit-identical to the plain
+// version, to the reference's sequential np.add.at, and to reruns. PERF.md
+// lists the designs timed on the card and dropped.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -37,6 +49,12 @@
 #include <cstdint>
 
 namespace {
+
+constexpr int TT = 128;       // tasks a staged tile
+constexpr int NSTAGE = 2;     // tiles a warp keeps staged (NSTAGE - 1 in flight)
+constexpr int TS_I = TT + 8;  // strides of a staged tile: TT values and the
+constexpr int TS_D = TT + 4;  //   16 bytes of slack either side (int32, double)
+constexpr int kRows = 4;      // rows (warps) a block (1-8 timed alike on the card)
 
 struct Args {
   const int32_t* tm;       // (B, T) machine id per task
@@ -52,66 +70,202 @@ struct Args {
   int64_t B, T;
   int64_t comp_stride, uir_stride, cap_stride, mem_cap_stride;
   int m;
+  int warp_bytes;          // shared memory of one row (warp)
 };
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The warp copies elements [g0, g0 + count) of `base` (n_total elements)
+// into shared memory, coalesced; element g0 lands at dst[chunk_offset].
+// With a 16-byte aligned `base`, the copy covers the 16-byte chunks
+// that hold the range (dst has 2 * 16 bytes of slack), by 16-byte copies
+// that bypass L1 (which keeps the profile tables), one element at a time
+// only past the array's last full chunk; else it copies element by element.
+template <typename ELEM>
+__device__ __forceinline__ int chunk_offset(const ELEM* base, int64_t g0) {
+  constexpr int PER16 = 16 / sizeof(ELEM);
+  return (reinterpret_cast<uintptr_t>(base) & 15) != 0 ? 0 : static_cast<int>(g0 % PER16);
+}
+
+template <typename ELEM>
+__device__ __forceinline__ void stage_row(ELEM* dst, const ELEM* base, int64_t g0, int count,
+                                         int64_t n_total, int lane) {
+  constexpr int PER16 = 16 / sizeof(ELEM);
+  const int64_t g1 = g0 + count;
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0) {
+    for (int j = lane; j < count; j += 32) cp_async(dst + j, base + g0 + j, sizeof(ELEM));
+    return;
+  }
+  const int64_t a0 = g0 / PER16 * PER16;
+  int64_t a1 = (g1 + PER16 - 1) / PER16 * PER16;
+  if (a1 > n_total) a1 = n_total / PER16 * PER16;
+  for (int64_t k = a0 + lane * PER16; k < a1; k += 32 * PER16) {
+    cp_async(dst + (k - a0), base + k, 16);
+  }
+  for (int64_t k = (a1 > g0 ? a1 : g0) + lane; k < g1; k += 32) {
+    cp_async(dst + (k - a0), base + k, sizeof(ELEM));
+  }
+}
+
+// Shared memory of one warp: accumulators [var | met | (mem)][m] and, for
+// the ordered rounds, one tag per machine, padded to 16 bytes; then the
+// NSTAGE raw tiles (each with the copies' slack): unit_ir [NSTAGE][TS_D]
+// (per-row maps), tm [NSTAGE][TS_I], comp [NSTAGE][TS_I] (per-row maps).
+__host__ __device__ int acc_doubles(int m, bool use_mem) {
+  return ((use_mem ? 3 : 2) * m + (m + 1) / 2 + 1) / 2 * 2;
+}
+
+int warp_smem(int m, bool use_mem, bool row_comp, bool row_uir) {
+  return acc_doubles(m, use_mem) * static_cast<int>(sizeof(double)) +
+         NSTAGE * (TS_I * static_cast<int>(sizeof(int32_t)) * (1 + row_comp) +
+                   TS_D * static_cast<int>(sizeof(double)) * row_uir);
+}
 
 template <bool RES>
 __global__ void sched_scoring_kernel(Args a) {
-  extern __shared__ double smem[];
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * nt + tid;
-  if (b >= a.B) return;  // no barriers below: each thread owns its column
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (b >= a.B) return;  // warps work alone: no block-wide barrier below
   const int m = a.m;
-  double* s_var = smem + tid;                        // s_var[w * nt]
-  double* s_met = smem + static_cast<size_t>(m) * nt + tid;
-  double* s_mem = smem + static_cast<size_t>(2 * m) * nt + tid;
   const bool use_mem = RES && a.mem_c != nullptr;
-  for (int w = 0; w < m; ++w) {
-    s_var[w * nt] = 0.0;
-    s_met[w * nt] = 0.0;
-    if (use_mem) s_mem[w * nt] = 0.0;
-  }
+  const bool row_comp = a.comp_stride != 0, row_uir = a.uir_stride != 0;
 
-  const int32_t* tm = a.tm + b * a.T;
-  const int32_t* comp = a.comp + b * a.comp_stride;
-  const double* uir = a.unit_ir + b * a.uir_stride;
-  for (int64_t t = 0; t < a.T; ++t) {
-    const int w = tm[t];
-    if (w < 0 || w >= m) continue;  // ids outside [0, m) match no machine
-    const int c = comp[t];
-    const int64_t cw = static_cast<int64_t>(c) * m + w;
-    const double ev = __dmul_rn(__ldg(a.e_cm + cw), uir[t]);
-    s_var[w * nt] = __dadd_rn(s_var[w * nt], ev);
-    s_met[w * nt] = __dadd_rn(s_met[w * nt], __ldg(a.met_cm + cw));
-    if (use_mem) s_mem[w * nt] = __dadd_rn(s_mem[w * nt], __ldg(a.mem_c + c));
-  }
+  double* s_var = reinterpret_cast<double*>(smem + static_cast<size_t>(warp) * a.warp_bytes);
+  double* s_met = s_var + m;
+  double* s_mem = s_met + m;
+  int* s_tag = reinterpret_cast<int*>(s_var + (use_mem ? 3 : 2) * m);
+  double* s_uir = s_var + acc_doubles(m, use_mem);
+  int32_t* s_tm = reinterpret_cast<int32_t*>(s_uir + (row_uir ? NSTAGE * TS_D : 0));
+  int32_t* s_comp = s_tm + NSTAGE * TS_I;
+  for (int i = lane; i < (use_mem ? 3 : 2) * m; i += 32) s_var[i] = 0.0;
+  for (int w = lane; w < m; w += 32) s_tag[w] = 32;
 
+  // The row's tiles of TT tasks, copied NSTAGE - 1 tiles ahead.
+  const int64_t n_tiles = (a.T + TT - 1) / TT;
+  const int64_t n_total = a.B * a.T;
+  auto stage = [&](int64_t tile) {
+    if (tile < n_tiles) {
+      const int64_t g0 = b * a.T + tile * TT;
+      const int count = static_cast<int>(a.T - tile * TT < TT ? a.T - tile * TT : TT);
+      const int k = static_cast<int>(tile % NSTAGE);
+      stage_row(s_tm + k * TS_I, a.tm, g0, count, n_total, lane);
+      if (row_comp) stage_row(s_comp + k * TS_I, a.comp, g0, count, n_total, lane);
+      if (row_uir) stage_row(s_uir + k * TS_D, a.unit_ir, g0, count, n_total, lane);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  for (int tile = 0; tile < NSTAGE - 1; ++tile) stage(tile);
+
+  for (int64_t tile = 0; tile < n_tiles; ++tile) {
+    stage(tile + NSTAGE - 1);  // into the buffer consumed at tile - 1
+    cp_async_wait<NSTAGE - 1>();
+    __syncwarp();
+    const int k = static_cast<int>(tile % NSTAGE);
+    const int64_t t0 = tile * TT, g0 = b * a.T + t0;
+    const int32_t* tm_t = s_tm + k * TS_I + chunk_offset(a.tm, g0);
+    const int32_t* comp_t = s_comp + k * TS_I + chunk_offset(a.comp, g0);
+    const double* uir_t = s_uir + k * TS_D + chunk_offset(a.unit_ir, g0);
+    const int count = static_cast<int>(a.T - t0 < TT ? a.T - t0 : TT);
+    for (int j0 = 0; j0 < count; j0 += 32) {
+      // Lane l takes task j0 + l: its gathers and product, independent of
+      // the other lanes'. Ids outside [0, m) match no machine (w = -1).
+      const int j = j0 + lane;
+      int w = j < count ? tm_t[j] : -1;
+      if (static_cast<unsigned>(w) >= static_cast<unsigned>(m)) w = -1;
+      double ev = 0.0, met = 0.0, mem = 0.0;
+      if (w >= 0) {
+        const int c = row_comp ? comp_t[j] : __ldg(a.comp + t0 + j);
+        const double u = row_uir ? uir_t[j] : __ldg(a.unit_ir + t0 + j);
+        const int64_t cw = static_cast<int64_t>(c) * m + w;
+        ev = __dmul_rn(__ldg(a.e_cm + cw), u);
+        met = __ldg(a.met_cm + cw);
+        if (use_mem) mem = __ldg(a.mem_c + c);
+      }
+      // Lanes whose tasks land on one machine add in lane (= task)
+      // order: each round, the lowest waiting lane on each machine (its
+      // tag's atomic minimum) adds. Most rounds' machines are distinct.
+      bool wait = w >= 0;
+      while (__any_sync(0xffffffffu, wait)) {
+        if (wait) atomicMin(s_tag + w, lane);
+        __syncwarp();
+        const bool first = wait && s_tag[w] == lane;
+        if (first) {
+          s_var[w] = __dadd_rn(s_var[w], ev);
+          s_met[w] = __dadd_rn(s_met[w], met);
+          if (use_mem) s_mem[w] = __dadd_rn(s_mem[w], mem);
+        }
+        __syncwarp();
+        if (first) {
+          s_tag[w] = 32;
+          wait = false;
+        }
+        __syncwarp();
+      }
+    }
+    __syncwarp();  // the buffer is refilled at tile + 1
+  }
+  cp_async_wait<0>();
+
+  // Lane l finalizes machines w = l (mod 32); the partials combine by
+  // shuffles (min and or are exact in any order).
+  bool infeasible = false;
+  double rate = CUDART_INF;
   const double* cap = a.cap + b * a.cap_stride;
   const double* net = (RES && a.net != nullptr) ? a.net + b * m : nullptr;
   const double* mem_cap = use_mem ? a.mem_cap + b * a.mem_cap_stride : nullptr;
-  bool infeasible = false;
-  double rate = CUDART_INF;
-  for (int w = 0; w < m; ++w) {
-    double var = s_var[w * nt];
-    if (RES && net != nullptr) var = __dadd_rn(var, net[w]);
-    const double head = __dsub_rn(cap[w], s_met[w * nt]);
+  for (int w = lane; w < m; w += 32) {
+    double var = s_var[w];
+    // (B, m) rows are read once: streaming loads, which leave L1 to the tables
+    if (RES && net != nullptr) var = __dadd_rn(var, __ldcs(net + w));
+    const double head = __dsub_rn(a.cap_stride ? __ldcs(cap + w) : __ldg(cap + w), s_met[w]);
     if (head < 0.0) infeasible = true;
-    if (use_mem && s_mem[w * nt] > mem_cap[w]) infeasible = true;
+    if (use_mem &&
+        s_mem[w] > (a.mem_cap_stride ? __ldcs(mem_cap + w) : __ldg(mem_cap + w))) {
+      infeasible = true;
+    }
     if (var > 0.0) rate = fmin(rate, __ddiv_rn(head, fmax(var, 1e-300)));
   }
-  a.out[b] = infeasible ? 0.0 : fmax(rate, 0.0);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    rate = fmin(rate, __shfl_xor_sync(0xffffffffu, rate, off));
+  }
+  infeasible = __any_sync(0xffffffffu, infeasible);
+  if (lane == 0) a.out[b] = infeasible ? 0.0 : fmax(rate, 0.0);
 }
 
-// Largest block (rows per block, at most 128) whose accumulators fit two
-// blocks per SM; 0 when even one row does not fit in a block.
-int rows_per_block(int m, int n_acc) {
-  const size_t per_row = static_cast<size_t>(n_acc) * m * sizeof(double);
-  const size_t budget = 113 * 1024;
-  const size_t block_max = 227 * 1024;
-  for (int rows = 128; rows >= 1; rows /= 2) {
-    if (rows * per_row <= budget) return rows;
-  }
-  return per_row <= block_max ? 1 : 0;
+template <bool RES>
+int launch(Args a, bool use_mem, cudaStream_t s) {
+  constexpr int kBlockMax = 227 * 1024;
+  a.warp_bytes = warp_smem(a.m, use_mem, a.comp_stride != 0, a.uir_stride != 0);
+  int rows = kRows;
+  while (rows > 1 && rows * a.warp_bytes > kBlockMax) rows /= 2;
+  if (rows * a.warp_bytes > kBlockMax) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = rows * a.warp_bytes;
+  cudaError_t err = cudaFuncSetAttribute(sched_scoring_kernel<RES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((a.B + rows - 1) / rows));
+  sched_scoring_kernel<RES><<<grid, 32 * rows, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -146,24 +300,8 @@ extern "C" int sched_scoring_launch(
   a.cap_stride = cap_stride;
   a.mem_cap_stride = mem_cap_stride;
   a.m = m;
-  const int n_acc = resources ? 3 : 2;
-  const int rows = rows_per_block(m, n_acc);
-  if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(n_acc) * m * rows * sizeof(double);
-  const dim3 grid(static_cast<unsigned>((B + rows - 1) / rows));
+  a.warp_bytes = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resources) {
-    err = cudaFuncSetAttribute(sched_scoring_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sched_scoring_kernel<true><<<grid, rows, smem, s>>>(a);
-  } else {
-    err = cudaFuncSetAttribute(sched_scoring_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sched_scoring_kernel<false><<<grid, rows, smem, s>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool use_mem = resources && mem_c != nullptr;
+  return resources ? launch<true>(a, use_mem, s) : launch<false>(a, use_mem, s);
 }

@@ -50,7 +50,8 @@ def sched_scoring(
     """(B,) closed-form max stable rates of B candidate placements.
 
     Args:
-      task_machine: (B, T) int32 machine id per task, in [0, m).
+      task_machine: (B, T) int32 machine id per task; ids outside [0, m)
+        match no machine.
       comp / unit_ir: (T,) shared or (B, T) per-row component (int32) and
         unit-rate input (float64) per task.
       e_cm / met_cm: (n, m) float64 profile tables, gathered by the kernel.

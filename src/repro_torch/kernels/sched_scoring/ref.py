@@ -19,7 +19,7 @@ __all__ = ["sched_scoring_ref"]
 
 
 def sched_scoring_ref(
-    task_machine: torch.Tensor,          # (B, T) int, ids in [0, m)
+    task_machine: torch.Tensor,          # (B, T) int; ids outside [0, m) match no machine
     comp: torch.Tensor,                  # (T,) or (B, T) int
     unit_ir: torch.Tensor,               # (T,) or (B, T) float64
     e_cm: torch.Tensor,                  # (n, m) float64
@@ -41,6 +41,11 @@ def sched_scoring_ref(
     dev = task_machine.device
     f64 = torch.float64
     tm = task_machine.long()
+    # Ids outside [0, m) match no machine: their tasks add into a spare
+    # column m, dropped below.
+    valid = (tm >= 0) & (tm < m)
+    slot = torch.where(valid, tm, m)
+    tm = torch.where(valid, tm, 0)
     comp_bt = (comp if comp.ndim == 2 else comp[None, :].expand(B, T)).long()
     uir = unit_ir if unit_ir.ndim == 2 else unit_ir[None, :].expand(B, T)
     ev = e_cm[comp_bt, tm] * uir
@@ -48,15 +53,18 @@ def sched_scoring_ref(
     mem = None
     if mem_c is not None and mem_capacity is not None:
         mem = mem_c[comp_bt]
-    var_w = torch.zeros((B, m), dtype=f64, device=dev)
-    met_w = torch.zeros((B, m), dtype=f64, device=dev)
-    mem_w = torch.zeros((B, m), dtype=f64, device=dev) if mem is not None else None
+    var_w = torch.zeros((B, m + 1), dtype=f64, device=dev)
+    met_w = torch.zeros((B, m + 1), dtype=f64, device=dev)
+    mem_w = torch.zeros((B, m + 1), dtype=f64, device=dev) if mem is not None else None
     for t in range(T):
-        idx = tm[:, t : t + 1]
+        idx = slot[:, t : t + 1]
         var_w.scatter_add_(1, idx, ev[:, t : t + 1])
         met_w.scatter_add_(1, idx, met[:, t : t + 1])
         if mem_w is not None:
             mem_w.scatter_add_(1, idx, mem[:, t : t + 1])
+    var_w, met_w = var_w[:, :m], met_w[:, :m]
+    if mem_w is not None:
+        mem_w = mem_w[:, :m]
     if net_var is not None:
         var_w = var_w + net_var
     cap_b = capacity if capacity.ndim == 2 else capacity[None, :]

@@ -38,8 +38,10 @@ PORT_KERNELS = {"flash_attention": "flash_attention",
                 "rglru_scan": "rglru_scan"}
 
 
-def profile_phase(fn, top: int = 8) -> dict:
-    """Run ``fn`` once under the profiler; wall and device-busy seconds."""
+def profile_phase(fn, top: int = 8, kernels: dict[str, str] = PORT_KERNELS) -> dict:
+    """Run ``fn`` once under the profiler; wall and device-busy seconds, and
+    the device time and calls of each of ``kernels`` (named as in
+    ``PORT_KERNELS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -63,7 +65,7 @@ def profile_phase(fn, top: int = 8) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     port = {k: dict(device_ms=sum(t for n, (t, _) in by_name.items() if k in n) * 1e-3,
                     calls=sum(c for n, (_, c) in by_name.items() if once in n))
-            for k, once in PORT_KERNELS.items()}
+            for k, once in kernels.items()}
     return dict(wall_s=wall, device_busy_s=busy_us * 1e-6, busy_share=busy_us * 1e-6 / wall,
                 launches=len(spans), port_kernels=port,
                 top=[dict(name=n[:80], device_ms=t * 1e-3, calls=c) for n, (t, c) in ranked])

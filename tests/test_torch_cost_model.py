@@ -192,3 +192,40 @@ def test_eq6_and_predict_match():
     for a, b in zip(pcm.per_row_task_maps(np.array([1.0, 4.0, 4.0]), counts, 6),
                     rcm.per_row_task_maps(np.array([1.0, 4.0, 4.0]), counts, 6)):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_resource_operands_match_reference(per_row):
+    # The reference's surface: (net_var, mem per task in comp's shape,
+    # mem_capacity); the port's scorer takes the per-component mem_c
+    # through its private helper instead.
+    rng = np.random.default_rng(12)
+    r_cl = R.paper_cluster((2, 3, 2), profile=R.paper_profile().with_mem(
+        np.array([0.2, 1.0, 1.5, 2.0]))).with_resources(
+        mem_capacity=np.full(7, 4.0),
+        distance=R.rack_distance_matrix(np.array([0, 0, 1, 1, 2, 2, 2]), 1.0, 3.0),
+        net_penalty=0.4,
+    )
+    p_cl = convert.cluster(r_cl)
+    utg = R.diamond_topology(alpha=1.3)
+    n_inst = np.array([1, 2, 3, 2, 3])
+    T, B = int(n_inst.sum()), 19
+    cir = rcm.component_rates(utg, 1.0)
+    if per_row:
+        counts = np.tile(n_inst, (B, 1))
+        counts[::3, 2] += 1
+        counts[::3, 1] -= 1
+        comp, uir = rcm.per_row_task_maps(cir, counts, T)
+    else:
+        comp = np.repeat(np.arange(utg.n_components), n_inst)
+        uir = (cir / n_inst)[comp]
+    tm = rng.integers(0, 7, size=(B, T))
+    args = (tm, comp, uir, utg.alpha, cir, utg.edges, utg.component_types)
+    r_net, r_mem, r_cap = rcm.resource_operands(r_cl, *args)
+    p_net, p_mem, p_cap = pcm.resource_operands(p_cl, *args, device="cpu")
+    assert p_mem.shape == comp.shape and np.array_equal(p_mem, r_mem)
+    assert np.array_equal(p_cap, r_cap)
+    np.testing.assert_allclose(p_net.numpy(), r_net, rtol=1e-12, atol=1e-14)
+    # The scorer's helper hands the kernel the per-component vector.
+    *_, mem_c, _ = pcm._scoring_operands(p_cl, *args, device="cpu")
+    assert np.array_equal(mem_c[comp], p_mem)

@@ -46,6 +46,7 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch.core, repro_torch.kernels.sched_scoring.ops,"
+        " repro_torch.kernels.cut_traffic.ops, repro_torch.launch.profile_refine,"
         " repro_torch.kernels.flash_attention.ops, repro_torch.kernels.decode_attention.ops,"
         " repro_torch.kernels.rglru_scan.ops, repro_torch.models.rglru,"
         " repro_torch.models.model, repro_torch.models.convert, repro_torch.configs,"

@@ -171,3 +171,95 @@ def test_cuda_kernel_matches_plain_version(cuda_device, per_row, resources):
     torch.cuda.synchronize()
     assert ops.LAUNCHES[name] == before + 1
     assert torch.equal(got.cpu(), plain)
+
+
+# --- The order of the CUDA kernel's design, pinned on the CPU -------------
+#
+# csrc/sched_scoring.cu gives a row one warp. Lane l takes task j0 + l of
+# each group of 32 tasks; lanes whose tasks land on one machine add in lane
+# (= task) order, the k-th of them in round k. At the end the machines are
+# split over owners (lane g takes w = g mod 32) and the owners' partial
+# min and "infeasible" flags combine by an xor tree. The twin below does
+# exactly that in scalar float64 and must equal the plain version bit for
+# bit; `owners` also takes 1 and 8 to show the split never matters.
+
+def _scorer_twin(tm, comp, uir, e_cm, met_cm, cap, net=None, mem_c=None, mem_cap=None,
+                 owners=32, group=32):
+    B, T = tm.shape
+    m = e_cm.shape[1]
+    out = np.empty(B)
+    for b in range(B):
+        c_row = comp[b] if comp.ndim == 2 else comp
+        u_row = uir[b] if uir.ndim == 2 else uir
+        var, met, mem = [0.0] * m, [0.0] * m, [0.0] * m
+        for j0 in range(0, T, group):
+            lanes = range(j0, min(j0 + group, T))
+            ws = [int(tm[b, j]) if 0 <= tm[b, j] < m else -1 for j in lanes]
+            ranks = [ws[:i].count(w) for i, w in enumerate(ws)]
+            for k in range(max(ranks, default=0) + 1):
+                for i, j in enumerate(lanes):
+                    w = ws[i]
+                    if w < 0 or ranks[i] != k:
+                        continue
+                    c = int(c_row[j])
+                    var[w] = var[w] + float(e_cm[c, w]) * float(u_row[j])
+                    met[w] = met[w] + float(met_cm[c, w])
+                    if mem_c is not None:
+                        mem[w] = mem[w] + float(mem_c[c])
+        cap_row = cap[b] if cap.ndim == 2 else cap
+        rate, bad = [float("inf")] * owners, [False] * owners
+        for g in range(owners):
+            for w in range(g, m, owners):
+                v = var[w] + float(net[b, w]) if net is not None else var[w]
+                head = float(cap_row[w]) - met[w]
+                bad[g] |= head < 0.0
+                if mem_c is not None:
+                    mcap = mem_cap[b] if mem_cap.ndim == 2 else mem_cap
+                    bad[g] |= mem[w] > float(mcap[w])
+                if v > 0.0:
+                    rate[g] = min(rate[g], head / max(v, 1e-300))
+        off = owners // 2
+        while off:
+            rate = [min(rate[g], rate[g ^ off]) for g in range(owners)]
+            bad = [bad[g] or bad[g ^ off] for g in range(owners)]
+            off //= 2
+        out[b] = 0.0 if bad[0] else max(rate[0], 0.0)
+    return out
+
+
+@pytest.mark.parametrize("owners", [1, 8, 32])
+@pytest.mark.parametrize("m", [1, 3, 17, 180])
+@pytest.mark.parametrize("resources", [False, True])
+def test_kernel_order_twin_bit_identical_to_plain_version(owners, m, resources):
+    T = {1: 37, 3: 70, 17: 130, 180: 533}[m]
+    B = 6 if m == 180 else 11
+    tm, comp, uir, e_cm, met_cm, cap, extras = _problem(m + owners, B, T, m, 4, per_row=m == 17,
+                                                        resources=resources)
+    rng = np.random.default_rng(m)
+    tm[:, ::7] = rng.choice([-1, m, m + 5], size=tm[:, ::7].shape)  # ids outside [0, m)
+    if m == 3:
+        cap = rng.uniform(2.0, 12.0, size=(B, m))  # per-row capacity
+        if resources:
+            extras["mem_capacity"] = rng.uniform(1.0, 8.0, size=(B, m))
+    args, kw = _tensors(tm, comp, uir, e_cm, met_cm, cap, extras)
+    plain = ops.sched_scoring(*args, **kw).numpy()
+    twin = _scorer_twin(tm, comp, uir, e_cm, met_cm, cap, net=extras.get("net_var"),
+                        mem_c=extras.get("mem_c"), mem_cap=extras.get("mem_capacity"),
+                        owners=owners)
+    assert np.array_equal(plain, twin)
+
+
+def test_plain_version_ignores_ids_outside_machines():
+    # A task on an id outside [0, m) adds to no machine: the row scores as
+    # if the task were absent (its unit_ir set to 0 and its met to 0).
+    tm, comp, uir, e_cm, met_cm, cap, _ = _problem(3, 9, 20, 5, 3)
+    bad = tm.copy()
+    bad[:, 4] = -1
+    bad[:, 11] = 5
+    args, _ = _tensors(bad, comp, uir, e_cm, met_cm, cap, {})
+    got = ops.sched_scoring(*args).numpy()
+    keep = np.ones(20, dtype=bool)
+    keep[[4, 11]] = False
+    args, _ = _tensors(np.ascontiguousarray(tm[:, keep]), np.ascontiguousarray(comp[keep]),
+                       np.ascontiguousarray(uir[keep]), e_cm, met_cm, cap, {})
+    assert np.array_equal(got, ops.sched_scoring(*args).numpy())
