@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: builds the kernels, drives the
-paper's main path and the LM serving paths on one NVIDIA GPU, holds every
-kernel against its plain PyTorch version, and prints the kernels' numbers.
+paper's main path, the LM serving paths and the streaming runtime on one
+NVIDIA GPU, holds every kernel against its plain PyTorch version, and prints
+the kernels' numbers.
 
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 Phases (each raises on failure; nothing is caught):
 
-1. build the five kernel sources (``sched_scoring.cu``, ``cut_traffic.cu``,
-   ``flash_attention.cu``, ``decode_attention.cu``, ``rglru_scan.cu``) for
-   sm_90a, one nvcc each, all at once; card name and power limit;
+1. build the six kernel sources (``sched_scoring.cu``, ``cut_traffic.cu``,
+   ``flash_attention.cu``, ``decode_attention.cu``, ``rglru_scan.cu``,
+   ``policy_scan.cu``) for sm_90a, one nvcc each, all at once; card name
+   and power limit;
 2. the scorer (B1, B2) against its plain version on the card, over the
    scoring regimes and edge shapes (ids outside [0, m) among them), and the
    cut-traffic kernel against its plain version over shared, per-row and
@@ -51,7 +53,26 @@ Phases (each raises on failure; nothing is caught):
 9. B3 and B4 timed at both models' serving shapes beside their plain
    versions and ``scaled_dot_product_attention`` (B4 with its slice count
    and the bytes of its partials); B5 at its serving shape beside its plain
-   version.
+   version;
+10. the streaming runtime at the paper's large scale (phase 3's cluster, the
+   reference runtime benchmark's six drift traces against phase 3's R* at
+   240 windows, ``max_queue`` 120): ``OnlineController(period=10,
+   device="cuda")`` over the ramp and the failure trace, each from
+   ``provision_schedule`` at the trace's initial rate, every replan's
+   ``refine`` on B1 and no plain scorer on the card; each held against the
+   same run with ``device="cpu"`` (equal fingerprints and replan ledgers),
+   as is ``OracleRescheduler`` over the failure trace (Algorithm 1 on the
+   host); a keyed skew shift (``keyed_rolling_count_topology`` on the same
+   cluster, 240 windows) must carry out a skew_shift replan on B1, and the
+   CPU holds its first 91 windows, through that replan; the oracle over the
+   same keyed run must polish on B1 and move at window 0, and the CPU holds
+   its first 2 windows; then
+   ``evaluate_policies_batch(device="cuda")`` over the six traces x 256
+   placements (the refined one and 255 with one task moved): one
+   ``policy_scan`` launch, within 1e-12 of its plain version on the card,
+   equal to it on the CPU for 8 placements, bit-identical on rerun, within
+   1e-9 of the executor on 8 sampled pairs;
+11. ``policy_scan`` timed at that sweep beside its plain version.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -219,29 +240,19 @@ def compare_kernel(torch, np, ops, args, extras):
     return err, int((plain == 0.0).sum())
 
 
-def time_cuda(torch, fn, reps=15, flush_bytes=256 << 20, spin_cycles=2_000_000):
-    """Median ms of ``fn()`` over ``reps`` runs, each after a write of
-    ``flush_bytes`` that evicts the 50 MB L2 (the sweep's caller finds it cold)
-    and a spin of ``spin_cycles`` (~1 ms) on the card, which keeps the card
-    busy while the host prepares the launch: the time is the card's, not the
-    wrapper's host overhead. With ``spin_cycles=0`` the host's time in the
-    wrapper falls inside the window wherever it outlasts the flush."""
-    flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        if spin_cycles:
-            torch.cuda._sleep(spin_cycles)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+# Phase 10's keyed run: the key realization's seed and the Zipf exponent
+# its hot keys shift to, chosen so that the shift cuts the even-split
+# schedule's skew-aware R* below the offered rate and the controller's
+# replan clears its guard; the CPU holds its first 91 windows (the replan
+# at window 89 and one window after it).
+KEYED_SHIFT_SEED = 1
+KEYED_SHIFT_ZIPF = 1.6
+KEYED_PREFIX = 91
+# The oracle's first plan lands at window 0; the CPU holds two windows.
+ORACLE_PREFIX = 2
+# A streaming run's per-window metrics (``RuntimeResult``).
+RUN_FIELDS = ("offered", "admitted", "throughput", "dropped", "queue_total", "queue_max",
+              "machine_util", "throttle", "migrations")
 
 
 # Phase 7's cases: (label, B, Sq, Sk, H, Hkv, D, causal, window) for B3 and
@@ -507,6 +518,7 @@ def sdpa_call(torch, F, q, k, v, causal, window):
 def time_flash(torch, F, flash_ops, flash_ref, B, S, H, Hkv, D, window):
     """B3 at (B, S, H, Hkv, D), bf16, causal: (max abs err, ms, plain ms,
     bound, library ms) and a printed line."""
+    from repro_torch.launch.timing import time_cuda
     gen = torch.Generator(device="cuda").manual_seed(9)
     bf16 = dict(device="cuda", dtype=torch.bfloat16)
     q, k, v = (torch.randn(shape, generator=gen, **bf16)
@@ -514,9 +526,9 @@ def time_flash(torch, F, flash_ops, flash_ref, B, S, H, Hkv, D, window):
     kw = dict(causal=True, window=window)
     err = attention_error(torch, f"B3 at B={B} S={S} H={H}",
                           flash_ops.flash_attention(q, k, v, **kw), flash_ref(q, k, v, **kw))
-    ms = time_cuda(torch, lambda: flash_ops.flash_attention(q, k, v, **kw))
-    plain_ms = time_cuda(torch, lambda: flash_ref(q, k, v, **kw), reps=5)
-    lib_ms = time_cuda(torch, sdpa_call(torch, F, q, k, v, True, window))
+    ms = time_cuda(lambda: flash_ops.flash_attention(q, k, v, **kw))
+    plain_ms = time_cuda(lambda: flash_ref(q, k, v, **kw), reps=5)
+    lib_ms = time_cuda(sdpa_call(torch, F, q, k, v, True, window))
     # (query, key) pairs that the causal and window masks leave.
     pairs = B * H * sum(min(i + 1, window or S) for i in range(S))
     flops = 4 * D * pairs
@@ -531,6 +543,7 @@ def time_flash(torch, F, flash_ops, flash_ref, B, S, H, Hkv, D, window):
 
 def time_decode(torch, F, decode_ops, decode_ref, B, H, Hkv, S_cache, length, D):
     """B4 over ``length`` of ``S_cache`` slots, bf16: as ``time_flash``."""
+    from repro_torch.launch.timing import time_cuda
     gen = torch.Generator(device="cuda").manual_seed(10)
     bf16 = dict(device="cuda", dtype=torch.bfloat16)
     qd = torch.randn(B, H, D, generator=gen, **bf16)
@@ -538,9 +551,9 @@ def time_decode(torch, F, decode_ops, decode_ref, B, H, Hkv, S_cache, length, D)
     lengths = torch.full((B,), length, dtype=torch.int32, device="cuda")
     err = attention_error(torch, f"B4 at B={B} S={S_cache}", decode_ops.decode_attention(
         qd, kc, vc, lengths), decode_ref(qd, kc, vc, lengths))
-    ms = time_cuda(torch, lambda: decode_ops.decode_attention(qd, kc, vc, lengths))
-    plain_ms = time_cuda(torch, lambda: decode_ref(qd, kc, vc, lengths), reps=5)
-    lib_ms = time_cuda(torch, sdpa_call(torch, F, qd[:, None], kc[:, :length], vc[:, :length],
+    ms = time_cuda(lambda: decode_ops.decode_attention(qd, kc, vc, lengths))
+    plain_ms = time_cuda(lambda: decode_ref(qd, kc, vc, lengths), reps=5)
+    lib_ms = time_cuda(sdpa_call(torch, F, qd[:, None], kc[:, :length], vc[:, :length],
                                         False, 0))
     n_bytes = 2 * B * length * Hkv * D * 2 + 2 * B * H * D * 2 + B * 4
     flops = 4 * B * H * length * D
@@ -561,12 +574,13 @@ def time_scan(torch, scan_ops, scan_ref, B, S, W):
     """B5 at (B, S, W) float32 (the model's a and b): as ``time_flash``,
     without a library call (no single PyTorch call computes a linear
     recurrence)."""
+    from repro_torch.launch.timing import time_cuda
     gen = torch.Generator(device="cuda").manual_seed(11)
     a, b, h0 = scan_inputs(torch, gen, B, S, W, torch.float32)
     err = scan_error(torch, "B5 at the serving shape", scan_ops.rglru_scan(a, b, h0),
                      scan_ref(a, b, h0))
-    ms = time_cuda(torch, lambda: scan_ops.rglru_scan(a, b, h0))
-    plain_ms = time_cuda(torch, lambda: scan_ref(a, b, h0), reps=5)
+    ms = time_cuda(lambda: scan_ops.rglru_scan(a, b, h0))
+    plain_ms = time_cuda(lambda: scan_ref(a, b, h0), reps=5)
     n_bytes = 3 * B * S * W * 4 + B * W * 4  # a, b read and h written once; h0
     flops = 2 * B * S * W
     bound = _bound(flops / FP32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
@@ -580,6 +594,7 @@ def time_cut_traffic(torch, np, P, cut_ops, etg, cluster, rng, launches, max_err
     """The cut-traffic kernel at the resource refine's sweep shape (5 555
     rows of the refined placement, one task moved per row): checked equal
     to its plain version on the card, then timed beside it; its record."""
+    from repro_torch.launch.timing import time_cuda
     from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
 
     B, base, utg = 5555, etg.task_machine(), etg.utg
@@ -598,10 +613,10 @@ def time_cut_traffic(torch, np, P, cut_ops, etg, cluster, rng, launches, max_err
     err = float((got - plain).abs().max())
     check(torch.equal(got, plain), f"cut_traffic at the sweep shape differs by {err}")
     max_err["cut_traffic"] = max(max_err["cut_traffic"], err)
-    ms = time_cuda(torch, lambda: cut_ops.cut_traffic(*g_args, edges, g_dist, pen))
-    wrapper_ms = time_cuda(torch, lambda: cut_ops.cut_traffic(*g_args, edges, g_dist, pen),
+    ms = time_cuda(lambda: cut_ops.cut_traffic(*g_args, edges, g_dist, pen))
+    wrapper_ms = time_cuda(lambda: cut_ops.cut_traffic(*g_args, edges, g_dist, pen),
                            spin_cycles=0)
-    plain_ms = time_cuda(torch, lambda: cut_traffic_ref(*g_args, edges, g_dist, pen), reps=5)
+    plain_ms = time_cuda(lambda: cut_traffic_ref(*g_args, edges, g_dist, pen), reps=5)
     k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
     flops = 2 * B * k2 * m * m + 4 * B * len(edges) * m + 3 * B * T  # products and sums
     n_bytes = sum(x.numel() * x.element_size() for x in (*g_args, g_dist)) + B * m * 8
@@ -614,6 +629,245 @@ def time_cut_traffic(torch, np, P, cut_ops, etg, cluster, rng, launches, max_err
     return dict(_record("cut_traffic", "src/repro_torch/kernels/cut_traffic/csrc/cut_traffic.cu",
                         "src/repro/core/cost_model.py:400", launches, max_err["cut_traffic"],
                         (err, ms, plain_ms, bound, None)), wrapper_ms=wrapper_ms)
+
+
+def trace_prefix(tr, n):
+    """The first ``n`` windows of a compiled trace: the same arrays, the
+    events before window ``n``."""
+    return dataclasses.replace(tr, rates=tr.rates[:n].copy(), capacity=tr.capacity[:n].copy(),
+                               events=tuple(e for e in tr.events if e[0] < n))
+
+
+def same_run(RS, what, card, cpu):
+    """The (result, controller) of a run on the card and of the same run on
+    the CPU: equal fingerprints, events and replan ledgers."""
+    (g, g_ctl), (c, c_ctl) = card, cpu
+    check(g.fingerprint() == c.fingerprint() and g.events == c.events,
+          f"{what}: the run on the card differs from the CPU's")
+    if isinstance(g_ctl, RS.OnlineController):
+        check(g_ctl.ledger.to_records() == c_ctl.ledger.to_records(),
+              f"{what}: the replan ledger on the card differs from the CPU's")
+        return f"{len(g_ctl.ledger.accepted)} of {len(g_ctl.ledger)} decisions replanned"
+    return f"{len(g_ctl._cache)} plans"
+
+
+def held_run(RS, np, what, etg, cluster, trace, make_controller, n=None):
+    """One run of ``trace`` on the card and the same on the CPU
+    (``make_controller(device)``), held by ``same_run``. With ``n`` the CPU
+    runs only the first ``n`` windows, and the card's run must equal it
+    over those: metrics, events and replan decisions. Returns the card's
+    (result, controller)."""
+    from repro_torch.launch.profile_runtime import RUNTIME_CONFIG
+
+    out, secs = {}, {}
+    for device, tr in (("cuda", trace), ("cpu", trace if n is None else trace_prefix(trace, n))):
+        t0 = time.perf_counter()
+        ctl = make_controller(device)
+        out[device] = (RS.StreamExecutor(etg, cluster, tr, config=RUNTIME_CONFIG)
+                       .run(controller=ctl), ctl)
+        secs[device] = time.perf_counter() - t0
+    (g, g_ctl), (c, c_ctl) = out["cuda"], out["cpu"]
+    if n is None:
+        held = f"fingerprint {g.fingerprint()}; {same_run(RS, what, out['cuda'], out['cpu'])}"
+    else:
+        for field in RUN_FIELDS:
+            check(np.array_equal(getattr(g, field)[:n], getattr(c, field)),
+                  f"{what}: {field} on the card differs from the CPU's over {n} windows")
+        check(tuple(e for e in g.events if e[0] < n) == c.events,
+              f"{what}: events on the card differ from the CPU's over {n} windows")
+        if isinstance(g_ctl, RS.OnlineController):
+            check([r for r in g_ctl.ledger.to_records() if r["window"] < n]
+                  == c_ctl.ledger.to_records(),
+                  f"{what}: the replan ledger on the card differs from the CPU's over {n} windows")
+        held = f"over the first {n} of {g.n_windows} windows"
+    print(f"  {what}: card == cpu ({held}; {int(g.migrations.sum())} instances moved; card "
+          f"{secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s)")
+    return out["cuda"]
+
+
+def runtime_phases(torch, np, P, ops, cut_ops, cluster, refined, wall):
+    """Phases 10 and 11: the online path and the policy sweep at the paper's
+    large scale; returns the ``policy_scan`` record."""
+    import repro_torch.runtime_stream as RS
+    from repro_torch.kernels.policy_scan import ops as scan_ops
+    from repro_torch.kernels.policy_scan.ref import policy_scan_ref
+    from repro_torch.launch.profile_runtime import (
+        N_WINDOWS,
+        PROVISION,
+        RUNTIME_CONFIG,
+        SCENARIOS,
+        online_run,
+        refine_times,
+        runtime_traces,
+        sweep_policies,
+    )
+    from repro_torch.launch.timing import time_cuda
+    from repro_torch.runtime_stream.eval_torch import scan_operands
+
+    print("[10] streaming runtime at the paper's large scale: online replans on the card, the "
+          "policy sweep")
+    etg, utg, W = refined.etg, refined.etg.utg, N_WINDOWS
+    traces = {k: s.compile(cluster, seed=0, utg=utg)
+              for k, s in runtime_traces(cluster, refined.rate).items()}
+    kernel_ops = (ops, cut_ops, scan_ops)
+    # The plain scorer must not run on the card: count its calls on CUDA
+    # tensors while the online, oracle and keyed runs go.
+    plain_score, eager = ops.sched_scoring_ref, []
+
+    def counting_score(task_machine, *args, **kwargs):
+        if task_machine.is_cuda:
+            eager.append(tuple(task_machine.shape))
+        return plain_score(task_machine, *args, **kwargs)
+
+    ops.sched_scoring_ref = counting_score
+    for name in ("ramp", "failure"):
+        # From provision_schedule at the trace's initial rate, as the
+        # reference runtime benchmark's online policy starts.
+        start = RS.provision_schedule(utg, cluster, PROVISION[name] * refined.rate)
+        for k_ops in kernel_ops:
+            k_ops.reset_launches()
+        with refine_times([]) as refines:
+            t0 = time.perf_counter()
+            res, ctl = online_run(start, cluster, traces[name])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        launches = {k: v for k_ops in kernel_ops for k, v in k_ops.LAUNCHES.items()}
+        check(launches["sched_scoring"] > 0 and launches["sched_scoring_resources"] == 0
+              and launches["cut_traffic"] == 0 and launches["policy_scan"] == 0,
+              f"online {name}: replans did not run on B1 alone ({launches})")
+        check(len(refines) == len(ctl.ledger) and ctl.ledger.accepted,
+              f"online {name}: no replan was applied")
+        check(res.throughput.shape == (W,) and res.machine_util.shape == (W, cluster.n_machines)
+              and bool(np.all(np.isfinite(res.machine_util))), f"online {name}: bad metrics")
+        wall[f"online_{name}_s"] = run_s
+        t0 = time.perf_counter()
+        decided = same_run(RS, f"online {name}", (res, ctl),
+                           online_run(start, cluster, traces[name], device="cpu"))
+        print(f"  online {name}, {W} windows from {start.total_tasks} tasks: {run_s:.3f} s on the "
+              f"card, of which refine {sum(refines):.3f} s in {len(refines)} calls "
+              f"({100 * sum(refines) / run_s:.1f}%); {decided}, {int(res.migrations.sum())} "
+              f"instances moved, {res.final_etg.total_tasks} tasks at the end; sustained "
+              f"{res.sustained_throughput():.4f}; launches {launches}; card == cpu (fingerprint "
+              f"{res.fingerprint()}, cpu {time.perf_counter() - t0:.2f} s)")
+
+    t_cpu = time.perf_counter()
+    # On a shuffle topology the oracle plans by Algorithm 1 alone, on the
+    # host; its refines (B1) run on keyed topologies, below.
+    held_run(RS, np, "oracle, failure", etg, cluster, traces["failure"],
+             lambda device: RS.OracleRescheduler(utg, cluster, device=device))
+    # A keyed run (skew-aware replans) on the same cluster: the even-split
+    # schedule at 0.8 of its skew-aware R* under the first key realization;
+    # a third of the way in the hot keys move to a steeper Zipf, and the
+    # controller must carry out a skew_shift replan on the card. The CPU
+    # holds the run's first windows, through that replan.
+    keyed = P.keyed_rolling_count_topology(n_keys=64, zipf_s=1.2)
+    keyed_etg = P.schedule(keyed, cluster, r0=1.0, rate_epsilon=1.0).etg
+    shift = RS.skew_shift_trace(1.0, n_windows=W, zipf_s=KEYED_SHIFT_ZIPF).compile(
+        cluster, seed=KEYED_SHIFT_SEED, utg=keyed)
+    probe = RS.StreamExecutor(keyed_etg, cluster, shift)
+    r_skew, r_shifted = (P.max_stable_rate(keyed_etg, cluster, skew=probe.skew_model_at(t))[0]
+                         for t in (0, W - 1))
+    shift = dataclasses.replace(shift, rates=shift.rates * (0.8 * r_skew))
+    ops.reset_launches()
+    k_res, k_ctl = held_run(RS, np, "keyed skew shift", keyed_etg, cluster, shift,
+                            lambda device: RS.OnlineController(keyed, cluster, period=10,
+                                                               device=device),
+                            n=KEYED_PREFIX)
+    shifted = [d for d in k_ctl.ledger if d.trigger == "skew_shift" and d.accepted]
+    check(bool(shifted) and shifted[0].window < KEYED_PREFIX and ops.LAUNCHES["sched_scoring"] > 0,
+          "the keyed run carried out no skew_shift replan on the card inside the CPU's windows")
+    print(f"  keyed skew shift: {len(k_ctl.ledger)} decisions ("
+          + ", ".join(f"{d.window}: {d.trigger} {d.outcome}" for d in k_ctl.ledger)
+          + f"), {int(k_res.migrations.sum())} instances moved, "
+          f"{ops.LAUNCHES['sched_scoring']} B1 launches; {keyed_etg.total_tasks} tasks, skew-aware "
+          f"R* {r_skew:.4f} before the shift and {r_shifted:.4f} after it, offered "
+          f"{float(shift.rates[0]):.4f}; sustained {k_res.sustained_throughput():.4f}")
+    # The oracle on the same keyed run: a skew-aware refine on the card at
+    # window 0 and after the shift; the CPU holds its first windows, through
+    # its first plan (two full refines, the slow side on the CPU).
+    ops.reset_launches()
+    o_res, o_ctl = held_run(RS, np, "oracle, keyed skew shift", keyed_etg, cluster, shift,
+                            lambda device: RS.OracleRescheduler(keyed, cluster, device=device),
+                            n=ORACLE_PREFIX)
+    check(ops.LAUNCHES["sched_scoring"] > 0 and int(o_res.migrations[0]) > 0,
+          "the oracle's skew-aware refines launched no B1 on the card or planned no move")
+    print(f"  oracle, keyed skew shift: {len(o_ctl._cache)} plans, "
+          f"{ops.LAUNCHES['sched_scoring']} B1 launches; sustained "
+          f"{o_res.sustained_throughput():.4f}")
+    wall["runtime_twins_s"] = time.perf_counter() - t_cpu
+    ops.sched_scoring_ref = plain_score
+    check(not eager, f"the plain scorer ran on the card {eager}")
+
+    # The policy sweep: B = 6 traces x P = 256 placements x W = 240.
+    order = [traces[k] for k in SCENARIOS]
+    policies = sweep_policies(etg, cluster.n_machines)
+    scan_ops.reset_launches()
+    t0 = time.perf_counter()
+    sweep = RS.evaluate_policies_batch(etg, cluster, order, policies, config=RUNTIME_CONFIG,
+                                       device="cuda")
+    wall["sweep_s"] = time.perf_counter() - t0
+    sweep_launches = scan_ops.LAUNCHES["policy_scan"]
+    check(sweep_launches == 1, f"the sweep launched policy_scan {sweep_launches} times, not 1")
+    operands, topo, cfg = scan_operands(etg, cluster, order, policies, RUNTIME_CONFIG,
+                                        torch.device("cuda"))
+    got = scan_ops.policy_scan(*operands, topo, cfg)
+    again = scan_ops.policy_scan(*operands, topo, cfg)
+    plain = policy_scan_ref(*operands, topo, cfg)
+    cpu_operands, _, _ = scan_operands(etg, cluster, order, policies[:8], RUNTIME_CONFIG,
+                                       torch.device("cpu"))
+    plain_cpu = policy_scan_ref(*cpu_operands, topo, cfg)
+    torch.cuda.synchronize()
+    err = 0.0
+    for field, g_x, a_x, p_x, c_x in zip(got._fields, got, again, plain, plain_cpu):
+        check(bool(torch.isfinite(g_x).all()), f"policy_scan {field}: non-finite output")
+        check(torch.equal(g_x, a_x), f"policy_scan {field}: rerun differs")
+        check(np.array_equal(g_x.cpu().numpy(), getattr(sweep, field)),
+              f"policy_scan {field}: differs from the evaluator's result")
+        f_err = float((g_x - p_x).abs().max())
+        check(f_err <= 1e-12 * max(1.0, float(p_x.abs().max())),
+              f"policy_scan {field}: {f_err} from its plain version on the card")
+        check(torch.equal(g_x[:, :8].cpu(), c_x),
+              f"policy_scan {field}: differs from its plain version on the CPU")
+        err = max(err, f_err)
+    rng = np.random.default_rng(17)
+    comp = etg.task_component()
+    worst = 0.0
+    for b, p in zip(rng.integers(0, len(order), 8), rng.integers(0, policies.shape[0], 8)):
+        pe = P.ExecutionGraph(utg=utg, n_instances=etg.n_instances.copy(),
+                              assignment=[policies[p][comp == c] for c in range(utg.n_components)])
+        run = RS.StreamExecutor(pe, cluster, order[b], config=RUNTIME_CONFIG).run()
+        for field in ("throughput", "admitted", "dropped", "queue_total", "throttle"):
+            x, y = getattr(sweep, field)[b, p], getattr(run, field)
+            check(np.allclose(x, y, rtol=1e-9, atol=1e-9),
+                  f"sweep pair ({b}, {p}) {field} differs from the executor")
+            worst = max(worst, float(np.max(np.abs(x - y))))
+        check(np.array_equal(sweep.machine_util_mean[b, p], run.machine_util.mean(axis=0)),
+              f"sweep pair ({b}, {p}): utilization differs from the executor")
+    print(f"  sweep B={len(order)} P={policies.shape[0]} W={W} T={etg.total_tasks}: 1 launch, "
+          f"{wall['sweep_s']:.3f} s host to host; max abs err {err:.3e} against the plain version "
+          f"on the card, equal to it on the CPU (8 placements), rerun bit-identical; 8 sampled "
+          f"pairs within {worst:.3e} of the executor (utilization equal); sustained "
+          f"{float(sweep.sustained.min()):.4f}-{float(sweep.sustained.max()):.4f}")
+
+    # [11] timing ------------------------------------------------------------
+    print("[11] policy_scan timed at the sweep (CUDA events, cold L2, median of 15; plain "
+          "version median of 3)")
+    ms = time_cuda(lambda: scan_ops.policy_scan(*operands, topo, cfg))
+    plain_ms = time_cuda(lambda: policy_scan_ref(*operands, topo, cfg), reps=3)
+    B, P_, T, m = len(order), policies.shape[0], etg.total_tasks, cluster.n_machines
+    # The kernel's FP64 operations: about 23 a task and window (arrivals,
+    # clip, desired, the machine sums, service, backlog, tcu, the four totals
+    # and the maximum), 5 a machine and window, 2 a keyed share.
+    flops = B * P_ * W * (23 * T + 5 * m + 2 * topo.n_shares)
+    n_bytes = sum(x.numel() * x.element_size() for x in (*operands, *got))
+    bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    print(f"  policy_scan B={B} P={P_} W={W} T={T} m={m}: {ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"by {bound[1]} ({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.2f} MB; "
+          f"{100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.3f} ms; no single PyTorch call "
+          f"computes it, so library_ms is null")
+    return _record("policy_scan", "src/repro_torch/kernels/policy_scan/csrc/policy_scan.cu",
+                   "src/repro/runtime_stream/eval_jax.py:214", sweep_launches, err,
+                   (err, ms, plain_ms, bound, None))
 
 
 def _bound(op_s, byte_s):
@@ -643,6 +897,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch.core as P
     from repro_torch.launch.profile_refine import resource_cluster
+    from repro_torch.launch.timing import time_cuda
     from repro_torch.core.schedule_state import ScheduleState
     from repro_torch.kernels._build import build_info
     from repro_torch.kernels.decode_attention import kernel as decode_kernel
@@ -650,6 +905,7 @@ def main() -> int:
     from repro_torch.kernels.rglru_scan import kernel as scan_kernel
     from repro_torch.kernels.cut_traffic import kernel as cut_kernel
     from repro_torch.kernels.cut_traffic import ops as cut_ops
+    from repro_torch.kernels.policy_scan import kernel as scan_policy_kernel
     from repro_torch.kernels.sched_scoring import kernel, ops
 
     wall = {}
@@ -660,7 +916,8 @@ def main() -> int:
     print(f"[1] build and device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"  nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    kernel_modules = (kernel, cut_kernel, flash_kernel, decode_kernel, scan_kernel)
+    kernel_modules = (kernel, cut_kernel, flash_kernel, decode_kernel, scan_kernel,
+                      scan_policy_kernel)
     with ThreadPoolExecutor(len(kernel_modules)) as pool:  # one nvcc per source, all at once
         builds = [pool.submit(k.load_library) for k in kernel_modules]
         for build in builds:
@@ -673,7 +930,7 @@ def main() -> int:
         for line in info.get("log", "").splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  ptxas: {line.strip()}")
-    print(f"  all five built in {wall['build_s']:.2f} s")
+    print(f"  all six built in {wall['build_s']:.2f} s")
 
     # [2] kernel against its plain version on the card ---------------------
     print("[2] kernel against its plain PyTorch version on the card")
@@ -885,9 +1142,9 @@ def main() -> int:
         err, _ = compare_kernel(torch, np, ops, host_args, extras)  # at the timed shape
         max_err[key] = max(max_err[key], err)
         g_args, g_kw = to_tensors(torch, np, "cuda", host_args, extras)
-        ms = time_cuda(torch, lambda: ops.sched_scoring(*g_args, **g_kw))
-        wrapper_ms = time_cuda(torch, lambda: ops.sched_scoring(*g_args, **g_kw), spin_cycles=0)
-        plain_ms = time_cuda(torch, lambda: sched_scoring_ref(*g_args, **g_kw), reps=5)
+        ms = time_cuda(lambda: ops.sched_scoring(*g_args, **g_kw))
+        wrapper_ms = time_cuda(lambda: ops.sched_scoring(*g_args, **g_kw), spin_cycles=0)
+        plain_ms = time_cuda(lambda: sched_scoring_ref(*g_args, **g_kw), reps=5)
         n_bytes = sum(x.numel() * x.element_size() for x in (*g_args, *g_kw.values())) + B * 8
         flops = B * T * 3 + B * m * 4
         bound_ms = max(n_bytes / HBM_BYTES_PER_S, flops / FP64_FLOPS_PER_S) * 1e3
@@ -1002,6 +1259,11 @@ def main() -> int:
                            "src/repro/kernels/rglru_scan/kernel.py:50",
                            rg_launches["rglru_scan"], lm_err["rglru_scan"], scan_t))
     wall["phases_7_9_s"] = time.perf_counter() - t_lm
+
+    # [10] and [11] streaming runtime ----------------------------------------
+    t_rt = time.perf_counter()
+    records.append(runtime_phases(torch, np, P, ops, cut_ops, cluster, ref_gpu, wall))
+    wall["phases_10_11_s"] = time.perf_counter() - t_rt
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

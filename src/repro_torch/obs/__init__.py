@@ -1,1 +1,3 @@
-"""Observability hooks of the port (the full recorder is a later slice)."""
+"""Observability of the port: the replan ledger (``ledger``) and the
+dispatch hook with its null recorder (``trace``); the full recorder is a
+later slice (ROADMAP A11)."""

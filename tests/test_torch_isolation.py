@@ -50,7 +50,10 @@ def test_importing_the_port_loads_no_jax():
         " repro_torch.kernels.flash_attention.ops, repro_torch.kernels.decode_attention.ops,"
         " repro_torch.kernels.rglru_scan.ops, repro_torch.models.rglru,"
         " repro_torch.models.model, repro_torch.models.convert, repro_torch.configs,"
-        " repro_torch.launch.steps, repro_torch.launch.profile_serve, repro_torch.serve_lm;"
+        " repro_torch.launch.steps, repro_torch.launch.profile_serve, repro_torch.serve_lm,"
+        " repro_torch.runtime_stream, repro_torch.runtime_stream.convert,"
+        " repro_torch.kernels.policy_scan.ops, repro_torch.kernels.policy_scan.kernel,"
+        " repro_torch.obs.ledger, repro_torch.launch.profile_runtime, repro_torch.launch.timing;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')];"
         "sys.exit(1 if bad else 0)"
     )
@@ -94,6 +97,20 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
         lambda: M.prefill(params, lm, tokens, caches),
         lambda: M.decode_step(params, lm, tokens, caches),
         lambda: serve(lm, batch=1, prompt_len=2, gen_len=2),
+    ]
+    # So do the streaming runtime's batch evaluator and its controllers.
+    from repro_torch.runtime_stream import (
+        OnlineController,
+        OracleRescheduler,
+        TraceSpec,
+        evaluate_policies_batch,
+    )
+
+    trace = TraceSpec(name="flat", n_windows=4, base_rate=1.0).compile(cl)
+    calls += [
+        lambda: evaluate_policies_batch(etg, cl, [trace], tm),
+        lambda: OnlineController(etg.utg, cl),
+        lambda: OracleRescheduler(etg.utg, cl),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
