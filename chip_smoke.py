@@ -30,7 +30,9 @@ Phases (each raises on failure; nothing is caught):
 6. timings with CUDA events (cold L2, median): B1 and B2 at B=16384,
    T=478, m=180, the cut-traffic kernel at the resource path's sweep shape
    (B=5555, m=180, the refined placement's 537 tasks); each on the card
-   alone (``ms``) and with the wrapper's host time (``wrapper_ms``);
+   alone (``ms``) and with the wrapper's host time (``wrapper_ms``); for
+   cut_traffic also the ceiling without FMA (half the FP64 rate), registers
+   and spills, resident blocks a SM and the waves;
 7. the attention kernels (B3 flash, B4 decode) and the RG-LRU scan (B5)
    against their plain versions on the card: GQA (G 2 and 8), MQA, window,
    bidirectional, ragged S (192, 300, 600), per-row lengths down to 1,
@@ -72,7 +74,9 @@ Phases (each raises on failure; nothing is caught):
    ``policy_scan`` launch, within 1e-12 of its plain version on the card,
    equal to it on the CPU for 8 placements, bit-identical on rerun, within
    1e-9 of the executor on 8 sampled pairs;
-11. ``policy_scan`` timed at that sweep beside its plain version.
+11. ``policy_scan`` timed at that sweep beside its plain version, with its
+   ceiling without FMA, registers and spills, resident blocks a SM and
+   the waves.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -594,8 +598,9 @@ def time_cut_traffic(torch, np, P, cut_ops, etg, cluster, rng, launches, max_err
     """The cut-traffic kernel at the resource refine's sweep shape (5 555
     rows of the refined placement, one task moved per row): checked equal
     to its plain version on the card, then timed beside it; its record."""
-    from repro_torch.launch.timing import time_cuda
+    from repro_torch.kernels.cut_traffic import kernel as cut_kernel
     from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
+    from repro_torch.launch.timing import time_cuda
 
     B, base, utg = 5555, etg.task_machine(), etg.utg
     T, m = base.size, cluster.n_machines
@@ -626,6 +631,11 @@ def time_cut_traffic(torch, np, P, cut_ops, etg, cluster, rng, launches, max_err
           f"{bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.3f} GFLOP, "
           f"{n_bytes / 1e6:.2f} MB; {100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.3f} ms; "
           f"no single PyTorch call computes it, so library_ms is null")
+    plan = cut_kernel.launch_plan(B, T, k2, m)
+    print(f"    {plan['rows']} rows a block, {plan['threads']} threads, {plan['smem_bytes']} shared "
+          f"bytes, {plan['tile_columns']}-column distance tiles, {plan['tile_stages']} in flight; "
+          + _launch_text(torch, flops, plan["blocks"], plan["blocks_per_sm"], plan["registers"],
+                         plan["local_bytes"]))
     return dict(_record("cut_traffic", "src/repro_torch/kernels/cut_traffic/csrc/cut_traffic.cu",
                         "src/repro/core/cost_model.py:400", launches, max_err["cut_traffic"],
                         (err, ms, plain_ms, bound, None)), wrapper_ms=wrapper_ms)
@@ -689,6 +699,7 @@ def runtime_phases(torch, np, P, ops, cut_ops, cluster, refined, wall):
     """Phases 10 and 11: the online path and the policy sweep at the paper's
     large scale; returns the ``policy_scan`` record."""
     import repro_torch.runtime_stream as RS
+    from repro_torch.kernels.policy_scan import kernel as scan_kernel
     from repro_torch.kernels.policy_scan import ops as scan_ops
     from repro_torch.kernels.policy_scan.ref import policy_scan_ref
     from repro_torch.launch.profile_runtime import (
@@ -865,9 +876,28 @@ def runtime_phases(torch, np, P, ops, cut_ops, cluster, refined, wall):
           f"by {bound[1]} ({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.2f} MB; "
           f"{100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.3f} ms; no single PyTorch call "
           f"computes it, so library_ms is null")
+    n_parents = sum(len(ps) for ps in topo.parents)
+    G = scan_ops.pairs_a_block(B, T, m, topo.n_components, len(topo.keyed), n_parents)
+    smem = scan_ops.smem_bytes(T, m, topo.n_components, len(topo.keyed), G, n_parents)
+    occ = scan_kernel.occupancy(B, P_, G, smem)
+    print(f"    {G} pairs (one placement, {G} traces) a block, {occ['threads']} threads, {smem} "
+          f"shared bytes; " + _launch_text(torch, flops, occ["blocks"], occ["blocks_per_sm"],
+                                           occ["registers"], occ["local_bytes"]))
     return _record("policy_scan", "src/repro_torch/kernels/policy_scan/csrc/policy_scan.cu",
                    "src/repro/runtime_stream/eval_jax.py:214", sweep_launches, err,
                    (err, ms, plain_ms, bound, None))
+
+
+def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
+    """A redesigned kernel's launch, printed beside its time: the ceiling
+    without FMA (every product and sum its own FP64 instruction, half the
+    FP64 rate), registers and local (spilled) bytes a thread, resident blocks
+    a SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the waves."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fma_free_ms = flops / (FP64_FLOPS_PER_S / 2) * 1e3
+    return (f"ceiling without FMA {fma_free_ms:.4f} ms (half the FP64 rate); {registers} "
+            f"registers, {local_bytes} local (spilled) bytes a thread; {per_sm} resident blocks "
+            f"a SM, {blocks} blocks in {blocks / (sms * max(per_sm, 1)):.2f} waves")
 
 
 def _bound(op_s, byte_s):

@@ -11,7 +11,7 @@ from pathlib import Path
 
 from repro_torch.kernels import _build
 
-__all__ = ["NVCC_FLAGS", "SOURCE", "load_library"]
+__all__ = ["NVCC_FLAGS", "SOURCE", "launch_plan", "load_library"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "cut_traffic.cu"
 
@@ -38,3 +38,25 @@ _ARGTYPES = [
 def load_library() -> ctypes.CDLL:
     """The built kernel library (built on first call, then cached)."""
     return _build.load_library(SOURCE, "cut_traffic_launch", _ARGTYPES, NVCC_FLAGS)
+
+
+_PLAN = ("rows", "threads", "smem_bytes", "layout", "tile_columns", "tile_stages", "blocks",
+         "blocks_per_sm", "registers", "local_bytes")
+
+
+def launch_plan(B: int, T: int, k2: int, m: int, device: int = 0) -> dict:
+    """The launch ``cut_traffic_launch`` makes for B rows of T tasks, k2
+    contracted slots and m machines: rows and threads a block, shared bytes,
+    layout (0 X^T and Y^T in shared memory, 1 Y^T apart, 2 both in a global
+    scratch), columns of a distance tile, tiles in flight, blocks, resident
+    blocks a SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and
+    registers and local (spilled) bytes a thread."""
+    lib = load_library()
+    fn = lib.cut_traffic_plan
+    fn.argtypes = [_I32, _I64, _I64, _I32, _I32, ctypes.POINTER(_I64)]
+    fn.restype = ctypes.c_int
+    out = (_I64 * len(_PLAN))()
+    err = fn(device, B, T, k2, m, out)
+    if err != 0:
+        raise RuntimeError(f"cut_traffic_plan failed with CUDA error {err}")
+    return dict(zip(_PLAN, out))

@@ -25,13 +25,21 @@ __all__ = [
     "ScanOutput",
     "ScanTopology",
     "policy_scan",
+    "pairs_a_block",
     "reset_launches",
     "smem_bytes",
 ]
 
-# Shared memory one block may use on Hopper: the kernel keeps a (b, p)
-# pair's whole state there, so T and m are bounded by it (``smem_bytes``).
+# Shared memory one block may use on Hopper: the kernel keeps its pairs'
+# whole state there (one pair at the least), so T and m are bounded by it
+# (``smem_bytes``).
 SMEM_LIMIT = 232_448
+
+# Pairs (one placement, several traces) a block of the kernel takes, at
+# most, and its worker warps a pair (PAIRS_MAX and WPP in
+# ``csrc/policy_scan.cu``).
+PAIRS_MAX = 6
+WARPS_A_PAIR = 3
 
 # Kernel launches since the last reset. Only a launch of the CUDA kernel
 # counts; the CPU path and empty sweeps launch nothing.
@@ -43,15 +51,33 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def smem_bytes(n_tasks: int, n_machines: int, n_components: int, n_keyed: int) -> int:
-    """Shared-memory bytes of one block of the kernel, for the layout that
-    ``csrc/policy_scan.cu`` carves (the launcher takes this count): five
-    float64 per task, three per machine and per component, one per keyed
-    edge, twelve scalars (three totals, the throttle, the queue maximum of
-    each of the block's eight warps); an int32 per task and per machine
-    boundary."""
-    doubles = 5 * n_tasks + 3 * n_machines + 3 * n_components + max(n_keyed, 1) + 12
-    return 8 * doubles + 4 * (n_tasks + n_machines + 1)
+def smem_bytes(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
+               pairs: int = 1, n_parents: int = 0) -> int:
+    """Shared-memory bytes of one block of the kernel with ``pairs`` pairs,
+    for the layout that ``csrc/policy_scan.cu`` carves (the launcher takes
+    this count, and refuses one that is not its own ``Layout::bytes``): the
+    placement's e and met (a float64 per task), the
+    machines' fixed loads and alpha; per pair a float64 per task for
+    backlog, processed and dropped, three per machine (one more for the
+    tasks on no machine), two per component, one per keyed edge, each worker
+    warp's deepest queue, the throttle and the admitted rate; an int32 per
+    task for its machine and its place in the order, per machine boundary,
+    and the packed topology (``n_parents`` shuffle parents in all)."""
+    T, m, n, K = n_tasks, n_machines, n_components, n_keyed
+    pair = 3 * T + 3 * m + 1 + 2 * n + max(K, 1) + WARPS_A_PAIR + 2
+    ints = 2 * T + (m + 2) + (3 * n + 2 + n_parents + 4 * K)
+    return 8 * (2 * T + m + n + pairs * pair) + 4 * ints
+
+
+def pairs_a_block(B: int, n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
+                  n_parents: int = 0) -> int:
+    """Pairs a block: the most, up to ``PAIRS_MAX`` and B, whose shared
+    memory fits one block (at least 1)."""
+    g = min(B, PAIRS_MAX)
+    while g > 1 and smem_bytes(n_tasks, n_machines, n_components, n_keyed, g,
+                               n_parents) > SMEM_LIMIT:
+        g -= 1
+    return g
 
 
 def policy_scan(
@@ -98,7 +124,8 @@ def policy_scan(
         return ScanOutput(empty, empty.clone(), empty.clone(), empty.clone(), empty.clone(),
                           torch.zeros((B, P, m), dtype=torch.float64, device=dev))
     # One limit on both devices, so a sweep the CPU runs also runs on a card.
-    need = smem_bytes(T, m, topo.n_components, len(topo.keyed))
+    n_parents = sum(len(ps) for ps in topo.parents)
+    need = smem_bytes(T, m, topo.n_components, len(topo.keyed), 1, n_parents)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"the policy_scan kernel keeps a (trace, placement) pair's state in one block's "
@@ -109,7 +136,7 @@ def policy_scan(
         return policy_scan_ref(rates, capacity, task_machine, e, met, shares, topo, cfg)
     if dev.type != "cuda":
         raise ValueError(f"policy_scan runs on cpu or cuda tensors, not {dev}")
-    return _launch(rates, capacity, task_machine, e, met, shares, topo, cfg, need)
+    return _launch(rates, capacity, task_machine, e, met, shares, topo, cfg)
 
 
 _TOPO: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
@@ -139,7 +166,7 @@ def _device_topology(topo: ScanTopology, dev: torch.device) -> tuple[torch.Tenso
     return got
 
 
-def _launch(rates, capacity, tm, e, met, shares, topo, cfg, n_smem):
+def _launch(rates, capacity, tm, e, met, shares, topo, cfg):
     from repro_torch.kernels.policy_scan.kernel import load_library
 
     lib = load_library()
@@ -149,22 +176,27 @@ def _launch(rates, capacity, tm, e, met, shares, topo, cfg, n_smem):
     m = capacity.shape[2]
     packed, alpha, comp = _device_topology(topo, dev)
     # Each placement's tasks grouped by machine, ascending task order within
-    # a machine (a stable sort), and each machine's start in that order.
-    sorted_tm, order = torch.sort(tm, dim=1, stable=True)
-    bounds = torch.arange(m + 1, dtype=torch.int32, device=dev).expand(P, m + 1).contiguous()
-    mstart = torch.searchsorted(sorted_tm, bounds).to(torch.int32)
+    # a machine (a stable sort), the tasks on no machine last; each
+    # machine's start in that order, and theirs.
+    key = torch.where((tm >= 0) & (tm < m), tm, m)
+    sorted_key, order = torch.sort(key, dim=1, stable=True)
+    bounds = torch.arange(m + 2, dtype=torch.int32, device=dev).expand(P, m + 2).contiguous()
+    mstart = torch.searchsorted(sorted_key, bounds).to(torch.int32)
     order = order.to(torch.int32)
     outs = [torch.empty((B, P, W), dtype=torch.float64, device=dev) for _ in range(5)]
     util = torch.empty((B, P, m), dtype=torch.float64, device=dev)
     n_edges = sum(len(ps) for ps in topo.parents)
+    n, K = topo.n_components, len(topo.keyed)
+    G = pairs_a_block(B, T, m, n, K, n_edges)
     err = lib.policy_scan_launch(
         dev.index if dev.index is not None else torch.cuda.current_device(),
-        rates.data_ptr(), capacity.data_ptr(), tm.data_ptr(), e.data_ptr(), met.data_ptr(),
-        order.data_ptr(), mstart.data_ptr(), comp.data_ptr(), alpha.data_ptr(),
+        rates.data_ptr(), capacity.data_ptr(), e.data_ptr(), met.data_ptr(), order.data_ptr(),
+        mstart.data_ptr(), comp.data_ptr(), alpha.data_ptr(),
         packed.data_ptr(), shares.data_ptr(), *(x.data_ptr() for x in outs), util.data_ptr(),
-        B, P, T, m, topo.n_components, n_edges, len(topo.keyed), W, topo.n_shares,
+        B, P, T, m, n, n_edges, K, W, topo.n_shares, G,
         float(cfg.window_s), float(cfg.max_queue), float(cfg.bp_high), float(cfg.bp_low),
-        float(cfg.throttle_down), float(cfg.throttle_up), float(cfg.throttle_min), n_smem,
+        float(cfg.throttle_down), float(cfg.throttle_up), float(cfg.throttle_min),
+        smem_bytes(T, m, n, K, G, n_edges),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -15,13 +15,16 @@ windows) and prints:
 2. the same run under ``torch.profiler``: the device busy share and the
    device time and calls of B1/B2 and the cut-traffic kernel;
 3. the policy sweep ``evaluate_policies_batch(device="cuda")`` over the six
-   traces x ``N_POLICIES`` placements (``sweep_policies``): its host-to-host
-   wall, the ``policy_scan`` kernel's time (``timing.time_cuda``, as
+   traces x ``N_POLICIES`` placements (``sweep_policies``): the median of
+   ``SWEEP_WALLS`` host-to-host walls after one warm-up sweep, the
+   ``policy_scan`` kernel's time (``timing.time_cuda``, as
    ``chip_smoke.py`` times it: cold L2, median of 15) and its plain
    version's on the card (median of 3).
 
 It prints these, the card's ``nvidia-smi`` name and power limit, and one
-JSON line with the same numbers. Needs a card; there is no CPU mode.
+JSON line with the same numbers. Needs a card; there is no CPU mode. Run
+as a file with ``PYTHONPATH`` set to another checkout's ``src``, it times
+that checkout: alternate two in one chip call to compare them on one card.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import statistics
 import subprocess
 import time
 
@@ -39,8 +43,8 @@ import repro_torch.core as P
 import repro_torch.runtime_stream as RS
 
 __all__ = ["N_POLICIES", "N_WINDOWS", "PROVISION", "RUNTIME_CONFIG", "SCENARIOS", "SWEEP_SEED",
-           "online_run", "refine_times", "runtime_setup", "runtime_traces", "sweep_policies",
-           "main"]
+           "SWEEP_WALLS", "online_run", "refine_times", "runtime_setup", "runtime_traces",
+           "sweep_policies", "main"]
 
 # The runtime benchmark's event-loop constants: a 120-tuple queue bound, so
 # sustained overload trips real back-pressure.
@@ -50,6 +54,9 @@ SCENARIOS = ("ramp", "burst", "sine", "slowdown", "failure", "ramp_slowdown")
 N_WINDOWS = 240
 N_POLICIES = 256
 SWEEP_SEED = 0
+# Host-to-host walls of the sweep whose median is reported: a single wall on
+# the host's clock varies too much from run to run to compare two trees.
+SWEEP_WALLS = 9
 # Each scenario's initial rate as a fraction of R*: an online run starts from
 # ``provision_schedule`` at it, as the reference benchmark's online policy
 # does (the refined placement's two spout instances pass at most 2 x 120
@@ -189,19 +196,23 @@ def main(argv: list[str] | None = None) -> None:
     policies = sweep_policies(etg, cluster.n_machines)
     order = list(traces.values())
     eval_torch.evaluate_policies_batch(etg, cluster, order, policies, config=RUNTIME_CONFIG)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eval_torch.evaluate_policies_batch(etg, cluster, order, policies, config=RUNTIME_CONFIG)
-    sweep_wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(SWEEP_WALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_torch.evaluate_policies_batch(etg, cluster, order, policies, config=RUNTIME_CONFIG)
+        walls.append(time.perf_counter() - t0)
+    sweep_wall = statistics.median(walls)
     operands, topo_s, cfg = eval_torch.scan_operands(etg, cluster, order, policies,
                                                      RUNTIME_CONFIG, torch.device("cuda"))
     kernel_ms = time_cuda(lambda: scan_ops.policy_scan(*operands, topo_s, cfg))
     plain_ms = time_cuda(lambda: policy_scan_ref(*operands, topo_s, cfg), reps=3)
     out["sweep"] = dict(B=len(order), P=policies.shape[0], W=N_WINDOWS, wall_s=sweep_wall,
-                        kernel_ms=kernel_ms, plain_ms=plain_ms)
+                        walls_s=walls, kernel_ms=kernel_ms, plain_ms=plain_ms)
     print(f"[sweep] B={len(order)} P={policies.shape[0]} W={N_WINDOWS} T={etg.total_tasks}: "
-          f"host-to-host {sweep_wall:.4f} s; policy_scan {kernel_ms:.4f} ms, plain version "
-          f"{plain_ms:.3f} ms on the card")
+          f"host-to-host median {sweep_wall:.4f} s of {len(walls)} ("
+          + ", ".join(f"{w:.4f}" for w in walls) + f"); policy_scan {kernel_ms:.4f} ms, plain "
+          f"version {plain_ms:.3f} ms on the card")
     print(smi)
     print(json.dumps(out))
 

@@ -3,12 +3,13 @@
 Runs the ``StreamExecutor`` window step (no controller, no migrations —
 the *static-policy* sweep evaluator) for every (trace, placement) pair at
 once. On a card it is one launch of the hand-written ``policy_scan``
-kernel (one block a pair walks the windows); on the CPU the kernel's plain
-PyTorch version runs the same formulas on (B, P, T) tensors. Both sum in
-the executor's order, so the sweep agrees with the executor to ~1e-9 (in
-practice to the last bits of its totals). Fields-grouped edges route
-through per-key share grids — dense (B, W, N) expansions of each
-realization segment's hash→instance map.
+kernel (a block walks the windows for one placement and up to six of its
+traces); on the CPU the kernel's plain PyTorch version runs the same
+formulas on (B, P, T) tensors. Both sum in the executor's order, so the
+sweep agrees with the executor to ~1e-9 (in practice to the last bits of
+its totals). Fields-grouped edges route through per-key share grids —
+dense (B, W, N) expansions of each realization segment's hash→instance
+map.
 
 Everything runs in float64, as the reference does under x64.
 """

@@ -233,6 +233,45 @@ def test_cuda_kernel_matches_plain_version_past_shared_memory(cuda_device, topol
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("topology, m, B, regime", [
+    ("linear", 37, 33, "per_row"),     # m odd, B = 4 k + 1 rows (4 rows a block)
+    ("diamond", 181, 35, "skew"),      # m past a multiple of 64 machines, B = 4 k + 3
+    ("star", 63, 2, "shared"),         # fewer rows than a block takes
+    ("wide_fanout", 65, 1, "per_row"),  # one row
+])
+def test_cuda_kernel_matches_plain_version_at_block_edges(cuda_device, topology, m, B, regime):
+    args = _tensors(*_problem(11, topology, B, m, regime, outside=True))
+    plain = ops.cut_traffic(*args, 0.05)
+    got = ops.cut_traffic(*(a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                            for a in args), 0.05)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), plain)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_at_the_largest_machine_count(cuda_device):
+    """m = MAX_MACHINES: X^T and Y^T in the global scratch, one-column
+    distance tiles, two in flight, unpadded rows; against the plain
+    version on the card (its sums have no atomics, so it is exact there)."""
+    from repro_torch.kernels.cut_traffic.kernel import launch_plan
+    from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
+
+    m = ops.MAX_MACHINES
+    tm, comp, uir, alpha, cir, edges, small = _problem(13, "linear", 2, 6, "per_row")
+    tm = np.random.default_rng(13).integers(0, m, size=tm.shape)
+    g_args = [a.to(cuda_device) for a in _tensors(tm, comp, uir, alpha, cir, edges, small)[:5]]
+    racks = torch.arange(m, device=cuda_device) % 6
+    dist = torch.where(racks[:, None] == racks[None, :], 1.0, 2.0).to(torch.float64)
+    dist.fill_diagonal_(0.0)
+    got = ops.cut_traffic(*g_args, edges, dist, 0.05)
+    want = cut_traffic_ref(*g_args, edges, dist, 0.05)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plan = launch_plan(2, tm.shape[1], 6, m)
+    assert (plan["layout"], plan["tile_columns"], plan["tile_stages"]) == (2, 1, 2)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_more_machines_than_the_kernel_holds(cuda_device):
     args = _tensors(*_problem(2, "star", 2, 4, "shared"))
     m = ops.MAX_MACHINES + 1
