@@ -76,9 +76,35 @@ Phases (each raises on failure; nothing is caught):
    1e-9 of the executor on 8 sampled pairs;
 11. ``policy_scan`` timed at that sweep beside its plain version, with its
    ceiling without FMA, registers and spills, resident blocks a SM and
-   the waves.
+   the waves;
+12. multi-tenant scheduling and observability (``repro_torch.multitenant``,
+   ``repro_torch.obs``): ``schedule_tenants(device="cuda")`` on
+   ``benchmarks/bench_multitenant.py``'s 100-tenant fleet on
+   ``paper_cluster((20, 30, 40))`` at capacity x1 and x4 (rounds,
+   candidates, log, rates and every placement equal to the reference's; on
+   B1 alone, no plain scorer on the card); every single-task relocation of
+   the x1 fleet at 0.9 of its rates (112 763 rows) in one
+   ``TenantBatchScorer.score`` call: one B1 launch with per-row maps and
+   capacity, equal to its plain version on the card and to the
+   reference's rates; the 20-tenant relocation sweep on phase 4's resource
+   cluster (15 215 rows): one B2 and 20 cut_traffic launches, equal to
+   their plain versions on the card and to the reference's rates; three
+   tenants online over 240 windows (ramp, then a slowdown of the largest
+   machine) with a ``TraceRecorder``: satisfaction, fingerprints, the
+   arbiter's log, the replan decisions and the JSONL export (under the
+   backend-name map) equal to the reference's, the export valid;
+13. timings of phase 12: B1 at the relocation sweep's shape beside its
+   plain version, the ``score`` call host to host with the capacity
+   gather (and a host copy of it, which the port does not make), B2 and
+   the 20 cut_traffic launches at the resource sweep's shape, and both
+   fleets' walls with their B1 launches and the profiler's device-busy
+   share.
 
-The last lines are the ``{"kernels": [...]}`` record, the card's
+Every phase's wall is printed at the end. The reference's results for
+phases 3-5 and 12 are constants below; ``tests/test_torch_multitenant_golden.py``
+and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's.
+The last lines are the ``{"kernels": [...]}`` record (B1, B2 and
+cut_traffic count their launches in phases 3-4 and 12), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
@@ -114,6 +140,41 @@ RESOURCE_REFINE_REF = (["grow c0x4", "swap c0#0<->c2#0", "swap c0#1<->c1#0"], 11
 RESOURCE_REFINE_B2_LAUNCHES = 114
 OPTIMAL_REF = dict(evaluated=26136, pruned=35, n_instances=[1, 2, 1, 3],
                    throughput=23.268698060941833)
+
+
+# Phase 12's cells, built by the same functions below from either package.
+# The large fleet's budgets (``benchmarks/bench_multitenant.py``).
+FLEET_KW = dict(warm_refine_rounds=2, structure_attempts=1, refine_moves=1)
+FLEET_TOPOLOGIES = ("linear_topology", "diamond_topology", "star_topology",
+                    "rolling_count_topology")
+# The reference's results for them (``repro.multitenant``, NumPy scoring);
+# ``tests/test_torch_multitenant_golden.py`` recomputes every one.
+MT_FLEET_REF = {
+    1: dict(rounds=3201, candidates=100, log_md5='14200f34512f5482ff43916c98141876',
+            rates_md5='1420d7bbfbd75b45d5375a7e00e92270',
+            placement_md5='3f1d4537126daccac07f86440470b07a',
+            total_rate=37.38002820315214),
+    4: dict(rounds=3713, candidates=100, log_md5='945996fde0081327d6d879c6e8970c39',
+            rates_md5='93995931ecc9932d6e54fdc1d4a2f43e',
+            placement_md5='04cb8cefc0761693544c1739e66bee09',
+            total_rate=324.31091995932854),
+}
+MT_RELOCATION_REF = dict(rows=112763, rates_md5='955a6eff26eab3674f466c0cb6c107d1',
+                         thpt_md5='467039b932456bdfe3d8c6af3b9a4049',
+                         mask_md5='338462503ee7ad6ab831b2c07e0ee10c', feasible=112763,
+                         argmax=67297)
+MT_RESOURCE_REF = dict(rows=15215, rates_md5='07bd4eeae77b93be0652df86fc090d4a',
+                       thpt_md5='b69b5f94a3f0358df66f9aecea5faeea',
+                       mask_md5='de41af58440d41fecde044add7ce3903', feasible=15215,
+                       argmax=3581)
+MT_RUNTIME_REF = dict(rates_md5='80b90f70413240da7cb8c16ee1414efc',
+                      satisfaction=[5.2761983898809905, 4.978415944071098, 2.5248864379892724],
+                      fingerprints=['d949c54f9926596187ffecc267f097c1',
+                                    '4c0261e7f8a08e053aaaa323eee0cf6d',
+                                    '3fa2146c04f90a7d460e75013ea15c8d'],
+                      arbiter_md5='8ca1933922e467869d05e0ba24ec5460', requests=10,
+                      decisions_md5='776950f51ceef1cfbecc97d0d8587dde',
+                      jsonl_md5='6dccf88ac9b1a96a0ab82d1653f3dffb')
 
 
 def check(cond, message: str) -> None:
@@ -196,6 +257,166 @@ def cut_tensors(torch, np, device, args, dist):
     t = lambda x, dt: torch.from_numpy(np.ascontiguousarray(x, dtype=dt)).to(device)  # noqa: E731
     return (t(tm, np.int32), t(comp, np.int32), t(uir, np.float64), t(alpha, np.float64),
             t(cir, np.float64)), t(dist, np.float64)
+
+
+def md5_of(np, *arrays) -> str:
+    """md5 over the bytes of ``arrays`` (float64 or int64), one after another."""
+    import hashlib
+
+    h = hashlib.md5()
+    for x in arrays:
+        x = np.asarray(x)
+        h.update(np.ascontiguousarray(x, dtype=np.float64 if x.dtype.kind == "f"
+                                      else np.int64).tobytes())
+    return h.hexdigest()
+
+
+def mt_fleet(np, C, MT, n_tenants, cap_scale=1.0):
+    """``benchmarks/bench_multitenant.py``'s fleet: ``n_tenants`` tenants
+    (linear, diamond, star and rolling-count topologies in turn, targets
+    uniform in 20-200, priorities 1/1/2/4 from ``default_rng(0)``) on
+    ``paper_cluster((20, 30, 40))`` with every capacity times ``cap_scale``.
+    ``C`` and ``MT`` are a core package and its multitenant package."""
+    rng = np.random.default_rng(0)
+    tenants = [MT.Tenant(name=f"t{i:03d}", utg=getattr(C, FLEET_TOPOLOGIES[i % 4])(),
+                         target_rate=float(rng.uniform(20, 200)),
+                         priority=float(rng.choice([1.0, 1.0, 2.0, 4.0])))
+               for i in range(n_tenants)]
+    cluster = C.paper_cluster((20, 30, 40))
+    return tenants, cluster.with_capacity(cluster.capacity * cap_scale)
+
+
+def fleet_summary(np, ms) -> dict:
+    """What phase 12a compares of a ``MultiTenantSchedule``: rounds,
+    candidates, the log, the rates and every tenant's placement (digests)."""
+    placements = [np.concatenate([a.etg.n_instances, a.etg.task_machine()])
+                  for a in ms.allocations]
+    return dict(rounds=ms.rounds, candidates=ms.candidates_evaluated,
+                log_md5=md5_of(np, np.frombuffer("\n".join(ms.log).encode(), np.uint8)),
+                rates_md5=md5_of(np, ms.rates), placement_md5=md5_of(np, *placements),
+                total_rate=float(ms.rates.sum()))
+
+
+def relocation_sweeps(np, mt):
+    """Every single-task relocation of every tenant of ``mt``, in tenant,
+    task and destination order: one ``(tenant, rows)`` sweep a tenant."""
+    m = mt.cluster.n_machines
+    sweeps = []
+    for t, st in enumerate(mt.states):
+        base = st.task_machine()
+        T = base.shape[0]
+        dest = np.tile(np.arange(m), T)
+        col = np.repeat(np.arange(T), m)
+        keep = dest != base[col]
+        rows = np.tile(base, (int(keep.sum()), 1))
+        rows[np.arange(rows.shape[0]), col[keep]] = dest[keep]
+        sweeps.append((t, rows))
+    return sweeps
+
+
+def relocation_state(np, C, MT, tenants, cluster, ms):
+    """Phase 12b's state: the fleet's allocation at 0.9 of its rates."""
+    states = [C.schedule_state.ScheduleState.from_etg(a.etg, cluster) for a in ms.allocations]
+    return MT.MultiTenantState(MT.TenantSet(tenants), cluster, states, rates=ms.rates * 0.9)
+
+
+def resource_state(np, C, MT):
+    """Phase 12c's state: the first 20 tenants of the fleet, first-assigned
+    on 20/70/90 with memory (0.5/1/1.5/2 units an instance, 8 a machine)
+    and six racks of 30 (``launch/profile_refine.py``'s resource cluster),
+    each tenant at 0.04 of its residual R*."""
+    base = C.paper_cluster((20, 70, 90))
+    cluster = C.Cluster(machine_types=base.machine_types, capacity=base.capacity,
+                        profile=base.profile.with_mem(np.array([0.5, 1.0, 1.5, 2.0])),
+                        mem_capacity=np.full(180, 8.0),
+                        distance=C.rack_distance_matrix(np.arange(180) % 6), net_penalty=0.05)
+    tenants, _ = mt_fleet(np, C, MT, 20)
+    mt = MT.MultiTenantState.first_assignment(MT.TenantSet(tenants), cluster)
+    mt.rates = np.array([0.04 * mt.residual_rstar(t) for t in range(len(tenants))])
+    return mt
+
+
+def sweep_summary(np, scored) -> dict:
+    """Rows, digests of the rates and the feasibility mask, feasible rows
+    and the argmax of one ``TenantBatchScorer.score`` result."""
+    rates = np.concatenate([r for r, _ in scored])
+    thpt = np.concatenate([h for _, h in scored])
+    return dict(rows=int(rates.size), rates_md5=md5_of(np, rates), thpt_md5=md5_of(np, thpt),
+                mask_md5=md5_of(np, rates > 0.0), feasible=int((rates > 0.0).sum()),
+                argmax=int(np.argmax(rates)))
+
+
+def mt_runtime(np, C, MT, RS, recorder, sched_kw, run_kw):
+    """Phase 12d: ``bench_multitenant.py``'s runtime tenants (alice linear
+    8.0; bob diamond 8.0, priority 2; carol star 6.0) scheduled on
+    ``paper_cluster((20, 30, 40))``; each tenant's trace is
+    ``bench_runtime.py``'s ramp + slowdown over 240 windows (0.4 of its
+    allocated rate, ramped to 1.1 of it over windows 20-120); the shared
+    capacity grid slows the first largest machine to 0.6 from window 150.
+    Runs online, 8 moves a period. Returns (schedule, runtime result)."""
+    tenants = MT.TenantSet([
+        MT.Tenant(name="alice", utg=C.linear_topology(), target_rate=8.0),
+        MT.Tenant(name="bob", utg=C.diamond_topology(), target_rate=8.0, priority=2.0),
+        MT.Tenant(name="carol", utg=C.star_topology(), target_rate=6.0),
+    ])
+    cluster = C.paper_cluster((20, 30, 40))
+    ms = MT.schedule_tenants(list(tenants), cluster, **sched_kw)
+    specs = [RS.TraceSpec(name=t.name, n_windows=240, base_rate=0.4 * float(r),
+                          events=(RS.rate_ramp(1.1 * float(r), start=20, end=120),))
+             for t, r in zip(tenants, ms.rates)]
+    big = int(np.argmax(cluster.capacity))
+    capacity = RS.TraceSpec(name="capacity", n_windows=240, base_rate=1.0,
+                            events=(RS.machine_slowdown(big, 0.6, start=150),))
+    mtrace = MT.compile_tenant_traces(tenants, specs, cluster, seed=0, capacity_spec=capacity)
+    res = MT.MultiTenantRuntime(ms, tenants, cluster, mtrace).run(
+        online=True, moves_per_period=8, recorder=recorder, **run_kw)
+    return ms, res
+
+
+# The one map under which the port's trace exports equal the reference's:
+# every value that names a closed-form backend or a device (a dispatch
+# record's ``requested`` and ``backend``, the ``refine`` span's ``backend``,
+# the last part of a ``dispatch.<regime>.<backend>`` counter's name) becomes
+# "numpy" — the port's devices and the reference's NumPy path give the same
+# floats — and counters that then share a name are summed in the place of
+# the first.
+BACKEND_NAMES = {"auto": "numpy", "numpy": "numpy", "cpu": "numpy", "cuda": "numpy"}
+
+
+def backend_map(jsonl: str) -> str:
+    """``jsonl`` (a ``to_jsonl`` export) under the backend-name map."""
+    out, counters = [], {}
+    for line in jsonl.splitlines():
+        rec = json.loads(line)
+        args = rec.get("args")
+        if rec["type"] == "dispatch":
+            for key in ("requested", "backend"):
+                args[key] = BACKEND_NAMES.get(args[key], args[key])
+        elif rec["type"] == "span" and rec["name"] == "refine":
+            args["backend"] = BACKEND_NAMES.get(args["backend"], args["backend"])
+        elif rec["type"] == "metric" and rec["name"].startswith("dispatch."):
+            head, _, name = rec["name"].rpartition(".")
+            rec["name"] = f"{head}.{BACKEND_NAMES.get(name, name)}"
+            first = counters.setdefault(rec["name"], rec)
+            if first is not rec:
+                first["value"] += rec["value"]
+                first["count"] += rec["count"]
+                continue
+        out.append(rec)
+    return "".join(json.dumps(r, sort_keys=True, separators=(",", ":")) + "\n" for r in out)
+
+
+def runtime_summary(np, ms, res, jsonl) -> dict:
+    """What phase 12d compares of a multi-tenant run: the allocation, each
+    tenant's satisfaction and fingerprint, the arbiter's log, the recorded
+    replan decisions and the whole export under the backend-name map."""
+    decisions = [line for line in jsonl.splitlines() if '"type":"decision"' in line]
+    return dict(rates_md5=md5_of(np, ms.rates), satisfaction=[float(s) for s in res.satisfaction],
+                fingerprints=[r.fingerprint() for r in res.results],
+                arbiter_md5=md5_of(np, np.frombuffer(repr(res.arbiter_log).encode(), np.uint8)),
+                requests=len(res.arbiter_log),
+                decisions_md5=md5_of(np, np.frombuffer("\n".join(decisions).encode(), np.uint8)),
+                jsonl_md5=md5_of(np, np.frombuffer(backend_map(jsonl).encode(), np.uint8)))
 
 
 def compare_cut(torch, np, cut_ops, args, edges, dist, penalty):
@@ -888,6 +1109,236 @@ def runtime_phases(torch, np, P, ops, cut_ops, cluster, refined, wall):
                    (err, ms, plain_ms, bound, None))
 
 
+def plain_on_card(ops, cut_ops):
+    """Within the block, every scorer and cut-traffic call runs its plain
+    PyTorch version on the tensors it is given (the card's, here): the
+    same inputs as the kernels, no launch counted."""
+    import contextlib
+
+    from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
+    from repro_torch.kernels.sched_scoring.ref import sched_scoring_ref
+
+    @contextlib.contextmanager
+    def swapped():
+        kernels = ops.sched_scoring, cut_ops.cut_traffic
+        ops.sched_scoring, cut_ops.cut_traffic = sched_scoring_ref, cut_traffic_ref
+        try:
+            yield
+        finally:
+            ops.sched_scoring, cut_ops.cut_traffic = kernels
+
+    return swapped()
+
+
+def same_scores(np, what, got, want):
+    """Two ``TenantBatchScorer.score`` results: equal bit for bit."""
+    for (r_g, h_g), (r_w, h_w) in zip(got, want):
+        check(np.array_equal(r_g, r_w) and np.array_equal(h_g, h_w),
+              f"{what}: the kernels differ from their plain versions on the card")
+
+
+def multitenant_phases(torch, np, P, ops, cut_ops, wall):
+    """Phases 12 and 13: multi-tenant scheduling and observability on the
+    card, then their timings. Returns the launches of B1, B2 and
+    cut_traffic on these paths."""
+    import repro_torch.multitenant as MT
+    import repro_torch.runtime_stream as RS
+    from repro_torch.kernels.sched_scoring.ref import sched_scoring_ref
+    from repro_torch.launch.profile_refine import REFINE_KERNELS
+    from repro_torch.launch.profile_serve import profile_phase
+    from repro_torch.launch.timing import time_cuda
+    from repro_torch.obs import TraceRecorder, to_chrome_trace, to_jsonl
+    from repro_torch.obs.validate import validate_chrome, validate_jsonl
+
+    launches = {"sched_scoring": 0, "sched_scoring_resources": 0, "cut_traffic": 0}
+
+    def counted():
+        return {**ops.LAUNCHES, **cut_ops.LAUNCHES}
+
+    # [12a] the 100-tenant fleet --------------------------------------------
+    print("[12] multi-tenant scheduling and observability on the card")
+    plain_score, eager = ops.sched_scoring_ref, []
+
+    def counting_score(task_machine, *args, **kwargs):
+        if task_machine.is_cuda:
+            eager.append(tuple(task_machine.shape))
+        return plain_score(task_machine, *args, **kwargs)
+
+    fleets = {}
+    ops.sched_scoring_ref = counting_score
+    for scale in (1, 4):
+        tenants, cluster = mt_fleet(np, P, MT, 100, float(scale))
+        ops.reset_launches()
+        cut_ops.reset_launches()
+        t0 = time.perf_counter()
+        ms = MT.schedule_tenants(tenants, cluster, validate=False, device="cuda", **FLEET_KW)
+        torch.cuda.synchronize()
+        wall[f"fleet_x{scale}_s"] = time.perf_counter() - t0
+        n = counted()
+        check(n["sched_scoring"] > 0 and n["sched_scoring_resources"] == 0
+              and n["cut_traffic"] == 0, f"fleet x{scale}: not on B1 alone ({n})")
+        got = fleet_summary(np, ms)
+        check(got == MT_FLEET_REF[scale],
+              f"fleet x{scale} differs from the reference's: {got} against {MT_FLEET_REF[scale]}")
+        launches["sched_scoring"] += n["sched_scoring"]
+        fleets[scale] = (tenants, cluster, ms, n["sched_scoring"])
+        print(f"  12a fleet x{scale}: 100 tenants, {cluster.n_machines} machines, "
+              f"{sum(a.etg.total_tasks for a in ms.allocations)} tasks: {ms.rounds} rounds, "
+              f"{ms.candidates_evaluated} candidates, total rate {float(ms.rates.sum())!r}; rates, "
+              f"log, instances and placements equal the reference's; {n['sched_scoring']} B1 "
+              f"launches, {wall[f'fleet_x{scale}_s']:.3f} s on the card")
+    ops.sched_scoring_ref = plain_score
+    check(not eager, f"the plain scorer ran on the card {eager[:4]}")
+
+    # [12b] the relocation sweep: one B1 launch, per-row capacity ------------
+    tenants, cluster, ms, _ = fleets[1]
+    mt = relocation_state(np, P, MT, tenants, cluster, ms)
+    sweeps = relocation_sweeps(np, mt)
+    scorer = MT.TenantBatchScorer(mt, device="cuda")
+    ops.reset_launches()
+    cut_ops.reset_launches()
+    t0 = time.perf_counter()
+    scored = scorer.score(sweeps)
+    wall["relocation_sweep_s"] = time.perf_counter() - t0
+    n = counted()
+    check(n == {"sched_scoring": 1, "sched_scoring_resources": 0, "cut_traffic": 0},
+          f"the relocation sweep launched {n}, not one B1")
+    launches["sched_scoring"] += 1
+    with plain_on_card(ops, cut_ops):
+        same_scores(np, "relocation sweep", scored, scorer.score(sweeps))
+    got = sweep_summary(np, scored)
+    check(got == MT_RELOCATION_REF, f"the relocation sweep differs from the reference's: {got}")
+    print(f"  12b relocation sweep: {got['rows']} rows of {scorer.t_max} tasks, m "
+          f"{cluster.n_machines}, per-row capacity: 1 B1 launch, equal to its plain version on "
+          f"the card and to the reference's rates (md5 {got['rates_md5']}; {got['feasible']} "
+          f"feasible, argmax {got['argmax']}); {wall['relocation_sweep_s']:.3f} s host to host")
+
+    # [12c] the resource sweep: one B2 launch, 20 cut_traffic launches -------
+    rmt = resource_state(np, P, MT)
+    check(rmt.feasible(), "the resource sweep's state is not feasible")
+    r_sweeps = relocation_sweeps(np, rmt)
+    r_scorer = MT.TenantBatchScorer(rmt, device="cuda")
+    ops.reset_launches()
+    cut_ops.reset_launches()
+    t0 = time.perf_counter()
+    r_scored = r_scorer.score(r_sweeps)
+    wall["resource_sweep_s"] = time.perf_counter() - t0
+    n = counted()
+    check(n == {"sched_scoring": 0, "sched_scoring_resources": 1, "cut_traffic": len(r_sweeps)},
+          f"the resource sweep launched {n}, not one B2 and {len(r_sweeps)} cut_traffic")
+    launches["sched_scoring_resources"] += 1
+    launches["cut_traffic"] += len(r_sweeps)
+    with plain_on_card(ops, cut_ops):
+        same_scores(np, "resource sweep", r_scored, r_scorer.score(r_sweeps))
+    got = sweep_summary(np, r_scored)
+    check(got == MT_RESOURCE_REF, f"the resource sweep differs from the reference's: {got}")
+    r_rates = np.concatenate([r for r, _ in r_scored])
+    print(f"  12c resource sweep: {got['rows']} rows of {r_scorer.t_max} tasks, 20 tenants, m "
+          f"180, memory and 6 racks: 1 B2 and {n['cut_traffic']} cut_traffic launches, equal to "
+          f"their plain versions on the card and to the reference's rates (md5 "
+          f"{got['rates_md5']}; {got['feasible']} feasible, argmax {got['argmax']}; rates "
+          f"{float(r_rates.min()):.4f}-{float(r_rates.max()):.4f}); "
+          f"{wall['resource_sweep_s']:.3f} s host to host")
+
+    # [12d] the multi-tenant runtime with a trace recorder -------------------
+    ops.reset_launches()
+    cut_ops.reset_launches()
+    rec = TraceRecorder(name="mt")
+    t0 = time.perf_counter()
+    r_ms, res = mt_runtime(np, P, MT, RS, rec, dict(device="cuda"), dict(device="cuda"))
+    wall["mt_runtime_s"] = time.perf_counter() - t0
+    n = counted()
+    jsonl = to_jsonl(rec, strip_wall=True)
+    got = runtime_summary(np, r_ms, res, jsonl)
+    check(got == MT_RUNTIME_REF, f"the multi-tenant runtime differs from the reference's: {got}")
+    check(got["requests"] >= 1, "the arbiter saw no request")
+    check(n["sched_scoring"] > 0 and n["sched_scoring_resources"] == 0,
+          f"the multi-tenant runtime did not run on B1 ({n})")
+    n_rec, errors = validate_jsonl(jsonl)
+    n_ev, chrome_errors = validate_chrome(to_chrome_trace(rec))
+    check(not errors and not chrome_errors,
+          f"the runtime's export fails validation: {(errors + chrome_errors)[:3]}")
+    launches["sched_scoring"] += n["sched_scoring"]
+    dropped = ", ".join(f"{name} {float(r.dropped.sum()) * r.window_s!r}"
+                        for name, r in zip(res.names, res.results))
+    print(f"  12d runtime, 3 tenants on 20/30/40, 240 windows: satisfaction "
+          f"{[round(s, 4) for s in got['satisfaction']]}, {got['requests']} arbiter requests, "
+          f"fingerprints and replan decisions equal the reference's; JSONL ({n_rec} records, "
+          f"{n_ev} Chrome events) validates and equals the reference's under the backend-name "
+          f"map (md5 {got['jsonl_md5']}); {n['sched_scoring']} B1 launches; dropped tuples: "
+          f"{dropped}; {wall['mt_runtime_s']:.3f} s")
+
+    # [13] timings ---------------------------------------------------------------
+    print("[13] multi-tenant timings (CUDA events, cold L2, median of 15; plain version median "
+          "of 5; host walls median of 9 after a warm-up)")
+    sizes = [r.shape[0] for _, r in sweeps]
+    operands = scorer._operands(sweeps, sizes)
+    tables, index, row_tenant = scorer._dev_tables, operands["index"], operands["row_tenant"]
+    g_args = tuple(operands[k] for k in ("tm", "comp", "unit")) + (
+        tables["e"], tables["met"], operands["cap"])
+    (B, T), m = operands["tm"].shape, cluster.n_machines
+    ms_b1 = time_cuda(lambda: ops.sched_scoring(*g_args))
+    wrapper_ms = time_cuda(lambda: ops.sched_scoring(*g_args), spin_cycles=0)
+    plain_ms = time_cuda(lambda: sched_scoring_ref(*g_args), reps=5)
+    n_bytes = sum(x.numel() * x.element_size() for x in g_args) + B * 8
+    bound = _bound((B * T * 3 + B * m * 4) / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    print(f"  B1 at 12b's shape (B={B} T={T} m={m}, per-row maps and capacity): {ms_b1:.4f} ms "
+          f"({wrapper_ms:.4f} ms with the wrapper's host time; bound {bound[0]:.4f} ms by "
+          f"{bound[1]}, {n_bytes / 1e6:.1f} MB, {100 * bound[0] / ms_b1:.1f}% of it), plain "
+          f"{plain_ms:.3f} ms")
+
+    def host_walls(fn, reps=9):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    score_ms = host_walls(lambda: scorer.score(sweeps))
+    operands_ms = host_walls(lambda: scorer._operands(sweeps, sizes))
+    gather_ms = time_cuda(lambda: tables["cap"].index_select(0, index), spin_cycles=0)
+    copy_ms = host_walls(lambda: torch.from_numpy(scorer._resid_cap[row_tenant]).to("cuda"))
+    cap_mb = B * m * 8 / 1e6
+    print(f"  score() at 12b, host to host: {score_ms:.3f} ms, of it {operands_ms:.3f} ms the "
+          f"operands (host rows, their copy, the gathers); the (B, m) capacity gather on the "
+          f"card {gather_ms:.4f} ms; a host fill and copy of the same {cap_mb:.1f} MB instead: "
+          f"{copy_ms:.3f} ms (not run by the port)")
+    # B2 and the 20 cut_traffic launches at 12c's shape.
+    r_sizes = [r.shape[0] for _, r in r_sweeps]
+    r_ops = r_scorer._operands(r_sweeps, r_sizes)
+    r_tables = r_scorer._dev_tables
+    b2_args = tuple(r_ops[k] for k in ("tm", "comp", "unit")) + (
+        r_tables["e"], r_tables["met"], r_ops["cap"])
+    b2_kw = dict(net_var=r_ops["net"], mem_c=r_tables["mem"], mem_capacity=r_ops["memcap"])
+    ms_b2 = time_cuda(lambda: ops.sched_scoring(*b2_args, **b2_kw))
+    plain_b2 = time_cuda(lambda: sched_scoring_ref(*b2_args, **b2_kw), reps=5)
+    ms_cut = time_cuda(lambda: r_scorer._net_var(r_sweeps, r_sizes, r_ops["tm"]))
+    rB, rT = r_ops["tm"].shape
+    b2_bytes = sum(x.numel() * x.element_size() for x in (*b2_args, *b2_kw.values())) + rB * 8
+    b2_bound = _bound((rB * rT * 3 + rB * 180 * 4) / FP64_FLOPS_PER_S, b2_bytes / HBM_BYTES_PER_S)
+    print(f"  B2 at 12c's shape (B={rB} T={rT} m=180, memory, network, per-row capacity): "
+          f"{ms_b2:.4f} ms (bound {b2_bound[0]:.4f} ms by {b2_bound[1]}), plain {plain_b2:.3f} ms; "
+          f"its 20 cut_traffic launches and their concatenation together {ms_cut:.4f} ms")
+    # The fleets' walls on the card, profiled.
+    for scale in (1, 4):
+        tenants, cluster, _ms, n_b1 = fleets[scale]
+        prof = profile_phase(lambda: MT.schedule_tenants(tenants, cluster, validate=False,
+                                                         device="cuda", **FLEET_KW),
+                             top=4, kernels=REFINE_KERNELS)
+        b1_ms = prof["port_kernels"]["sched_scoring"]["device_ms"]
+        print(f"  fleet x{scale}: wall {wall[f'fleet_x{scale}_s']:.3f} s unprofiled, {n_b1} B1 "
+              f"launches; profiled {prof['wall_s']:.3f} s, device busy "
+              f"{prof['device_busy_s']:.4f} s ({100 * prof['busy_share']:.2f}%) over "
+              f"{prof['launches']} activities, B1 {b1_ms:.3f} ms; top: "
+              + ", ".join(f"{t['name'][:40]} {t['device_ms']:.2f} ms x{t['calls']}"
+                          for t in prof["top"]))
+    return launches
+
+
 def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
     """A redesigned kernel's launch, printed beside its time: the ceiling
     without FMA (every product and sum its own FP64 instruction, half the
@@ -1294,6 +1745,18 @@ def main() -> int:
     t_rt = time.perf_counter()
     records.append(runtime_phases(torch, np, P, ops, cut_ops, cluster, ref_gpu, wall))
     wall["phases_10_11_s"] = time.perf_counter() - t_rt
+
+    # [12] and [13] multi-tenant scheduling and observability ---------------
+    t_mt = time.perf_counter()
+    mt_launches = multitenant_phases(torch, np, P, ops, cut_ops, wall)
+    wall["phases_12_13_s"] = time.perf_counter() - t_mt
+    # Each kernel's launches on the paths that run it: the main and resource
+    # refines (phases 3-4) and the multi-tenant ones (phase 12).
+    for rec in records:
+        if rec["name"] in mt_launches:
+            print(f"  {rec['name']}: {rec['launches']} launches in phases 3-4, "
+                  f"{mt_launches[rec['name']]} in phase 12")
+            rec["launches"] += mt_launches[rec["name"]]
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

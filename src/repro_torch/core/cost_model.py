@@ -607,6 +607,7 @@ def closed_form_rates(
     mem_c=None,
     mem_capacity=None,
     device: str | torch.device = "cuda",
+    unit_sum=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Closed-form (rates, throughputs) of B candidate rows, scored on ``device``.
 
@@ -622,13 +623,17 @@ def closed_form_rates(
 
     ``capacity`` / ``mem_capacity`` are (m,) shared or (B, m) per row
     (multi-tenant residuals). Throughput is ``rates * unit_ir.sum()`` in
-    NumPy's pairwise order on the host, as the reference sums it.
+    NumPy's pairwise order on the host, as the reference sums it; a caller
+    whose ``unit_ir`` is already a tensor on the device passes those sums
+    as ``unit_sum`` ((B,) or a scalar), so nothing is read back.
     """
     from repro_torch import resolve_device
     from repro_torch.kernels.sched_scoring.ops import sched_scoring
 
     dev = resolve_device(device)
-    unit_ir = np.asarray(unit_ir, dtype=np.float64)
+    if unit_sum is None:
+        unit_ir = np.asarray(unit_ir, dtype=np.float64)
+        unit_sum = unit_ir.sum(axis=1) if unit_ir.ndim == 2 else unit_ir.sum()
 
     f64 = np.float64
     rates = sched_scoring(
@@ -642,6 +647,4 @@ def closed_form_rates(
         mem_c=_to_device(mem_c, f64, dev),
         mem_capacity=_to_device(mem_capacity, f64, dev),
     ).cpu().numpy()
-    if unit_ir.ndim == 2:
-        return rates, rates * unit_ir.sum(axis=1)
-    return rates, rates * unit_ir.sum()
+    return rates, rates * unit_sum

@@ -82,6 +82,7 @@ def refine(
     adaptive_growth: bool = False,
     skew: "cost_model.SkewModel | None" = None,
     device: str | torch.device = "cuda",
+    recorder=None,
 ) -> RefineResult:
     """Hill-climb refinement of ``etg``'s placement (and instance counts).
 
@@ -101,10 +102,28 @@ def refine(
       device: where candidate sweeps are scored — ``"cuda"`` (default: the
         hand-written kernel; raises without a card) or ``"cpu"`` (the plain
         PyTorch version). Both give identical results.
+      recorder: optional ``repro_torch.obs.TraceRecorder``. When enabled,
+        the climb runs under a ``refine`` span (its ``backend`` argument
+        names the device) with one ``refine.round`` span per round, and
+        the recorder is *activated* for the duration so every closed-form
+        device resolution during scoring lands in its dispatch log.
+        ``None`` (or a ``NullRecorder``) adds no work to the climb.
     """
-    return _refine_state(
-        etg, cluster, max_rounds, tol, allow_add, device, adaptive_growth, skew
-    )
+    rec = recorder if recorder is not None and recorder.enabled else None
+    if rec is None:
+        return _refine_state(
+            etg, cluster, max_rounds, tol, allow_add, device, adaptive_growth, skew
+        )
+    with rec.activate(), rec.span(
+        "refine", cat="refine", engine="state", backend=str(device)
+    ) as sp:
+        result = _refine_state(
+            etg, cluster, max_rounds, tol, allow_add, device, adaptive_growth, skew,
+            recorder=rec,
+        )
+        sp["args"]["applied_moves"] = len(result.moves)
+        sp["args"]["throughput"] = float(result.throughput)
+    return result
 
 
 # ------------------------------------------------------------ state engine
@@ -300,6 +319,7 @@ def _refine_state(
     device,
     adaptive_growth: bool = False,
     skew=None,
+    recorder=None,
 ) -> RefineResult:
     """Incremental-engine hill climb: identical decisions, batched scoring.
 
@@ -331,7 +351,14 @@ def _refine_state(
     m = cluster.n_machines
     n = state.utg.n_components
 
-    for _ in range(max_rounds):
+    for round_idx in range(max_rounds):
+        # Per-round profiling span (opened/closed manually so the
+        # convergence `break` below can close it without reindenting the
+        # whole round body under a `with`).
+        round_span = sp = None
+        if recorder is not None:
+            round_span = recorder.span("refine.round", cat="refine", round=round_idx)
+            sp = round_span.__enter__()
         best_move: tuple[float, str, "function"] | None = None
 
         def offer(score: float, desc: str, apply_fn) -> None:
@@ -508,10 +535,17 @@ def _refine_state(
                     )
 
         if best_move is None:
+            if round_span is not None:
+                sp["args"]["move"] = None
+                round_span.__exit__(None, None, None)
             break
         best, desc, apply_fn = best_move
         apply_fn()
         moves.append(desc)
+        if round_span is not None:
+            sp["args"]["move"] = desc
+            sp["args"]["score"] = float(best)
+            round_span.__exit__(None, None, None)
 
     final = state.to_etg()
     rate, thpt = max_stable_rate(final, cluster, skew=skew)

@@ -81,7 +81,7 @@ from repro_torch.core.schedule_state import (
     _hottest_component,
 )
 from repro_torch.obs.ledger import ReplanDecision, ReplanLedger
-from repro_torch.obs.trace import require_null_recorder
+from repro_torch.obs.trace import NULL_RECORDER
 
 __all__ = [
     "WindowObs",
@@ -197,8 +197,11 @@ class OnlineController:
         state).
       noise_seed: seed stream for the measurement noise (drawn per window,
         so runs stay deterministic).
-      recorder: must be None until the port has a ``TraceRecorder``
-        (ROADMAP A11); anything else raises ``NotImplementedError``.
+      recorder: optional ``repro_torch.obs.TraceRecorder``; when enabled,
+        every consult gets a span, every decision is mirrored into the
+        recorder's record stream, and replans' ``refine`` calls emit
+        per-round profiling spans. Decisions land in :attr:`ledger`
+        either way — the recorder only adds the trace view.
       device: where replans' ``refine`` sweeps are scored — ``"cuda"``
         (default; raises without a card) or ``"cpu"``. Both give identical
         plans.
@@ -249,7 +252,7 @@ class OnlineController:
         self._cir_sum = float(cost_model.component_rates(utg, 1.0).sum())
         self._last_capacity: np.ndarray | None = None
         self._last_skew_epoch: int | None = None
-        self.recorder = require_null_recorder(recorder)
+        self.recorder = NULL_RECORDER if recorder is None else recorder
         self.device = resolve_device(device)
         self.ledger = ReplanLedger()
 
@@ -264,6 +267,11 @@ class OnlineController:
         rec = self.recorder
         if rec.enabled:
             rec.decision(dec)
+            rec.metrics.counter(
+                "controller.replans_accepted"
+                if dec.accepted
+                else "controller.replans_rejected"
+            ).add(1)
 
     # ------------------------------------------------------------ drift
 
@@ -356,6 +364,8 @@ class OnlineController:
         reason = self._drifted(obs)
         self._last_capacity = obs.capacity.copy()
         self._last_skew_epoch = obs.skew_epoch
+        if rec.enabled:
+            rec.metrics.counter("controller.drift_checks").add(1)
         if reason is None:
             return None
         if rec.enabled:
@@ -385,6 +395,7 @@ class OnlineController:
             adaptive_growth=self.adaptive_growth,
             skew=obs.skew,
             device=self.device,
+            recorder=rec if rec.enabled else None,
         )
         # State-aware transfer pricing: which instances restart, and how
         # much keyed state each ships. The blind baseline prices the same
@@ -423,6 +434,8 @@ class OnlineController:
         move_cost = transfer.moves * self.migration_cost
         state_cost = transfer.state_shipped * self.state_cost
         cost = move_cost + state_cost
+        if rec.enabled:
+            rec.metrics.counter("controller.guard_evals").add(1)
         if cost > self.elastic_budget:
             outcome = "budget"
         elif benefit <= cost:

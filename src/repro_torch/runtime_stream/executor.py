@@ -51,7 +51,7 @@ import numpy as np
 from repro_torch.core.graph import ExecutionGraph
 from repro_torch.core.metrics import per_machine_utilization
 from repro_torch.core.profiles import Cluster
-from repro_torch.obs.trace import require_null_recorder
+from repro_torch.obs.trace import NULL_RECORDER
 from repro_torch.runtime_stream.traces import CompiledTrace, TraceSpec
 
 __all__ = [
@@ -326,8 +326,6 @@ class StreamExecutor:
         trace's capacity grid each window, so both the service step and
         every controller observation see only the residual head room.
         This is how the multi-tenant runtime prices co-tenants.
-      recorder: must be None until the port has a ``TraceRecorder``
-        (ROADMAP A11); anything else raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -344,7 +342,7 @@ class StreamExecutor:
         self.config = config or RuntimeConfig()
         # Observability: NULL_RECORDER makes every hook a no-op and keeps
         # the windowed loop bit-identical to the uninstrumented path.
-        self.recorder = require_null_recorder(recorder)
+        self.recorder = NULL_RECORDER if recorder is None else recorder
         self.trace = (
             trace
             if isinstance(trace, CompiledTrace)
@@ -387,9 +385,14 @@ class StreamExecutor:
         ``controller.py``) and may return a new placement, which takes
         effect next window (migrated/new instances pause per the config).
 
-        The run activates the executor's recorder and reports window-clock
-        events, back-pressure transitions and replans to it; with the null
-        recorder (the only one until ROADMAP A11) every hook is a no-op.
+        When the executor was constructed with a ``repro_torch.obs``
+        ``TraceRecorder``, the run activates it (so closed-form dispatch
+        decisions anywhere below land in its log) and emits window-clock
+        events, back-pressure transitions, replan events and
+        per-component throughput / queue high-water metrics. The recorder
+        only appends to its own state: results and
+        ``RuntimeResult.fingerprint()`` are bit-identical with or without
+        it.
         """
         with self.recorder.activate():
             return self._run(controller)
@@ -452,6 +455,16 @@ class StreamExecutor:
         obs_on = rec.enabled
         if obs_on:
             rec.event("run_start", cat="executor", windows=W, machines=m, trace=tr.name)
+            comp_tuples = [
+                rec.metrics.counter(f"executor.throughput.c{i}") for i in range(n)
+            ]
+            q_hwm = rec.metrics.gauge("executor.queue_max")
+            dropped_ctr = rec.metrics.counter("executor.dropped_tuples")
+            replan_ctr = rec.metrics.counter("executor.replans_applied")
+            # Per-window values accumulate in a vector and flush to the
+            # counters once after the loop — W*n Counter.add calls in the
+            # hot loop would dominate recorder overhead.
+            comp_acc = np.zeros(n, dtype=np.float64)
 
         for t in range(W):
             if obs_on:
@@ -504,6 +517,8 @@ class StreamExecutor:
             queue_max[t] = float(backlog.max()) if backlog.size else 0.0
             machine_util[t] = per_machine_utilization(place.machine, tcu, m)
             throttle_log[t] = throttle
+            if obs_on:
+                comp_acc += prev_out
             q_frac = queue_max[t] / cfg.max_queue
             if q_frac > cfg.bp_high:
                 throttle = max(cfg.throttle_min, throttle * cfg.throttle_down)
@@ -557,12 +572,21 @@ class StreamExecutor:
                     migrations[t] = transfer.moves
                     events.append((t, f"replan:{transfer.moves}moves"))
                     if obs_on:
+                        replan_ctr.add(1)
                         rec.event(
                             "replan_applied",
                             cat="executor",
                             moves=int(transfer.moves),
                             state_shipped=float(transfer.state_shipped),
                         )
+
+        if obs_on:
+            for i in range(n):
+                comp_tuples[i].add(float(comp_acc[i]) * dt)
+            if W:
+                q_hwm.set(float(queue_max.max()))  # high-water mark
+                q_hwm.set(float(queue_max[W - 1]))  # value = last window
+            dropped_ctr.add(float(dropped.sum()) * dt)
 
         return RuntimeResult(
             name=tr.name,

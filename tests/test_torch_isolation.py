@@ -53,7 +53,9 @@ def test_importing_the_port_loads_no_jax():
         " repro_torch.launch.steps, repro_torch.launch.profile_serve, repro_torch.serve_lm,"
         " repro_torch.runtime_stream, repro_torch.runtime_stream.convert,"
         " repro_torch.kernels.policy_scan.ops, repro_torch.kernels.policy_scan.kernel,"
-        " repro_torch.obs.ledger, repro_torch.launch.profile_runtime, repro_torch.launch.timing;"
+        " repro_torch.obs.ledger, repro_torch.launch.profile_runtime, repro_torch.launch.timing,"
+        " repro_torch.multitenant, repro_torch.obs, repro_torch.obs.validate,"
+        " repro_torch.runtime_demo;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')];"
         "sys.exit(1 if bad else 0)"
     )
@@ -111,6 +113,25 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
         lambda: evaluate_policies_batch(etg, cl, [trace], tm),
         lambda: OnlineController(etg.utg, cl),
         lambda: OracleRescheduler(etg.utg, cl),
+    ]
+    # And multi-tenant scheduling: the water filling, its floors, the
+    # tenant-batched scorer and the shared runtime.
+    import repro_torch.multitenant as MT
+    from repro_torch.runtime_demo import main as runtime_demo
+
+    tenants = [MT.Tenant(name="a", utg=P.linear_topology(), target_rate=1.0),
+               MT.Tenant(name="b", utg=P.star_topology(), target_rate=1.0)]
+    ms = MT.schedule_tenants(tenants, cl, device="cpu", warm_refine_rounds=1)
+    mt = MT.MultiTenantState.first_assignment(MT.TenantSet(tenants), cl)
+    mtrace = MT.compile_tenant_traces(
+        MT.TenantSet(tenants), [TraceSpec(name=t.name, n_windows=4, base_rate=0.5)
+                                for t in tenants], cl)
+    calls += [
+        lambda: MT.schedule_tenants(tenants, cl),
+        lambda: MT.fair_slice_floors(tenants, cl),
+        lambda: MT.TenantBatchScorer(mt),
+        lambda: MT.MultiTenantRuntime(ms, MT.TenantSet(tenants), cl, mtrace).run(),
+        lambda: runtime_demo(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -220,10 +220,18 @@ def test_executor_validation_matches_reference(clusters, keyed):
 
 
 def test_recorder_waits_for_the_trace_recorder(clusters, keyed):
+    """The executor and the controller take a ``TraceRecorder`` (ROADMAP
+    A11 is ported): the run records into it and keeps its fingerprint."""
+    from repro_torch.obs import NULL_RECORDER, TraceRecorder
+
     _, cluster = clusters
     etg = keyed[3]
     spec = PS.TraceSpec(name="x", n_windows=4, base_rate=1.0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        PS.StreamExecutor(etg, cluster, spec, recorder=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        PS.OnlineController(etg.utg, cluster, recorder=object(), device="cpu")
+    rec = TraceRecorder(name="x")
+    on = PS.StreamExecutor(etg, cluster, spec, recorder=rec).run()
+    off = PS.StreamExecutor(etg, cluster, spec)
+    assert off.recorder is NULL_RECORDER
+    assert on.fingerprint() == off.run().fingerprint()
+    assert rec.records[0]["name"] == "run_start"
+    ctl = PS.OnlineController(etg.utg, cluster, recorder=rec, device="cpu")
+    assert ctl.recorder is rec
