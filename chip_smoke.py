@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: builds the kernels, drives the
-paper's main path, the LM serving paths and the streaming runtime on one
-NVIDIA GPU, holds every kernel against its plain PyTorch version, and prints
-the kernels' numbers.
+paper's main path, the LM serving paths, the streaming runtime, multi-tenant
+scheduling and the paper's reproduction on one NVIDIA GPU, holds every
+kernel against its plain PyTorch version, and prints the kernels' numbers.
 
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 Phases (each raises on failure; nothing is caught):
@@ -18,7 +18,10 @@ Phases (each raises on failure; nothing is caught):
    wide-fanout topologies, at shapes past one round of its product, past
    its widest tiles and past shared memory (98 contracted components at
    m = 180, 18 at m = 1000), and with ids outside [0, m) (identical
-   feasibility mask and argmax, max abs error 0);
+   feasibility mask and argmax, max abs error 0); the scorer at its
+   ``max_machines`` limit (B1 with shared and per-row maps, B2 with memory
+   and network), and one machine past it, refused by a ValueError before
+   any launch;
 3. main path at full width: ``schedule`` on ``paper_cluster((20, 70, 90))``
    (the reference golden), ``refine`` on the card (equal to the CPU path
    and to the reference's result), ``simulate`` / ``simulate_batch``;
@@ -98,14 +101,27 @@ Phases (each raises on failure; nothing is caught):
    gather (and a host copy of it, which the port does not make), B2 and
    the 20 cut_traffic launches at the resource sweep's shape, and both
    fleets' walls with their B1 launches and the profiler's device-busy
-   share.
+   share;
+14. the paper's reproduction and the other benchmarks
+   (``repro_torch.paper_repro``'s sections, then ``repro_torch.paper``'s
+   netaware, refine_speed, runtime, multitenant and dispatch benchmarks) on
+   the card: every row's derived columns equal the reference's
+   (``PAPER_REF``) and the same benchmark's on the CPU in this process, but
+   for the fields a run measures (each benchmark's ``MEASURED``); the CPU
+   twins leave out the 100-tenant scale rows (phase 12 holds those
+   fleets), the runtime's parity row (itself the card against the CPU)
+   and overhead rows (timed on the card) and the dispatch rows (timed on
+   both); no plain version runs on the card; each section's B1, B2,
+   cut_traffic and policy_scan launches and its walls.
 
 Every phase's wall is printed at the end. The reference's results for
-phases 3-5 and 12 are constants below; ``tests/test_torch_multitenant_golden.py``
-and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's.
+phases 3-5, 12 and 14 are constants below; ``tests/test_torch_multitenant_golden.py``
+and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
+``tests/test_torch_paper_*.py`` phase 14's.
 The last lines are the ``{"kernels": [...]}`` record (B1, B2 and
-cut_traffic count their launches in phases 3-4 and 12), the card's
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+cut_traffic count their launches in phases 3-4, 12 and 14, policy_scan
+in phases 10 and 14), the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": ...}``.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
 """
@@ -175,6 +191,152 @@ MT_RUNTIME_REF = dict(rates_md5='80b90f70413240da7cb8c16ee1414efc',
                       arbiter_md5='8ca1933922e467869d05e0ba24ec5460', requests=10,
                       decisions_md5='776950f51ceef1cfbecc97d0d8587dde',
                       jsonl_md5='6dccf88ac9b1a96a0ab82d1653f3dffb')
+# Phase 14: the reference's rows (the scripts of ``benchmarks/`` on ``repro``'s
+# NumPy paths), by benchmark and row name, without the fields that a run
+# measures (each benchmark's ``MEASURED``: times, speedups, the evaluating
+# device). ``runtime_eval_parity`` is what the reference's gate demands (its
+# JAX evaluator cannot run on the installed JAX, ROADMAP C-ref-1), and the
+# dispatch rows are the shapes of the reference's grid; the scale rows are
+# the reference's 100-tenant fleets. ``tests/test_torch_paper_*.py``
+# recompute them.
+PAPER_REF = {
+    "prediction": {
+        "fig6_prediction_accuracy": "accuracy=98.5%;max_err=7.88pts;n=121;paper>=92%",
+    },
+    "throughput": {
+        "fig8_throughput_linear":
+            "default=13.9;proposed=21.1;refined=22.7;optimal=23.3;gain=52.3%(paper 7-44%);"
+            "below_opt=9.1%;refined_below_opt=2.3%(paper<=4%)",
+        "fig8_throughput_diamond":
+            "default=14.0;proposed=16.0;refined=17.9;optimal=17.9;gain=14.6%(paper 7-44%);"
+            "below_opt=10.6%;refined_below_opt=0.0%(paper<=4%)",
+        "fig8_throughput_star":
+            "default=15.8;proposed=21.5;refined=22.7;optimal=23.3;gain=36.2%(paper 7-44%);"
+            "below_opt=7.6%;refined_below_opt=2.3%(paper<=4%)",
+    },
+    "instances": {
+        "fig7_instances_rolling_count": "ours=(2, 2);optimal=(6, 5);loss=2.8%(paper<=2%)",
+        "fig7_instances_unique_visitor": "ours=(2, 2);optimal=(5, 3);loss=3.7%(paper<=2%)",
+    },
+    "utilization": {
+        "fig9_utilization_linear":
+            "default:thpt=13.9,util=199;proposed:thpt=21.1,util=275;optimal:thpt=23.3,util=298",
+        "fig9_utilization_diamond":
+            "default:thpt=14.0,util=247;proposed:thpt=16.0,util=256;optimal:thpt=17.9,util=296",
+        "fig9_utilization_star":
+            "default:thpt=15.8,util=220;proposed:thpt=21.5,util=280;optimal:thpt=23.3,util=298",
+    },
+    "largescale": {
+        "fig10_small_linear": "tasks=13;thpt_gain=33.4%;util_gain=31.9%;table5_ratio=1.05",
+        "fig10_small_diamond": "tasks=10;thpt_gain=64.1%;util_gain=62.1%;table5_ratio=1.03",
+        "fig10_small_star": "tasks=10;thpt_gain=58.2%;util_gain=56.6%;table5_ratio=1.03",
+        "fig10_medium_linear": "tasks=75;thpt_gain=45.4%;util_gain=42.6%;table5_ratio=1.07",
+        "fig10_medium_diamond": "tasks=72;thpt_gain=37.9%;util_gain=36.1%;table5_ratio=1.05",
+        "fig10_medium_star": "tasks=106;thpt_gain=20.9%;util_gain=19.4%;table5_ratio=1.08",
+        "fig10_large_linear": "tasks=478;thpt_gain=35.9%;util_gain=38.7%;table5_ratio=0.93",
+        "fig10_large_diamond": "tasks=510;thpt_gain=17.0%;util_gain=36.8%;table5_ratio=0.46",
+        "fig10_large_star": "tasks=276;thpt_gain=50.9%;util_gain=45.7%;table5_ratio=1.12",
+    },
+    "sched_speed": {
+        "sec3_scheduler_walltime": "candidates=221247;paper_optimal=18h@27405cands",
+        "sched_engine_large":
+            "scenario=large_linear_20_70_90;tasks=478;iterations=46;rate=297.0;"
+            "identical_schedule=True",
+        "sim_batch_backends": "batch=2048;tasks=75",
+    },
+    "refine_speed": {
+        "refine_engines_slow_suite": "scenario=slow_suite_1_1_1;identical=True",
+        "refine_wide_lockstep":
+            "scenario=wide14_2_2_2;tasks=30;components=16;moves=6;identical=True",
+        "optimal_engines": "scenario=linear_mtt8;candidates=26136;identical=True",
+    },
+    "netaware": {
+        "netaware_shuffle_heavy_2rack":
+            "blind=6.3812;aware=6.6232;gain_pct=3.792;aware_ge_blind=True",
+        "netaware_rolling_count_2rack":
+            "blind=40.5697;aware=44.2973;gain_pct=9.188;aware_ge_blind=True",
+        "netaware_wide_fanout_3rack_mem":
+            "blind=25.7855;aware=29.1209;gain_pct=12.935;aware_ge_blind=True",
+    },
+    "runtime": {
+        "runtime_linear_ramp":
+            "online=21.691;static=11.233;oracle=21.38;migrations=7;slo=1.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_linear_burst":
+            "online=18.949;static=14.316;oracle=19.069;migrations=2;slo=1.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_linear_sine":
+            "online=16.067;static=15.5;oracle=16.067;migrations=5;slo=1.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_linear_slowdown":
+            "online=17.795;static=9.445;oracle=17.663;migrations=6;slo=0.3;beats_static=True;"
+            "within_10pct=True",
+        "runtime_linear_failure":
+            "online=12.879;static=0.241;oracle=12.407;migrations=2;slo=0.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_linear_ramp_slowdown":
+            "online=20.14;static=7.106;oracle=20.508;migrations=12;slo=0.55;beats_static=True;"
+            "within_10pct=True",
+        "runtime_linear_elastic":
+            "online=27.695;static=14.647;oracle=27.135;migrations=9;slo=1.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_rolling_count_ramp":
+            "online=26.574;static=11.515;oracle=26.574;migrations=2;slo=1.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_rolling_count_burst":
+            "online=22.883;static=15.333;oracle=22.883;migrations=2;slo=1.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_rolling_count_sine":
+            "online=19.413;static=16.699;oracle=19.413;migrations=2;slo=1.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_rolling_count_slowdown":
+            "online=22.986;static=12.057;oracle=18.621;migrations=4;slo=1.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_rolling_count_failure":
+            "online=14.778;static=0.486;oracle=15.639;migrations=1;slo=0.333;beats_static=True;"
+            "within_10pct=True",
+        "runtime_rolling_count_ramp_slowdown":
+            "online=25.289;static=8.77;oracle=24.508;migrations=4;slo=0.6;beats_static=True;"
+            "within_10pct=True",
+        "runtime_rolling_count_elastic":
+            "online=33.402;static=16.958;oracle=33.176;migrations=7;slo=1.0;beats_static=True;"
+            "within_10pct=True",
+        "runtime_keyed_rolling_count_keyed_hot":
+            "online=27.486;static=16.613;oracle=27.459;migrations=9;slo=1.0;beats_static=True;"
+            "within_10pct=True;blind=27.486",
+        "runtime_keyed_rolling_count_keyed_shift":
+            "online=21.967;static=14.873;oracle=21.967;migrations=4;slo=1.0;beats_static=True;"
+            "within_10pct=True;blind=21.967",
+        "runtime_keyed_rolling_count_keyed_elastic":
+            "online=29.21;static=16.218;oracle=27.641;migrations=9;slo=0.633;beats_static=True;"
+            "within_10pct=True;blind=28.609",
+        "runtime_eval_parity": "within_1e9=True",
+        "runtime_obs_overhead_ramp": "records=233",
+        "runtime_obs_overhead_keyed_hot": "records=499",
+    },
+    "multitenant": {
+        "multitenant_scale_roomy_90x400":
+            "tenants=100;rounds=3713;feasible=True;no_regression=True;jain=0.9321",
+        "multitenant_scale_paper_90x100":
+            "tenants=100;rounds=3201;feasible=True;no_regression=True;jain=0.8779",
+        "multitenant_batching": "rows=2585;parity=True",
+        "multitenant_runtime": "tenants=3;satisfaction=[0.257, 0.276, 0.138];all_served=True",
+    },
+    "dispatch": {
+        "dispatch_crossover_small_shared": "tasks=14;machines=3",
+        "dispatch_crossover_small_per_row": "tasks=14;machines=3",
+        "dispatch_crossover_small_skew": "tasks=5;machines=3",
+        "dispatch_crossover_medium_shared": "tasks=15;machines=6",
+        "dispatch_crossover_medium_per_row": "tasks=15;machines=6",
+        "dispatch_crossover_medium_skew": "tasks=13;machines=6",
+        "dispatch_crossover_large_shared": "tasks=54;machines=15",
+        "dispatch_crossover_large_per_row": "tasks=54;machines=15",
+        "dispatch_crossover_large_skew": "tasks=46;machines=15",
+        "dispatch_crossover_stress_shared": "tasks=657;machines=180",
+        "dispatch_crossover_stress_per_row": "tasks=657;machines=180",
+        "dispatch_crossover_stress_skew": "tasks=405;machines=180",
+    },
+}
 
 
 def check(cond, message: str) -> None:
@@ -1140,7 +1302,8 @@ def same_scores(np, what, got, want):
 def multitenant_phases(torch, np, P, ops, cut_ops, wall):
     """Phases 12 and 13: multi-tenant scheduling and observability on the
     card, then their timings. Returns the launches of B1, B2 and
-    cut_traffic on these paths."""
+    cut_traffic on these paths, and the fleets (tenants, cluster, schedule,
+    B1 launches by capacity scale)."""
     import repro_torch.multitenant as MT
     import repro_torch.runtime_stream as RS
     from repro_torch.kernels.sched_scoring.ref import sched_scoring_ref
@@ -1336,7 +1499,127 @@ def multitenant_phases(torch, np, P, ops, cut_ops, wall):
               f"{prof['launches']} activities, B1 {b1_ms:.3f} ms; top: "
               + ", ".join(f"{t['name'][:40]} {t['device_ms']:.2f} ms x{t['calls']}"
                           for t in prof["top"]))
-    return launches
+    return launches, fleets
+
+
+def paper_phase(torch, ops, cut_ops, fleets, wall, smi):
+    """Phase 14: the paper's reproduction (``repro_torch.paper_repro``'s
+    sections) and the other benchmarks (``repro_torch.paper``) on the
+    card, each row's derived columns equal to the same benchmark's on the CPU
+    and to the reference's (``PAPER_REF``). Returns each kernel's launches."""
+    import contextlib
+    import io
+
+    from repro_torch import paper_repro
+    from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
+    from repro_torch.kernels.policy_scan import ops as scan_ops
+    from repro_torch.kernels.policy_scan.ref import policy_scan_ref
+    from repro_torch.kernels.sched_scoring.ref import sched_scoring_ref
+    from repro_torch.paper import dispatch, multitenant, netaware, refine_speed, runtime
+    from repro_torch.paper.common import comparable, fields
+
+    print(f"[14] the paper's reproduction and the other benchmarks on the card; {smi}")
+    counters = (ops, cut_ops, scan_ops)
+
+    def quiet(fn):
+        """The rows ``fn`` returns; what the benchmarks print is printed here
+        once, indented, for the card's run only."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    def mt_card():
+        by_scale = {4.0: "roomy_90x400", 1.0: "paper_90x100"}
+        rows = []
+        for _n, _counts, cap_scale, label in multitenant.SCALE_ROWS:
+            check(by_scale[cap_scale] == label, f"scale row {label} is not phase 12's fleet")
+            tenants, cluster, ms, _ = fleets[int(cap_scale)]
+            rows.append(multitenant.emit_scale(multitenant.scale_row(
+                label, tenants, cluster, ms, wall[f"fleet_x{int(cap_scale)}_s"], "cuda")))
+        rows.append(multitenant.emit_batching(multitenant.batching_row(device="cuda")))
+        return rows + [multitenant.emit_runtime(multitenant.runtime_row("cuda"))]
+
+    def mt_cpu():
+        return [multitenant.emit_batching(multitenant.batching_row(device="cpu")),
+                multitenant.emit_runtime(multitenant.runtime_row("cpu"))]
+
+    # (title, benchmark, the card's rows, the CPU's rows). The CPU holds every
+    # row but the 100-tenant scale rows (phase 12 held those fleets against
+    # the reference's, and each takes seconds on the CPU), the parity and
+    # overhead rows (the parity row compares the card with the CPU itself;
+    # the overhead rows time the recorder on the card) and the dispatch rows
+    # (their run on the card times the CPU on the same grid).
+    sections = [(title, benchmark, lambda d=benchmark: d.main("cuda"), lambda d=benchmark: d.main("cpu"))
+                for title, benchmark in paper_repro.SECTIONS]
+    sections += [
+        ("Network-aware placement", netaware, lambda: netaware.main("cuda"),
+         lambda: netaware.main("cpu")),
+        ("Refine / optimal walls", refine_speed, lambda: refine_speed.main("cuda"),
+         lambda: refine_speed.main("cpu")),
+        ("Online runtime", runtime, lambda: runtime.main("cuda"),
+         lambda: runtime.scenario_rows("cpu")[1]),
+        ("Multi-tenant scheduling", multitenant, mt_card, mt_cpu),
+        ("Dispatch points, CPU against the card", dispatch, lambda: dispatch.main("cuda"), None),
+    ]
+
+    plain = ops.sched_scoring_ref, cut_ops.cut_traffic_ref, scan_ops.policy_scan_ref
+    eager = []
+
+    def counting(fn):
+        def wrapped(*args, **kwargs):
+            if args[0].is_cuda:
+                eager.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    total = {"sched_scoring": 0, "sched_scoring_resources": 0, "cut_traffic": 0,
+             "policy_scan": 0}
+    t_phase = time.perf_counter()
+    n_rows = n_cpu = 0
+    for title, benchmark, card_fn, cpu_fn in sections:
+        key = benchmark.__name__.rsplit(".", 1)[1]
+        for c in counters:
+            c.reset_launches()
+        ops.sched_scoring_ref, cut_ops.cut_traffic_ref, scan_ops.policy_scan_ref = (
+            counting(sched_scoring_ref), counting(cut_traffic_ref), counting(policy_scan_ref))
+        t0 = time.perf_counter()
+        card = quiet(card_fn)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        ops.sched_scoring_ref, cut_ops.cut_traffic_ref, scan_ops.policy_scan_ref = plain
+        n = {**ops.LAUNCHES, **cut_ops.LAUNCHES, **scan_ops.LAUNCHES}
+        for k in total:
+            total[k] += n[k]
+        t0 = time.perf_counter()
+        cpu = quiet(cpu_fn) if cpu_fn else []
+        t_cpu = time.perf_counter() - t0
+        wall[f"paper_{key}_s"] = t_card
+        print(f"  # -- {title} -- launches B1 {n['sched_scoring']}, B2 "
+              f"{n['sched_scoring_resources']}, cut_traffic {n['cut_traffic']}, policy_scan "
+              f"{n['policy_scan']}; card {t_card:.3f} s, cpu {t_cpu:.3f} s")
+        for name, us, derived in card:
+            print(f"  {name},{us:.1f},{derived}")
+        ours = {name: comparable(d, benchmark.MEASURED) for name, _us, d in card}
+        check(len(ours) == len(card) and ours == PAPER_REF[key],
+              f"{key}: the card's rows differ from the reference's: "
+              f"{ {k: v for k, v in ours.items() if PAPER_REF[key].get(k) != v} }")
+        for name, _us, d in cpu:
+            check(comparable(d, benchmark.MEASURED) == ours[name],
+                  f"{name}: the card's row differs from the CPU's: {ours[name]} against {d}")
+        n_rows += len(card)
+        n_cpu += len(cpu)
+        if key == "sched_speed":
+            rel = float(fields(dict((r[0], r[2]) for r in card)["sim_batch_backends"])[
+                "cuda_vs_cpu_max_rel"])
+            check(rel <= 1e-9, f"simulate_batch on the card differs from the CPU by {rel}")
+    check(not eager, f"a plain version ran on the card: {sorted(set(eager))}")
+    wall["phase_14_s"] = time.perf_counter() - t_phase
+    for k, v in total.items():
+        check(v > 0, f"phase 14 launched no {k} kernel")
+    print(f"  {n_rows} rows equal the reference's, {n_cpu} of them also the CPU's run in this "
+          f"process (exact strings; the simulator within 1e-9, the network term within "
+          f"1e-12); no plain version on the card; launches {total}; phase 14 "
+          f"{wall['phase_14_s']:.3f} s")
+    return total
 
 
 def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
@@ -1475,6 +1758,30 @@ def main() -> int:
     check(empty.shape == (0, 180) and empty_b.shape == (0,)
           and (ops.LAUNCHES, cut_ops.LAUNCHES) == before, "B=0 must return empty, no launch")
     print("  B = 0 -> empty result, no launch")
+    # The scorer's limit on m (ROADMAP C-port-4): at ``max_machines`` of the
+    # operands' layout B1 and B2 launch and equal their plain versions; one
+    # machine more raises a ValueError naming the limit, before any launch.
+    for label, kw in (("B1, shared maps", dict(n=4)),
+                      ("B1, per-row maps", dict(n=4, per_row=True)),
+                      ("B2, memory + network", dict(n=4, memory=True, network=True))):
+        limit = ops.max_machines(kw.get("memory", False), kw.get("per_row", False),
+                                 kw.get("per_row", False))
+        args, extras = scoring_problem(np, 7, 8, 37, limit, **kw)
+        err, _ = compare_kernel(torch, np, ops, args, extras)
+        key = "sched_scoring_resources" if extras else "sched_scoring"
+        max_err[key] = max(max_err[key], err)
+        args, extras = scoring_problem(np, 7, 8, 37, limit + 1, **kw)
+        g_args, g_kw = to_tensors(torch, np, "cuda", args, extras)
+        before = dict(ops.LAUNCHES)
+        try:
+            ops.sched_scoring(*g_args, **g_kw)
+            refused = ""
+        except ValueError as e:  # the refusal under test, not a fallback
+            refused = str(e)
+        check(f"at most {limit} machines" in refused and ops.LAUNCHES == before,
+              f"{label}: m = {limit + 1} was not refused before a launch ({refused!r})")
+        print(f"  {label}: m = {limit} launches and equals its plain version; m = {limit + 1} "
+              f"-> ValueError before any launch ({refused.split(' (')[0]})")
 
     # [3] main path at full width ------------------------------------------
     print("[3] main path: schedule -> refine -> simulate, paper_cluster((20, 70, 90))")
@@ -1748,15 +2055,21 @@ def main() -> int:
 
     # [12] and [13] multi-tenant scheduling and observability ---------------
     t_mt = time.perf_counter()
-    mt_launches = multitenant_phases(torch, np, P, ops, cut_ops, wall)
+    mt_launches, fleets = multitenant_phases(torch, np, P, ops, cut_ops, wall)
     wall["phases_12_13_s"] = time.perf_counter() - t_mt
+
+    # [14] the paper's reproduction and the other benchmarks ---------
+    paper_launches = paper_phase(torch, ops, cut_ops, fleets, wall, smi)
     # Each kernel's launches on the paths that run it: the main and resource
-    # refines (phases 3-4) and the multi-tenant ones (phase 12).
+    # refines (phases 3-4) or the online runtime (phase 10), the multi-tenant
+    # paths (phase 12) and the benchmarks (phase 14).
     for rec in records:
-        if rec["name"] in mt_launches:
-            print(f"  {rec['name']}: {rec['launches']} launches in phases 3-4, "
-                  f"{mt_launches[rec['name']]} in phase 12")
-            rec["launches"] += mt_launches[rec["name"]]
+        if rec["name"] in paper_launches:
+            earlier = "phase 10" if rec["name"] == "policy_scan" else "phases 3-4"
+            print(f"  {rec['name']}: {rec['launches']} launches in {earlier}, "
+                  f"{mt_launches.get(rec['name'], 0)} in phase 12, "
+                  f"{paper_launches[rec['name']]} in phase 14")
+            rec["launches"] += mt_launches.get(rec["name"], 0) + paper_launches[rec["name"]]
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

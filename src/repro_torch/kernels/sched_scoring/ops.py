@@ -13,7 +13,16 @@ import torch
 
 from repro_torch.kernels.sched_scoring.ref import sched_scoring_ref
 
-__all__ = ["LAUNCHES", "reset_launches", "sched_scoring"]
+__all__ = ["LAUNCHES", "max_machines", "reset_launches", "sched_scoring"]
+
+# One block's shared memory on Hopper. The kernel keeps a row's m
+# accumulators (CPU load, fixed load and, with a memory term, memory; 8 bytes
+# each, and a 4-byte tag a machine) beside its staged task tiles, one row a
+# block at the most: ``acc_doubles`` and ``warp_smem`` in
+# ``csrc/sched_scoring.cu``, mirrored below with its tile constants.
+BLOCK_SMEM_BYTES = 227 * 1024
+_TT, _NSTAGE = 128, 2
+_TS_I, _TS_D = _TT + 8, _TT + 4
 
 # Kernel launches since the last reset, by variant. Only a launch of the
 # CUDA kernel counts; the CPU path and B == 0 launch nothing.
@@ -23,6 +32,27 @@ LAUNCHES = {"sched_scoring": 0, "sched_scoring_resources": 0}
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+def warp_smem(m: int, use_mem: bool, row_comp: bool, row_uir: bool) -> int:
+    """Shared-memory bytes of one row (one warp) of the kernel."""
+    acc_doubles = ((3 if use_mem else 2) * m + (m + 1) // 2 + 1) // 2 * 2
+    tiles = _NSTAGE * (_TS_I * 4 * (1 + row_comp) + _TS_D * 8 * row_uir)
+    return acc_doubles * 8 + tiles
+
+
+def max_machines(use_mem: bool, row_comp: bool, row_uir: bool) -> int:
+    """The largest m the kernel takes: one row's shared memory within a block's.
+
+    ``use_mem``: a memory term; ``row_comp`` / ``row_uir``: (B, T) component
+    and unit-rate maps in place of (T,) ones.
+    """
+    m = (BLOCK_SMEM_BYTES // 8) * 2 // (7 if use_mem else 5)  # 2.5 m or 3.5 m doubles alone
+    while warp_smem(m + 1, use_mem, row_comp, row_uir) <= BLOCK_SMEM_BYTES:
+        m += 1
+    while warp_smem(m, use_mem, row_comp, row_uir) > BLOCK_SMEM_BYTES:
+        m -= 1
+    return m
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shapes: tuple, device) -> None:
@@ -62,7 +92,10 @@ def sched_scoring(
         (m,) or (B, m) memory capacity — a hard feasibility mask.
 
     Any resource operand selects the resource variant of the kernel (a
-    memory term needs both ``mem_c`` and ``mem_capacity``).
+    memory term needs both ``mem_c`` and ``mem_capacity``). On the card m is
+    at most ``max_machines`` of the operands' layout, and a larger m raises
+    a ``ValueError`` that names the limit before any launch; the plain
+    version on the CPU scores any m.
     """
     dev = task_machine.device
     if task_machine.ndim != 2:
@@ -97,9 +130,14 @@ def sched_scoring(
 def _launch(tm, comp, unit_ir, e_cm, met_cm, capacity, net_var, mem_c, mem_capacity):
     from repro_torch.kernels.sched_scoring.kernel import load_library
 
-    lib = load_library()
     B, T = tm.shape
     m = e_cm.shape[1]
+    limit = max_machines(mem_c is not None, comp.ndim == 2, unit_ir.ndim == 2)
+    if m > limit:
+        raise ValueError(f"the sched_scoring kernel takes at most {limit} machines with these "
+                         f"operands (one row's accumulators and tiles in one block's "
+                         f"{BLOCK_SMEM_BYTES} bytes of shared memory), got {m}")
+    lib = load_library()
     resources = net_var is not None or mem_c is not None
     out = torch.empty(B, dtype=torch.float64, device=tm.device)
 

@@ -55,7 +55,12 @@ def test_importing_the_port_loads_no_jax():
         " repro_torch.kernels.policy_scan.ops, repro_torch.kernels.policy_scan.kernel,"
         " repro_torch.obs.ledger, repro_torch.launch.profile_runtime, repro_torch.launch.timing,"
         " repro_torch.multitenant, repro_torch.obs, repro_torch.obs.validate,"
-        " repro_torch.runtime_demo;"
+        " repro_torch.runtime_demo, repro_torch.paper_repro, repro_torch.paper.run,"
+        " repro_torch.paper.common, repro_torch.paper.prediction, repro_torch.paper.throughput,"
+        " repro_torch.paper.instances, repro_torch.paper.utilization,"
+        " repro_torch.paper.largescale, repro_torch.paper.sched_speed,"
+        " repro_torch.paper.refine_speed, repro_torch.paper.netaware, repro_torch.paper.runtime,"
+        " repro_torch.paper.multitenant, repro_torch.paper.dispatch;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')];"
         "sys.exit(1 if bad else 0)"
     )
@@ -133,6 +138,13 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
         lambda: MT.MultiTenantRuntime(ms, MT.TenantSet(tenants), cl, mtrace).run(),
         lambda: runtime_demo(),
     ]
+    # And the paper's reproduction and every benchmark.
+    import repro_torch.paper_repro as paper_repro
+    from repro_torch.paper import run as paper_run
+    from repro_torch.paper.run import BENCHMARKS
+
+    calls += [lambda: paper_repro.main(), lambda: paper_run.main()]
+    calls += [lambda d=benchmark: d.main() for benchmark, _json in BENCHMARKS]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

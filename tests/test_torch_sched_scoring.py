@@ -149,6 +149,54 @@ def test_wrapper_rejects_bad_operands():
         ops.sched_scoring(args[0].t(), *args[1:])  # wrong shape / layout
 
 
+# The kernel's limit on m (ROADMAP C-port-4): one row's accumulators and its
+# two staged tiles must fit one block's 232 448 bytes of shared memory
+# (csrc/sched_scoring.cu, ``acc_doubles`` and ``warp_smem``). By hand: the
+# tiles take 2 x 136 int32 (task ids), as many again for (B, T) components,
+# and 2 x 132 float64 for (B, T) unit rates; the accumulators take
+# 2m (3m with memory) + (m + 1) // 2 + 1 doubles, rounded down to even.
+#   shared maps:      232 448 - 1 088 = 231 360 B = 28 920 doubles -> m = 11 568
+#   per-row unit:     232 448 - 3 200 -> 28 656 doubles            -> m = 11 462
+#   per-row maps:     232 448 - 4 288 -> 28 520 doubles            -> m = 11 408
+#   memory, shared:   28 920 doubles, 3.5 m + 1                    -> m =  8 262
+#   memory, per-row:  28 520 doubles                               -> m =  8 148
+@pytest.mark.parametrize("use_mem,row_comp,row_uir,limit", [
+    (False, False, False, 11568),
+    (False, False, True, 11462),
+    (False, True, True, 11408),
+    (True, False, False, 8262),
+    (True, True, True, 8148),
+])
+def test_max_machines_by_hand(use_mem, row_comp, row_uir, limit):
+    assert ops.max_machines(use_mem, row_comp, row_uir) == limit
+    assert ops.warp_smem(limit, use_mem, row_comp, row_uir) <= ops.BLOCK_SMEM_BYTES
+    assert ops.warp_smem(limit + 1, use_mem, row_comp, row_uir) > ops.BLOCK_SMEM_BYTES
+
+
+@pytest.mark.parametrize("resources", [False, True])
+def test_wrapper_refuses_past_the_limit_before_any_launch(monkeypatch, resources):
+    """Past ``max_machines`` the launcher raises a ValueError naming the
+    limit before it loads the library; at the limit it goes on to launch
+    (here into a stand-in library that stops it)."""
+    from repro_torch.kernels.sched_scoring import kernel
+
+    class Launching(Exception):
+        pass
+
+    def load_library():
+        raise Launching
+
+    monkeypatch.setattr(kernel, "load_library", load_library)
+    limit = ops.max_machines(resources, False, False)
+    for m, error, match in ((limit, Launching, None),
+                            (limit + 1, ValueError, f"at most {limit} machines")):
+        args, kw = _tensors(*_problem(3, 4, 9, m, 2, resources=resources))
+        before = dict(ops.LAUNCHES)
+        with pytest.raises(error, match=match):
+            ops._launch(*args, kw.get("net_var"), kw.get("mem_c"), kw.get("mem_capacity"))
+        assert ops.LAUNCHES == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
