@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: builds the kernels, drives the
 paper's main path, the LM serving paths, the streaming runtime, multi-tenant
-scheduling and the paper's reproduction on one NVIDIA GPU, holds every
-kernel against its plain PyTorch version, and prints the kernels' numbers.
+scheduling, the paper's reproduction and MoE serving on one NVIDIA GPU,
+holds every kernel against its plain PyTorch version, and prints the
+kernels' numbers.
 
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 Phases (each raises on failure; nothing is caught):
@@ -112,7 +113,31 @@ Phases (each raises on failure; nothing is caught):
    fleets), the runtime's parity row (itself the card against the CPU)
    and overhead rows (timed on the card) and the dispatch rows (timed on
    both); no plain version runs on the card; each section's B1, B2,
-   cut_traffic and policy_scan launches and its walls.
+   cut_traffic and policy_scan launches and its walls;
+15. the MoE family (``models.moe``, ``models.mla``):
+   (a) ``granite-moe-1b-a400m`` at full width and depth (24 layers, 32
+   experts top-8, bf16, random weights from a seed) serves 8 requests of
+   512 prompt tokens and 64 generated tokens; 24 B3 launches per prefill
+   and 24 B4 launches per decode step, no plain attention version on the
+   card; its prefill's capacity drops, and 8 decode steps under the
+   profiler with the device time of each MoE stage (route, dispatch,
+   experts, combine); (b) its first 2 layers in float32 (TF32 off) on
+   the card against the CPU, 2 x 128 prompt tokens + 8 steps, the CPU fed
+   the card's tokens: routed expert ids equal wherever the top-k margin
+   exceeds ``ROUTE_MARGIN``, logits within ``MOE_REL`` of their max-abs,
+   argmax equal; then the full depth in bf16 against float32 on the CPU
+   as in phase 8, the CPU teacher-forced on the card's tokens and expert
+   choices (it prints how often its own choice differed); (c)
+   ``deepseek-v3-671b`` at full width, its depth cut to 4 layers (3
+   dense, 1 MoE of 1 shared + 256 routed experts; ~15.8 G parameters),
+   bf16, serves 4 requests of 256 prompt tokens and 16 generated tokens
+   (MLA runs no B3/B4: its absorbed form is torch ops); the MLA cache's
+   bytes and the peak memory; then the same weights in float32 (capacity
+   factor E / k, so that no choice is dropped at any length): 8 decode
+   steps from a 2 x 64 prefill, each within ``MLA_REL`` of a
+   teacher-forced prefill over the tokens so far; (d) B3 and B4 timed at
+   granite's serving shapes (B4 over 576 slots) beside their plain
+   versions and ``scaled_dot_product_attention``.
 
 Every phase's wall is printed at the end. The reference's results for
 phases 3-5, 12 and 14 are constants below; ``tests/test_torch_multitenant_golden.py``
@@ -120,8 +145,10 @@ and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
 ``tests/test_torch_paper_*.py`` phase 14's.
 The last lines are the ``{"kernels": [...]}`` record (B1, B2 and
 cut_traffic count their launches in phases 3-4, 12 and 14, policy_scan
-in phases 10 and 14), the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": ...}``.
+in phases 10 and 14, B3 and B4 in phases 8 (qwen1.5-0.5b) and 15
+(granite-moe-1b-a400m), with recurrentgemma-2b's and granite's own
+numbers in nested keys), the card's ``nvidia-smi`` name and power limit,
+and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
 """
@@ -800,8 +827,11 @@ def serve_run(torch, kernel_ops, M, serve, cfg, params, B, prompt_len, gen_len, 
     check(tuple(toks.shape) == (B, gen_len) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab_size, "served tokens out of shape or vocabulary")
     wall[f"{cfg.name}_prefill_s"], wall[f"{cfg.name}_decode_s"] = res.prefill_s, res.decode_s
-    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
-          f"{cfg.resolved_head_dim}, {n_params / 1e6:.1f} M parameters in {cfg.param_dtype}")
+    heads = (f"{cfg.n_heads} MLA heads (q/k {cfg.qk_nope_dim + cfg.qk_rope_dim}, v "
+             f"{cfg.v_head_dim}, latent {cfg.kv_lora_rank} + rope {cfg.qk_rope_dim})"
+             if cfg.use_mla else f"{cfg.n_heads} heads of {cfg.resolved_head_dim}")
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {heads}, "
+          f"{n_params / 1e6:.1f} M parameters in {cfg.param_dtype}")
     print(f"  served {B} requests x {prompt_len} prompt + {gen_len} generated tokens: prefill "
           f"{res.prefill_s:.4f} s ({B * prompt_len / res.prefill_s:,.0f} prompt tok/s), decode "
           f"{res.decode_s:.4f} s for {gen_len - 1} steps ({B * (gen_len - 1) / res.decode_s:,.1f} "
@@ -1622,6 +1652,286 @@ def paper_phase(torch, ops, cut_ops, fleets, wall, smi):
     return total
 
 
+# Phase 15's checks: the routed expert ids of the card and the CPU agree
+# wherever the top-k margin (the least gap between consecutive sorted
+# probabilities down to the (k+1)-th) exceeds ROUTE_MARGIN; the float32 card
+# and CPU logits within MOE_REL of their max-abs (float32 on both sides,
+# only the order of sums differs: 1e-3 leaves room for 2 layers of d_model
+# 1024); DeepSeek's decode steps within MLA_REL of a teacher-forced prefill
+# (the same arithmetic in float32, the latent read back from the cache).
+ROUTE_MARGIN = 1e-4
+MOE_REL = 1e-3
+MLA_REL = 1e-4
+
+
+class RoutingTap:
+    """While open, wraps ``models.moe._route``: records each call's expert
+    ids and top-k margin, by device, in call order. With ``force``, the
+    CPU's i-th call takes the card's i-th call's ids (its gates the CPU's
+    own probabilities at those ids, renormalised): the CPU run is then
+    teacher-forced on the card's routing, as it is on the card's tokens,
+    and ``flips`` counts the tokens whose own choice differed."""
+
+    def __init__(self, torch, moe, force=False):
+        self.torch, self.moe, self.force = torch, moe, force
+        self.card, self.cpu, self.flips = [], [], 0
+
+    def __enter__(self):
+        self.real = self.moe._route
+        self.moe._route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+
+    def route(self, tokens, router_w, k):
+        torch = self.torch
+        probs = torch.softmax(tokens.float() @ router_w, dim=-1)
+        top = probs.sort(dim=-1, descending=True, stable=True).values[:, :k + 1]
+        margin = (top[:, :-1] - top[:, 1:]).amin(dim=-1)
+        gates, ids, aux = self.real(tokens, router_w, k)
+        if tokens.is_cuda:
+            self.card.append((ids.cpu(), margin.cpu()))
+            return gates, ids, aux
+        self.cpu.append((ids, margin))
+        if self.force:
+            card_ids = self.card[len(self.cpu) - 1][0]
+            self.flips += int((card_ids != ids).any(dim=-1).sum())
+            g = probs.gather(1, card_ids)
+            return g / g.sum(-1, keepdim=True).clamp_min(1e-9), card_ids, aux
+        return gates, ids, aux
+
+    def compare(self):
+        """(choices compared, tokens under the margin): the card's ids equal
+        the CPU's at every token whose CPU margin exceeds ROUTE_MARGIN."""
+        torch = self.torch
+        check(len(self.card) == len(self.cpu) > 0, "routing calls differ between card and CPU")
+        compared, near = 0, 0
+        for (cid, _), (pid, margin) in zip(self.card, self.cpu):
+            clear = margin > ROUTE_MARGIN
+            check(torch.equal(cid[clear], pid[clear]),
+                  f"routed expert ids differ at {int((cid != pid).any(-1)[clear].sum())} "
+                  f"tokens with a top-k margin over {ROUTE_MARGIN}")
+            compared += int(clear.sum()) * cid.shape[1]
+            near += int((~clear).sum())
+        return compared, near
+
+
+class PlainOnCard:
+    """While open, counts calls of the attention kernels' plain versions on
+    CUDA tensors through their wrappers (there must be none)."""
+
+    def __init__(self, flash_ops, decode_ops):
+        self.targets = ((flash_ops, "flash_attention_ref"), (decode_ops, "decode_attention_ref"))
+        self.calls = 0
+
+    def __enter__(self):
+        self.real = [getattr(mod, name) for mod, name in self.targets]
+        for (mod, name), fn in zip(self.targets, self.real):
+            setattr(mod, name, self.counting(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.real):
+            setattr(mod, name, fn)
+
+    def counting(self, fn):
+        def run(q, *args, **kwargs):
+            self.calls += q.is_cuda
+            return fn(q, *args, **kwargs)
+        return run
+
+
+def _to_float32_in_place(tree) -> None:
+    """Every leaf of ``tree`` cast to float32 in its container, the largest
+    first, each bf16 original freed as it goes: the peak stays near the
+    float32 tree's size."""
+    slots = []
+
+    def walk(node):
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for key, v in list(items):
+            if isinstance(v, (dict, list)):
+                walk(v)
+            else:
+                slots.append((v.numel(), node, key))
+
+    walk(tree)
+    for _n, node, key in sorted(slots, key=lambda s: -s[0]):
+        node[key] = node[key].float()
+
+
+def moe_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref, decode_ref,
+              wall, smi):
+    """Phase 15: the MoE family. Returns {kernel: (granite's launches,
+    timing at granite's shapes)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_serve import moe_stages, profile_phase
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    lm_ops = (flash_ops, decode_ops, scan_ops)
+    print(f"[15] the MoE family: granite-moe-1b-a400m at full width and depth, "
+          f"deepseek-v3-671b at full width, 4 layers; {smi}")
+
+    # (a) granite at full width and depth, bf16 -------------------------------
+    cfg = get_config("granite-moe-1b-a400m")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    B, P, G = 8, 512, 64
+    with PlainOnCard(flash_ops, decode_ops) as plain:
+        launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, P, G,
+                             dict(flash_attention=cfg.n_layers,
+                                  decode_attention=cfg.n_layers * (G - 1), rglru_scan=0), wall)
+    check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
+    print("  no plain attention version ran on the card")
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    with RoutingTap(torch, moe) as tap:
+        M.prefill(params, cfg, {"tokens": prompt}, M.init_caches(cfg, B, P, device="cuda"),
+                  device="cuda")
+    C = moe.capacity(cfg, B * P)
+    dropped = [int((~moe._slot_tables(ids, cfg.n_experts, C)[2]).sum()) for ids, _ in tap.card]
+    print(f"  prefill routing: capacity {C} slots an expert for {B * P} tokens x top-"
+          f"{cfg.top_k} of {cfg.n_experts}; choices dropped {sum(dropped)} of "
+          f"{len(dropped) * B * P * cfg.top_k} over {len(dropped)} layers (per layer "
+          f"{min(dropped)}-{max(dropped)})")
+
+    # Where granite's decode step spends the card's time.
+    steps = 8
+    state = {"caches": M.init_caches(cfg, B, P + steps + 1, device="cuda")}
+    logits, state["caches"] = M.prefill(params, cfg, {"tokens": prompt}, state["caches"],
+                                        device="cuda")
+    state["tok"] = logits.argmax(-1)[:, None]
+
+    def decode():
+        for _ in range(steps):
+            out, state["caches"] = M.decode_step(params, cfg, {"tokens": state["tok"]},
+                                                 state["caches"], device="cuda")
+            state["tok"] = out.argmax(-1)[:, None]
+
+    with moe_stages():
+        prof = profile_phase(decode)
+    busy_ms = prof["device_busy_s"] * 1e3
+    print(f"  decode profile, {steps} steps at {B} requests: wall {prof['wall_s'] * 1e3 / steps:.3f} "
+          f"ms/step, device busy {busy_ms / steps:.3f} ms/step ({100 * prof['busy_share']:.1f}%), "
+          f"{prof['launches'] / steps:.0f} device activities a step")
+    print("  MoE stages, device ms a step (share of device busy): " + ", ".join(
+        f"{k} {v / steps:.4f} ({100 * v / busy_ms:.1f}%)"
+        for k, v in sorted(prof["moe_stages_ms"].items())))
+    for row in prof["top"]:
+        print(f"    {row['device_ms'] / steps:9.4f} ms/step x{row['calls'] // steps:<5} "
+              f"{row['name']}")
+
+    # (b) its first 2 layers in float32, card against CPU ---------------------
+    cut, cut_params = first_layers(M, cfg, params, 2)
+    cut32 = dataclasses.replace(cut, dtype="float32", param_dtype="float32")
+    card32 = _map_leaves(cut_params, lambda t: t.float())
+    cpu32 = _map_leaves(cut_params, lambda t: t.float().cpu())
+    Bc, Pc, n = 2, 128, 8
+    prompt_c = torch.randint(0, cfg.vocab_size, (Bc, Pc), generator=torch.Generator().manual_seed(2))
+    t0 = time.perf_counter()
+    with RoutingTap(torch, moe) as tap:
+        card_c = M.init_caches(cut32, Bc, Pc + n, device="cuda")
+        cpu_c = M.init_caches(cut32, Bc, Pc + n, device="cpu")
+        card_l, card_c = M.prefill(card32, cut32, {"tokens": prompt_c}, card_c, device="cuda")
+        cpu_l, cpu_c = M.prefill(cpu32, cut32, {"tokens": prompt_c}, cpu_c, device="cpu")
+        worst = 0.0
+        for step in range(n + 1):
+            got = card_l.cpu()
+            rel = float((got - cpu_l).abs().max() / cpu_l.abs().max())
+            worst = max(worst, rel)
+            check(rel <= MOE_REL, f"granite 2 layers float32, step {step}: card vs CPU logits "
+                                  f"differ by {rel:.3e} of their max-abs, over {MOE_REL}")
+            tok = got.argmax(-1)
+            check(torch.equal(tok, cpu_l.argmax(-1)), f"granite 2 layers float32, step {step}: "
+                                                      "argmax differs")
+            if step < n:
+                card_l, card_c = M.decode_step(card32, cut32, {"tokens": tok[:, None]}, card_c,
+                                               device="cuda")
+                cpu_l, cpu_c = M.decode_step(cpu32, cut32, {"tokens": tok[:, None]}, cpu_c,
+                                             device="cpu")
+    compared, near = tap.compare()
+    print(f"  first 2 layers in float32 (TF32 off), {Bc} x {Pc} prompt + {n} steps, card vs "
+          f"CPU fed the card's tokens: logits within {worst:.3e} of their max-abs (<= {MOE_REL}), "
+          f"argmax equal at every step; {compared} routed choices equal, {near} (token, layer) "
+          f"pairs under the top-k margin {ROUTE_MARGIN} not compared")
+    del card32, cpu32, card_c, cpu_c
+    # The full depth in bf16 against float32 on the CPU, as phase 8; the CPU
+    # takes the card's expert choices as it takes the card's tokens.
+    with RoutingTap(torch, moe, force=True) as tap:
+        cpu_check(torch, M, cfg, params, Bc, Pc, n)
+    print(f"  (CPU teacher-forced on the card's routing: the CPU's own top-{cfg.top_k} differed "
+          f"at {tap.flips} of {sum(ids.shape[0] for ids, _ in tap.cpu)} (token, layer) pairs)")
+    wall["granite_cpu_check_s"] = time.perf_counter() - t0
+
+    # (d) B3 and B4 at granite's serving shapes --------------------------------
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    timings = {
+        "flash_attention": (launches["flash_attention"],
+                            time_flash(torch, F, flash_ops, flash_ref, B, P, H, Hkv, D, 0)),
+        # The last decode step: 512 + 63 tokens cached of 576 slots.
+        "decode_attention": (launches["decode_attention"],
+                             time_decode(torch, F, decode_ops, decode_ref, B, H, Hkv, P + G,
+                                         P + G - 1, D)),
+    }
+    del params, state, prof
+    torch.cuda.empty_cache()
+
+    # (c) deepseek-v3-671b at full width, 4 layers, bf16 -----------------------
+    ds = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(ds, seed=0, device="cuda")
+    Bd, Pd, Gd = 4, 256, 16
+    serve_run(torch, lm_ops, M, serve, ds, params, Bd, Pd, Gd,
+              dict(flash_attention=0, decode_attention=0, rglru_scan=0), wall)
+    peak = torch.cuda.max_memory_allocated()
+    latent_bytes = Bd * (Pd + Gd) * (ds.kv_lora_rank + ds.qk_rope_dim) * 2
+    mha_bytes = Bd * (Pd + Gd) * ds.n_heads * (ds.qk_nope_dim + ds.qk_rope_dim + ds.v_head_dim) * 2
+    print(f"  {ds.n_layers} of {get_config('deepseek-v3-671b').n_layers} layers ({ds.n_dense_layers} dense, {ds.n_layers - ds.n_dense_layers}"
+          f" MoE of {ds.n_experts} routed + {ds.n_shared_experts} shared, top-{ds.top_k}); the MTP "
+          f"head's {sum(t.numel() for t in _leaves(params['mtp'])) / 1e6:.1f} M parameters carried, "
+          f"not run")
+    print(f"  MLA cache: {latent_bytes:,} bytes a layer for {Bd} x {Pd + Gd} positions (latent "
+          f"{ds.kv_lora_rank} + rope {ds.qk_rope_dim}, bf16; expanded per-head K/V would take "
+          f"{mha_bytes:,}); peak memory {peak / 2 ** 30:.2f} GiB")
+    # The same model in float32 (TF32 off): every decode step against a
+    # teacher-forced prefill. The capacity factor E / k drops no choice at
+    # either length, so that the two compute the same function (at 1.25 a
+    # prefill drops choices that one-token decode steps keep).
+    _to_float32_in_place(params)
+    torch.cuda.empty_cache()
+    ds32 = dataclasses.replace(ds, dtype="float32", param_dtype="float32",
+                               capacity_factor=ds.n_experts / ds.top_k)
+    Bf, Pf, nf = 2, 64, 8
+    tokens = torch.randint(0, ds.vocab_size, (Bf, Pf), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    caches = M.init_caches(ds32, Bf, Pf + nf, device="cuda")
+    logits, caches = M.prefill(params, ds32, {"tokens": tokens}, caches, device="cuda")
+    worst = 0.0
+    for step in range(nf):
+        tokens = torch.cat([tokens, logits.argmax(-1)[:, None]], dim=1)
+        logits, caches = M.decode_step(params, ds32, {"tokens": tokens[:, -1:]}, caches,
+                                       device="cuda")
+        want, _ = M.prefill(params, ds32, {"tokens": tokens},
+                            M.init_caches(ds32, Bf, tokens.shape[1], device="cuda"),
+                            device="cuda")
+        check(bool(torch.isfinite(logits).all()), f"deepseek float32 step {step}: non-finite")
+        rel = float((logits - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        check(rel <= MLA_REL, f"deepseek float32 step {step}: decode vs teacher-forced prefill "
+                              f"differ by {rel:.3e} of their max-abs, over {MLA_REL}")
+    print(f"  float32 (TF32 off), capacity factor {ds32.capacity_factor:g}: {nf} decode steps "
+          f"from a {Bf} x {Pf} prefill each within {worst:.3e} of a teacher-forced prefill's "
+          f"logits (<= {MLA_REL} of their max-abs); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del params, caches, logits, want
+    torch.cuda.empty_cache()
+    wall["phase_15_s"] = time.perf_counter() - t_phase
+    print(f"  phase 15 {wall['phase_15_s']:.3f} s")
+    return timings
+
+
 def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
     """A redesigned kernel's launch, printed beside its time: the ceiling
     without FMA (every product and sum its own FP64 instruction, half the
@@ -2070,6 +2380,21 @@ def main() -> int:
                   f"{mt_launches.get(rec['name'], 0)} in phase 12, "
                   f"{paper_launches[rec['name']]} in phase 14")
             rec["launches"] += mt_launches.get(rec["name"], 0) + paper_launches[rec["name"]]
+
+    # [15] the MoE family ---------------------------------------------------
+    moe_timings = moe_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops,
+                            flash_attention_ref, decode_attention_ref, wall, smi)
+    for rec in records:
+        if rec["name"] in moe_timings:
+            launches, timing = moe_timings[rec["name"]]
+            granite = _record(rec["name"], rec["source"], rec["replaces"], launches,
+                              timing[0], timing)
+            rec["granite-moe-1b-a400m"] = {k: granite[k] for k in (
+                "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            print(f"  {rec['name']}: {rec['launches']} launches in phase 8 (qwen1.5-0.5b), "
+                  f"{launches} in phase 15 (granite-moe-1b-a400m)")
+            rec["launches"] += launches
+            rec["max_abs_err"] = max(rec["max_abs_err"], timing[0])
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

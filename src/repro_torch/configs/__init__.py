@@ -40,8 +40,6 @@ _ALIASES = {
 
 # Architectures whose blocks the port does not run yet, and what brings them.
 _NOT_PORTED = {
-    "deepseek_v3_671b": "MLA attention, MoE blocks and the MTP head: ROADMAP A12",
-    "granite_moe_1b_a400m": "MoE blocks: ROADMAP A12",
     "xlstm_125m": "mLSTM and sLSTM blocks: ROADMAP A12",
     "whisper_tiny": "the encoder-decoder stack and cross-attention: ROADMAP A12, "
                     "the Whisper slice",

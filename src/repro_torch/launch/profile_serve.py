@@ -2,22 +2,28 @@
 ``torch.profiler``, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch qwen1.5-0.5b]
-        [--batch 8] [--prompt-len 512] [--steps 16]
+        [--batch 8] [--prompt-len 512] [--steps 16] [--layers N]
 
-(``--arch recurrentgemma-2b --prompt-len 2304`` profiles the hybrid.)
-Serves the published width and depth with random weights (seed 0). For
-each phase it prints the host wall time (ended by a synchronise), the
-device busy time (the union of the kernels' and copies' intervals in the
-trace), the busy share, the device time and wrapper calls of each of the
-port's own kernels (B3 flash attention; B4 decode attention, its split and
-combine kernels summed; B5 RG-LRU scan) and the kernels that took the most
-device time, then one JSON line with the same numbers.
+(``--arch recurrentgemma-2b --prompt-len 2304`` profiles the hybrid,
+``--arch granite-moe-1b-a400m`` the MoE model, ``--arch deepseek-v3-671b
+--layers 4`` DeepSeek's first 4 layers, all that one card holds.)
+Serves the published width and depth (the first ``--layers`` layers if
+given) with random weights (seed 0). For each phase it prints the host
+wall time (ended by a synchronise), the device busy time (the union of the
+kernels' and copies' intervals in the trace), the busy share, the device
+time and wrapper calls of each of the port's own kernels (B3 flash
+attention; B4 decode attention, its split and combine kernels summed; B5
+RG-LRU scan), for a MoE model the device time of each stage of its MoE
+layers (``MOE_STAGES``), and the kernels that took the most device time,
+then one JSON line with the same numbers.
 Needs a card; there is no CPU mode.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import time
@@ -27,8 +33,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
+from repro_torch.models import moe
 
-__all__ = ["PORT_KERNELS", "profile_phase", "main"]
+__all__ = ["MOE_STAGES", "PORT_KERNELS", "moe_stages", "profile_phase", "main"]
 
 # The port's hand-written kernels: the substring of every trace kernel name
 # whose device time is theirs, and that of the one kernel they launch once a
@@ -38,10 +45,40 @@ PORT_KERNELS = {"flash_attention": "flash_attention",
                 "rglru_scan": "rglru_scan"}
 
 
+# The stages of a MoE layer, by the function of ``models.moe`` that runs
+# each: routing, dispatch (slot tables and the gather into the expert
+# buffer), the expert products, the combine, and the shared experts.
+MOE_STAGES = {"_route": "route", "_slot_tables": "dispatch", "_dispatch": "dispatch",
+              "_expert_ffn": "experts", "_combine": "combine", "mlp": "shared"}
+
+
+@contextlib.contextmanager
+def moe_stages():
+    """While open, each MoE stage runs inside a profiler range named
+    ``moe.<stage>``, which ``profile_phase`` reads; serving outside it
+    carries no range."""
+    real = {name: getattr(moe, name) for name in MOE_STAGES}
+
+    def labelled(name):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(f"moe.{MOE_STAGES[name]}"):
+                return real[name](*args, **kwargs)
+        return run
+
+    for name in MOE_STAGES:
+        setattr(moe, name, labelled(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(moe, name, fn)
+
+
 def profile_phase(fn, top: int = 8, kernels: dict[str, str] = PORT_KERNELS) -> dict:
-    """Run ``fn`` once under the profiler; wall and device-busy seconds, and
-    the device time and calls of each of ``kernels`` (named as in
-    ``PORT_KERNELS``)."""
+    """Run ``fn`` once under the profiler; wall and device-busy seconds, the
+    device time and calls of each of ``kernels`` (named as in
+    ``PORT_KERNELS``), and the device time under each ``moe.<stage>`` range
+    (``moe_stages``; empty without one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -51,8 +88,11 @@ def profile_phase(fn, top: int = 8, kernels: dict[str, str] = PORT_KERNELS) -> d
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # A profiler range also shows on the device's timeline, spanning its
+    # kernels and the gaps between them: it is no device activity.
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:
         raise RuntimeError("the profiler recorded no device activity")
     busy_us, end = 0.0, float("-inf")
@@ -66,8 +106,12 @@ def profile_phase(fn, top: int = 8, kernels: dict[str, str] = PORT_KERNELS) -> d
     port = {k: dict(device_ms=sum(t for n, (t, _) in by_name.items() if k in n) * 1e-3,
                     calls=sum(c for n, (_, c) in by_name.items() if once in n))
             for k, once in kernels.items()}
+    stages: dict[str, float] = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("moe."):
+            stages[e.name[4:]] += e.device_time_total * 1e-3
     return dict(wall_s=wall, device_busy_s=busy_us * 1e-6, busy_share=busy_us * 1e-6 / wall,
-                launches=len(spans), port_kernels=port,
+                launches=len(spans), port_kernels=port, moe_stages_ms=dict(stages),
                 top=[dict(name=n[:80], device_ms=t * 1e-3, calls=c) for n, (t, c) in ranked])
 
 
@@ -77,9 +121,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve only the first N layers (0: all of them)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers,
+                                  block_pattern=cfg.block_pattern[:args.layers])
     B, P, steps = args.batch, args.prompt_len, args.steps
     params = M.init_params(cfg, seed=0, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
@@ -101,13 +150,20 @@ def main(argv: list[str] | None = None) -> None:
     decode()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    out = {"gpu": smi, "arch": cfg.name, "batch": B, "prompt_len": P, "steps": steps}
+    out = {"gpu": smi, "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "prompt_len": P,
+           "steps": steps}
     for name, fn in (("prefill", prefill), ("decode", decode)):
-        out[name] = res = profile_phase(fn)
+        with moe_stages():
+            out[name] = res = profile_phase(fn)
         print(f"[{name}] wall {res['wall_s']:.4f} s, device busy {res['device_busy_s']:.4f} s "
               f"({100 * res['busy_share']:.1f}%), {res['launches']} device activities")
         print("  port kernels: " + ", ".join(f"{k} {v['device_ms']:.3f} ms x{v['calls']}"
                                              for k, v in res["port_kernels"].items()))
+        if res["moe_stages_ms"]:
+            busy_ms = res["device_busy_s"] * 1e3
+            print("  MoE stages: " + ", ".join(
+                f"{k} {v:.3f} ms ({100 * v / busy_ms:.1f}% of device busy)"
+                for k, v in res["moe_stages_ms"].items()))
         for row in res["top"]:
             print(f"  {row['device_ms']:10.3f} ms  x{row['calls']:<6} {row['name']}")
     print(smi)

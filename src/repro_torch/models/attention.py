@@ -24,7 +24,9 @@ A local-attention block (``window`` > 0) keeps a ring of at most
   stored in, so the ring's order needs no mask.
 
 Without a cache, ``flash_attention`` runs over the fresh keys and values.
-``sdpa`` is the plain reference of the model path. Unlike the JAX package,
+``sdpa`` is the plain reference of the model path. ``sdpa_chunked`` is the
+reference's blocked online-softmax attention in eager torch; MLA's
+expanded long-prompt branch (``models.mla``) runs it. Unlike the JAX package,
 which returns new arrays, the port writes the cache tensors in place (no
 second copy of every layer's cache per step) and returns a ``KVCache``
 with the advanced ``pos``. Cross-attention comes with the Whisper slice
@@ -48,6 +50,7 @@ __all__ = [
     "attention_block",
     "init_kv_cache",
     "sdpa",
+    "sdpa_chunked",
 ]
 
 NEG_INF = -2.0e38
@@ -128,6 +131,62 @@ def sdpa(
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), v.float())
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def sdpa_chunked(
+    q: torch.Tensor,          # (B, Sq, H, D)
+    k: torch.Tensor,          # (B, Sk, Hkv, D)
+    v: torch.Tensor,          # (B, Sk, Hkv, Dv)
+    *,
+    causal: bool,
+    window: int = 0,
+    q_chunk: int = 1024,
+    k_chunk: int = 1024,
+) -> torch.Tensor:
+    """Blocked online-softmax attention: the reference's ``sdpa_chunked``.
+
+    A loop over query chunks and, inside, over the key chunks the causal
+    and window masks leave, carrying the running max, denominator and
+    accumulator in float32; the (Sq, Sk) score matrix is never formed.
+    Operands in their own type, products accumulated in float32, the
+    probabilities cast to the input type before P.V, as in ``sdpa``.
+    """
+    B, Sq, H, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = torch.tensor(D ** -0.5, dtype=q.dtype).item()
+    neg_inf = torch.tensor(NEG_INF, device=q.device)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qlen = min(q_chunk, Sq - q0)
+        qb = (q[:, q0:q0 + qlen] * scale).reshape(B, qlen, Hkv, G, D).float()
+        q_pos = torch.arange(q0, q0 + qlen, device=q.device)
+        hi = Sk if not causal else min(Sk, q0 + qlen)
+        lo = 0 if not window else max(0, q0 - window + 1)
+        lo = (lo // k_chunk) * k_chunk
+        m = torch.full((B, Hkv, G, qlen), NEG_INF, device=q.device)
+        l = torch.zeros(B, Hkv, G, qlen, device=q.device)
+        acc = torch.zeros(B, Hkv, G, qlen, Dv, device=q.device)
+        for k0 in range(lo, hi, k_chunk):
+            kb, vb = k[:, k0:k0 + k_chunk], v[:, k0:k0 + k_chunk]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb.float())
+            k_pos = torch.arange(k0, k0 + kb.shape[1], device=q.device)
+            mask = torch.ones(qlen, kb.shape[1], dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window:
+                mask &= k_pos[None, :] > q_pos[:, None] - window
+            s = torch.where(mask, s, neg_inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(q.dtype).float(), vb.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / l[..., None].clamp_min(1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, qlen, H, Dv).to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def attention_block(

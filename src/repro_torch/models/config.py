@@ -4,8 +4,9 @@ The port's own copy of ``repro.models.config`` (pure Python). It keeps the
 fields that describe an architecture, with the same names and defaults, so
 a configuration means the same in both packages. The TPU package's
 distribution and training knobs (``remat``, ``sequence_parallel``, the FSDP
-and expert-parallel modes, ``capacity_factor``, ``opt_state_dtype``,
-``attention_impl``) are left out: nothing in the port reads them.
+and expert-parallel modes, ``opt_state_dtype``, ``attention_impl``) are left
+out: nothing in the port reads them. ``capacity_factor`` stays: it sets how
+many tokens an expert takes, and so which tokens a MoE layer drops.
 ``repro_torch/configs/<arch>.py`` instantiate it with published
 hyper-parameters; reduced variants (``cfg.reduced()``) drive CPU tests.
 """
@@ -47,6 +48,7 @@ class ModelConfig:
     top_k: int = 0
     moe_d_ff: int = 0
     n_dense_layers: int = 0      # leading dense-FFN layers (DeepSeek style)
+    capacity_factor: float = 1.25
 
     # MLA (DeepSeek latent attention)
     use_mla: bool = False

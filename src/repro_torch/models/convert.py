@@ -15,6 +15,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mla import MLACache
 from repro_torch.models.model import segments_of
 from repro_torch.models.rglru import RGLRUState
 
@@ -39,7 +40,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device: str | torch.device = "
 
     In the JAX tree each segment's blocks are stacked over a leading
     ``reps`` axis (``vmap`` over layer keys); the port keeps one dict per
-    repeat: ``params["segments"][s][i][r]``.
+    repeat: ``params["segments"][s][i][r]``. Every other subtree (the
+    embedding, ``lm_head``, DeepSeek's ``mtp`` head, which is one block and
+    not stacked) is carried leaf for leaf.
     """
     dev = resolve_device(device)
     out = {k: _map(v, lambda a: _tensor(a, dev)) for k, v in tree.items() if k != "segments"}
@@ -57,10 +60,12 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device: str | torch.device = "
 def caches_from_jax(caches: list, cfg: ModelConfig, device: str | torch.device = "cuda") -> list:
     """Convert ``repro.models.model.init_caches``' caches (leaves as numpy
     arrays, stacked over each segment's repeats) to the port's nesting
-    [segment][pattern entry][repeat] of ``KVCache`` and ``RGLRUState``.
+    [segment][pattern entry][repeat] of ``KVCache``, ``MLACache`` and
+    ``RGLRUState``.
 
-    The JAX classes are read by their fields: ``k``/``v``/``pos`` (the
-    stacked int32 ``pos`` becomes a host int) or ``h``/``conv``.
+    The JAX classes are read by their fields: ``k``/``v``/``pos`` or
+    ``latent``/``k_rope``/``pos`` (the stacked int32 ``pos`` becomes a host
+    int), or ``h``/``conv``.
     """
     dev = resolve_device(device)
 
@@ -68,6 +73,10 @@ def caches_from_jax(caches: list, cfg: ModelConfig, device: str | torch.device =
         if hasattr(c, "conv"):
             return RGLRUState(h=_tensor(np.asarray(c.h)[r], dev),
                               conv=_tensor(np.asarray(c.conv)[r], dev))
+        if hasattr(c, "latent"):
+            return MLACache(latent=_tensor(np.asarray(c.latent)[r], dev),
+                            k_rope=_tensor(np.asarray(c.k_rope)[r], dev),
+                            pos=int(np.asarray(c.pos)[r]))
         return KVCache(k=_tensor(np.asarray(c.k)[r], dev), v=_tensor(np.asarray(c.v)[r], dev),
                        pos=int(np.asarray(c.pos)[r]))
 

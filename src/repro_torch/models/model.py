@@ -1,12 +1,14 @@
 """Config-driven composition of a decoder: init, prefill and decode.
 
 The port of ``repro.models.model`` for dense GQA architectures (every block
-``attn``: ``qwen1.5-0.5b``, ``internlm2-1.8b``, ``yi-9b``, ``starcoder2-7b``)
-and the Griffin hybrid (``rglru`` and ``local_attn`` blocks:
-``recurrentgemma-2b``); MoE, MLA, xLSTM, the encoder-decoder and M-RoPE
-come with later slices. The model is the same sequence of segments
-(``segments_of``); a Python loop over each segment's repeats replaces
-``lax.scan`` and ``jax.checkpoint``. Parameters are plain
+``attn``: ``qwen1.5-0.5b``, ``internlm2-1.8b``, ``yi-9b``, ``starcoder2-7b``),
+the Griffin hybrid (``rglru`` and ``local_attn`` blocks:
+``recurrentgemma-2b``) and the MoE family (routed and shared experts,
+``granite-moe-1b-a400m``; with MLA attention, dense-first layers and the
+MTP head's parameters, ``deepseek-v3-671b``); xLSTM, the encoder-decoder
+and M-RoPE come with later slices. The model is the same sequence of
+segments (``segments_of``); a Python loop over each segment's repeats
+replaces ``lax.scan`` and ``jax.checkpoint``. Parameters are plain
 dicts of tensors with the JAX tree's names; ``params["segments"][s][i]`` is
 the list, over the segment's repeats, of the dicts that the JAX package
 stacks along a leading axis. Caches nest the same way.
@@ -19,7 +21,9 @@ Public entry points, each on an explicit device that defaults to
 * ``prefill(params, cfg, batch, caches, device=...)``   — fill caches, last-token logits
 * ``decode_step(params, cfg, batch, caches, device=...)`` — one-token serve step
 
-``loss_fn`` comes with the training slice (ROADMAP A13).
+``loss_fn``, and with it the MoE aux loss and the MTP head's forward, come
+with the training slice (ROADMAP A13); serving drops the aux loss, as the
+reference's ``prefill`` and ``decode_step`` do.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -110,12 +116,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     """Raise for any part of a config the port's blocks cannot run yet."""
     missing = [
         what for what, present in (
-            ("MLA attention", cfg.use_mla),
-            ("MoE blocks", cfg.is_moe),
             ("the encoder-decoder stack (Whisper)", cfg.is_encoder_decoder),
             ("M-RoPE", bool(cfg.mrope_sections)),
             ("embedding inputs", cfg.embedding_inputs),
-            ("the MTP head", bool(cfg.mtp_depth)),
         ) if present
     ]
     kinds = sorted(set(cfg.resolved_block_pattern) - {"attn", "local_attn", "rglru"})
@@ -123,7 +126,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         missing.append(f"{'/'.join(kinds)} blocks (xLSTM)")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attn, local_attn and rglru blocks only; "
+            f"{cfg.name}: the port runs attn (GQA or MLA, dense or MoE), local_attn and "
+            f"rglru blocks only; "
             f"{', '.join(missing)} come with later slices (ROADMAP A12)")
 
 
@@ -137,6 +141,8 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dt: torc
     p: dict[str, Any] = {"norm1": zeros()}
     if sig.kind == "rglru":
         p["rec"] = rglru_lib.init_rglru_block(gen, cfg, dt)
+    elif cfg.use_mla:
+        p["attn"] = mla_lib.init_mla(gen, cfg, dt)
     else:
         p["attn"] = attn_lib.init_attention(
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
@@ -144,7 +150,9 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dt: torc
         )
     if cfg.d_ff or sig.kind != "rglru":
         p["norm2"] = zeros()
-    if cfg.d_ff:
+    if sig.moe:
+        p["moe"] = moe_lib.init_moe(gen, cfg, dt)
+    elif cfg.d_ff:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
     return p
 
@@ -168,6 +176,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
         [[_init_block(gen, cfg, sig, dt) for _ in range(reps)] for sig in pattern]
         for pattern, reps in segments_of(cfg)
     ]
+    if cfg.mtp_depth:
+        # DeepSeek MTP: projection of [h ; emb(next)] + one extra dense block.
+        # Carried for the training slice; serving does not run it.
+        params["mtp"] = {
+            "proj": init_dense(gen, 2 * cfg.d_model, cfg.d_model, dt),
+            "norm_h": torch.zeros(cfg.d_model, dtype=dt, device=dev),
+            "norm_e": torch.zeros(cfg.d_model, dtype=dt, device=dev),
+            "block": _init_block(gen, cfg, Signature(kind="attn", moe=False), dt),
+        }
     return params
 
 
@@ -175,6 +192,8 @@ def _init_cache_for(sig: Signature, cfg: ModelConfig, batch: int, s_cache: int,
                     dtype: torch.dtype, device):
     if sig.kind == "rglru":
         return rglru_lib.init_rglru_state(batch, cfg, dtype, device)
+    if cfg.use_mla:
+        return mla_lib.init_mla_cache(batch, s_cache, cfg, dtype, device)
     size = min(s_cache, cfg.local_window) if sig.kind == "local_attn" else s_cache
     return attn_lib.init_kv_cache(batch, size, cfg.n_kv_heads, cfg.resolved_head_dim,
                                   dtype, device)
@@ -184,7 +203,8 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, dtype: torch.dtype |
                 device: str | torch.device = "cuda") -> list:
     """Empty caches, nested [segment][pattern entry][repeat]: a ``KVCache``
     per attention block (a ring of ``min(s_cache, local_window)`` slots for
-    ``local_attn``), an ``RGLRUState`` per ``rglru`` block."""
+    ``local_attn``; an ``MLACache`` under MLA), an ``RGLRUState`` per ``rglru``
+    block."""
     _check_supported(cfg)
     dtype = dtype or _DTYPES[cfg.dtype]
     return [
@@ -204,6 +224,8 @@ def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cac
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
     if sig.kind == "rglru":
         y, new_cache = rglru_lib.rglru_block(p["rec"], h, cfg, state=cache)
+    elif cfg.use_mla:
+        y, new_cache = mla_lib.mla_block(p["attn"], h, cfg, positions=positions, cache=cache)
     else:
         y, new_cache = attn_lib.attention_block(
             p["attn"], h,
@@ -216,7 +238,9 @@ def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cac
             cache=cache,
         )
     x = x + y
-    if "mlp" in p:
+    if sig.moe:
+        x = x + moe_lib.moe_block(p["moe"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg)[0]
+    elif "mlp" in p:
         x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
     return x, new_cache
 
@@ -237,7 +261,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
         pos0 = _first_cache_pos(caches) if caches is not None else 0
     S = x.shape[1]
     positions = torch.arange(int(pos0), int(pos0) + S, device=x.device)
-    cos, sin = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)  # once for all layers
+    # Once for all layers; an MLA block rotates its rope slice itself.
+    cos, sin = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
     def rope_fn(t, _positions):
         return apply_rope(t, cos, sin)
@@ -257,11 +282,12 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
 
 
 def _first_cache_pos(caches) -> int:
-    """Tokens seen so far: the ``pos`` of the first ``KVCache`` (recurrent
-    states carry none); 0 for a model without attention caches."""
+    """Tokens seen so far: the ``pos`` of the first ``KVCache`` or
+    ``MLACache`` (recurrent states carry none); 0 for a model without
+    attention caches."""
     for seg in caches:
         for entry in seg:
-            if isinstance(entry[0], attn_lib.KVCache):
+            if isinstance(entry[0], (attn_lib.KVCache, mla_lib.MLACache)):
                 return entry[0].pos
     return 0
 

@@ -44,9 +44,9 @@ from repro_torch.models.rglru import RGLRUState
 from repro_torch.serve_lm import serve
 
 TOL = dict(atol=1e-5, rtol=1e-5)
-TPU_ONLY_FIELDS = {"capacity_factor", "moe_ep_mode", "opt_state_dtype", "remat",
-                   "sequence_parallel", "zero3_use_site_gather", "fsdp_over_pod",
-                   "attention_impl"}
+# The JAX config's distribution and training knobs, which the port leaves out.
+TPU_ONLY_FIELDS = {"moe_ep_mode", "opt_state_dtype", "remat", "sequence_parallel",
+                   "zero3_use_site_gather", "fsdp_over_pod", "attention_impl"}
 CTX = MeshCtx(mesh=None)
 B = 2
 

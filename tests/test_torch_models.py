@@ -33,7 +33,7 @@ from repro_torch.serve_lm import serve
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # The JAX config's distribution and training knobs, which the port leaves out.
-TPU_ONLY_FIELDS = {"capacity_factor", "moe_ep_mode", "opt_state_dtype", "remat",
+TPU_ONLY_FIELDS = {"moe_ep_mode", "opt_state_dtype", "remat",
                    "sequence_parallel", "zero3_use_site_gather", "fsdp_over_pod",
                    "attention_impl"}
 CTX = MeshCtx(mesh=None)
@@ -102,16 +102,26 @@ def test_config_is_the_jax_packages(cfg, jax_cfg):
         assert dataclasses.asdict(get_config(name)) == _shared_fields(jax_get_config(name))
 
 
+PORTED_SINCE_MOE = ("deepseek-v3-671b", "granite-moe-1b-a400m")
+
+
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "granite-moe-1b-a400m",
                                   "xlstm-125m", "whisper-tiny", "qwen2-vl-72b"])
 def test_unported_archs_raise_naming_the_roadmap(name):
+    """An arch the port cannot run yet raises naming ROADMAP. The test keeps
+    its name and its five cases although the MoE slice ported two of them:
+    for those the case now checks that the registry returns the JAX
+    package's config (tests/test_torch_moe_models.py runs them)."""
+    if name in PORTED_SINCE_MOE:
+        assert dataclasses.asdict(get_config(name)) == _shared_fields(jax_get_config(name))
+        return
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config(name)
 
 
 def test_unsupported_blocks_raise(cfg):
-    for change in (dict(use_mla=True), dict(n_experts=4, top_k=2),
-                   dict(block_pattern=("attn", "mlstm")), dict(mrope_sections=(2, 3, 3))):
+    for change in (dict(block_pattern=("attn", "mlstm")), dict(mrope_sections=(2, 3, 3)),
+                   dict(is_encoder_decoder=True, encoder_layers=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             M.init_params(dataclasses.replace(cfg, **change), device="cpu")
 
