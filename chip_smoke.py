@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: builds the kernels, drives the
 paper's main path, the LM serving paths, the streaming runtime, multi-tenant
-scheduling, the paper's reproduction and MoE serving on one NVIDIA GPU,
+scheduling, the paper's reproduction, MoE serving, xLSTM and the Whisper
+encoder-decoder on one NVIDIA GPU,
 holds every kernel against its plain PyTorch version, and prints the
 kernels' numbers.
 
@@ -137,7 +138,34 @@ Phases (each raises on failure; nothing is caught):
    steps from a 2 x 64 prefill, each within ``MLA_REL`` of a
    teacher-forced prefill over the tokens so far; (d) B3 and B4 timed at
    granite's serving shapes (B4 over 576 slots) beside their plain
-   versions and ``scaled_dot_product_attention``.
+   versions and ``scaled_dot_product_attention``;
+16. xLSTM and the Whisper encoder-decoder (``models.xlstm``, the encoder
+   and cross-attention of ``models.model``): (a) ``xlstm-125m`` at full
+   width and depth (12 blocks alternating mLSTM and sLSTM, d_model 768, 4
+   heads, the mLSTM cell at head dim 384, bf16, random weights from a
+   seed) serves 8 requests of 512 prompt tokens (two 256-token chunks, so
+   the state carries between them) and 64 generated tokens, with no B3 or
+   B4 launch and no plain attention version on the card; one prefill and 8
+   decode steps under the profiler, with the device time of the mLSTM
+   chunk loop, its one-token update and the sLSTM time loop (eager torch
+   ops: the reference's XLA loops, no kernel) and the busy share; (b) its
+   full depth in float32 (TF32 off) on the card against the CPU, 2 x 512
+   prompt tokens + 8 steps, the CPU fed the card's tokens: logits within
+   ``F32_REL`` of their max-abs, argmax equal; then bf16 against float32
+   on the CPU as in phase 8; (c) ``whisper-tiny`` at full width and depth
+   (4 encoder + 4 decoder layers, d_model 384, 6 heads of 64, vocab 51 865
+   padded to 52 224, bf16) serves 8 requests of 1 500 stub frames, a
+   4-token prompt and 64 generated tokens: 12 B3 launches a prefill (4
+   bidirectional over the frames in the encoder, 4 causal in the decoder,
+   4 over the frames in cross-attention), 8 B4 a step (4 over the decoder's
+   cache, 4 over the 1 500 frames), no plain attention version on the
+   card; a profiled prefill and 8 steps with the encoder's and the
+   cross-attention's device time; its full depth in float32 against the
+   CPU at 2 x 1 500 frames, 4 prompt tokens and 8 steps, and bf16 against
+   float32; (d) B3 at the encoder's shape (8 x 1 500, 6 heads of 64,
+   bidirectional) and the cross-attention prefill's (8 x 4 queries over
+   1 500 frames), and B4 over 1 500 cross slots, each beside its plain
+   version and ``scaled_dot_product_attention``.
 
 Every phase's wall is printed at the end. The reference's results for
 phases 3-5, 12 and 14 are constants below; ``tests/test_torch_multitenant_golden.py``
@@ -145,9 +173,11 @@ and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
 ``tests/test_torch_paper_*.py`` phase 14's.
 The last lines are the ``{"kernels": [...]}`` record (B1, B2 and
 cut_traffic count their launches in phases 3-4, 12 and 14, policy_scan
-in phases 10 and 14, B3 and B4 in phases 8 (qwen1.5-0.5b) and 15
-(granite-moe-1b-a400m), with recurrentgemma-2b's and granite's own
-numbers in nested keys), the card's ``nvidia-smi`` name and power limit,
+in phases 10 and 14, B3 and B4 in phases 8 (qwen1.5-0.5b), 15
+(granite-moe-1b-a400m) and 16 (whisper-tiny), with recurrentgemma-2b's,
+granite's and whisper-tiny's own numbers in nested keys; whisper-tiny's
+holds its launches and each timed shape), the card's ``nvidia-smi`` name
+and power limit,
 and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
@@ -840,36 +870,54 @@ def serve_run(torch, kernel_ops, M, serve, cfg, params, B, prompt_len, gen_len, 
     return launches
 
 
-def cpu_check(torch, M, cfg, params, Bc, Pc, steps) -> None:
-    """The same weights on the CPU in float32, teacher-forced with the card's
-    tokens: the card's bf16 logits within ``LOGIT_TOL`` at every step."""
+def lockstep(torch, M, card, cpu, Bc, Pc, steps, frames=None):
+    """The card's and the CPU's model, each a (cfg, params), on one random
+    prompt (and an encoder-decoder's encoder on the same CPU ``frames``,
+    each side's own output handed to every step), the CPU fed the card's
+    tokens: yields (step, card logits on the CPU in float32, CPU logits)
+    for the prefill and each of ``steps`` decode steps."""
+    (cfg, params), (cfg_c, params_c) = card, cpu
     prompt = torch.randint(0, cfg.vocab_size, (Bc, Pc),
                            generator=torch.Generator().manual_seed(2))
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params32 = _map_leaves(params, lambda t: t.float().cpu())
+    card_x, cpu_x = {}, {}
+    if frames is not None:
+        card_x = {"encoder_out": M.encode(params, cfg, frames.to("cuda", M._DTYPES[cfg.dtype]))}
+        cpu_x = {"encoder_out": M.encode(params_c, cfg_c, frames.to(M._DTYPES[cfg_c.dtype]))}
     card_c = M.init_caches(cfg, Bc, Pc + steps, device="cuda")
-    cpu_c = M.init_caches(cfg32, Bc, Pc + steps, device="cpu")
-    card_l, card_c = M.prefill(params, cfg, {"tokens": prompt}, card_c, device="cuda")
-    cpu_l, cpu_c = M.prefill(params32, cfg32, {"tokens": prompt}, cpu_c, device="cpu")
-    worst = (0.0, 0.0)
-    agree = 0
+    cpu_c = M.init_caches(cfg_c, Bc, Pc + steps, device="cpu")
+    card_l, card_c = M.prefill(params, cfg, {"tokens": prompt, **card_x}, card_c, device="cuda")
+    cpu_l, cpu_c = M.prefill(params_c, cfg_c, {"tokens": prompt, **cpu_x}, cpu_c, device="cpu")
     for step in range(steps + 1):
         got = card_l.float().cpu()
         check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (Bc, cfg.vocab_size),
               f"card logits at step {step}: non-finite or misshapen")
-        rel_l2 = float((got - cpu_l).norm() / cpu_l.norm())
-        rel_max = float((got - cpu_l).abs().max() / cpu_l.abs().max())
+        yield step, got, cpu_l
+        if step < steps:
+            tok = got.argmax(-1)[:, None]
+            card_l, card_c = M.decode_step(params, cfg, {"tokens": tok, **card_x}, card_c,
+                                           device="cuda")
+            cpu_l, cpu_c = M.decode_step(params_c, cfg_c, {"tokens": tok, **cpu_x}, cpu_c,
+                                         device="cpu")
+
+
+def _float32(cfg):
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+
+
+def cpu_check(torch, M, cfg, params, Bc, Pc, steps, frames=None) -> None:
+    """The same weights on the CPU in float32, teacher-forced with the card's
+    tokens: the card's bf16 logits within ``LOGIT_TOL`` at every step."""
+    cpu = (_float32(cfg), _map_leaves(params, lambda t: t.float().cpu()))
+    worst = (0.0, 0.0)
+    agree = 0
+    for step, got, want in lockstep(torch, M, (cfg, params), cpu, Bc, Pc, steps, frames):
+        rel_l2 = float((got - want).norm() / want.norm())
+        rel_max = float((got - want).abs().max() / want.abs().max())
         check(rel_l2 <= LOGIT_TOL and rel_max <= LOGIT_TOL,
               f"step {step}: card vs CPU logits differ by {rel_l2:.4f} (l2) / {rel_max:.4f} "
               f"(max) over {LOGIT_TOL}")
         worst = (max(worst[0], rel_l2), max(worst[1], rel_max))
-        tok = got.argmax(-1)
-        agree += int((tok == cpu_l.argmax(-1)).sum())
-        if step < steps:
-            card_l, card_c = M.decode_step(params, cfg, {"tokens": tok[:, None]}, card_c,
-                                           device="cuda")
-            cpu_l, cpu_c = M.decode_step(params32, cfg32, {"tokens": tok[:, None]}, cpu_c,
-                                         device="cpu")
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
     print(f"  card (bf16) vs CPU (float32), {Bc} x {Pc} prompt + {steps} steps, teacher-forced: "
           f"worst relative error {worst[0]:.4f} (l2) / {worst[1]:.4f} (max) <= {LOGIT_TOL}; "
           f"argmax agrees {agree}/{Bc * (steps + 1)}")
@@ -932,26 +980,29 @@ def sdpa_call(torch, F, q, k, v, causal, window):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
-def time_flash(torch, F, flash_ops, flash_ref, B, S, H, Hkv, D, window):
-    """B3 at (B, S, H, Hkv, D), bf16, causal: (max abs err, ms, plain ms,
+def time_flash(torch, F, flash_ops, flash_ref, B, S, H, Hkv, D, window, Sk=None, causal=True):
+    """B3 at (B, S, H, Hkv, D), bf16, causal (or, with ``causal=False``,
+    every query over ``Sk`` keys, S by default): (max abs err, ms, plain ms,
     bound, library ms) and a printed line."""
     from repro_torch.launch.timing import time_cuda
+    Sk = Sk or S
     gen = torch.Generator(device="cuda").manual_seed(9)
     bf16 = dict(device="cuda", dtype=torch.bfloat16)
     q, k, v = (torch.randn(shape, generator=gen, **bf16)
-               for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
-    kw = dict(causal=True, window=window)
-    err = attention_error(torch, f"B3 at B={B} S={S} H={H}",
+               for shape in ((B, S, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    kw = dict(causal=causal, window=window)
+    err = attention_error(torch, f"B3 at B={B} S={S} Sk={Sk} H={H}",
                           flash_ops.flash_attention(q, k, v, **kw), flash_ref(q, k, v, **kw))
     ms = time_cuda(lambda: flash_ops.flash_attention(q, k, v, **kw))
     plain_ms = time_cuda(lambda: flash_ref(q, k, v, **kw), reps=5)
-    lib_ms = time_cuda(sdpa_call(torch, F, q, k, v, True, window))
+    lib_ms = time_cuda(sdpa_call(torch, F, q, k, v, causal, window))
     # (query, key) pairs that the causal and window masks leave.
-    pairs = B * H * sum(min(i + 1, window or S) for i in range(S))
+    pairs = B * H * (sum(min(i + 1, window or S) for i in range(S)) if causal else S * Sk)
     flops = 4 * D * pairs
-    n_bytes = 2 * B * S * (2 * H + 2 * Hkv) * D  # bf16 q, k, v read and o written once
+    n_bytes = 2 * B * (2 * S * H + 2 * Sk * Hkv) * D  # bf16 q, k, v read and o written once
     bound = _bound(flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-    print(f"  B3 flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} window={window} bf16 causal: "
+    mask = "causal" if causal else f"bidirectional over Sk={Sk}"
+    print(f"  B3 flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} window={window} bf16 {mask}: "
           f"{ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.2f} GFLOP, "
           f"{n_bytes / 1e6:.2f} MB; {100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {lib_ms:.4f} ms")
@@ -1766,7 +1817,7 @@ def moe_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref, de
     """Phase 15: the MoE family. Returns {kernel: (granite's launches,
     timing at granite's shapes)}."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.profile_serve import moe_stages, profile_phase
+    from repro_torch.launch.profile_serve import profile_phase, stages
     from repro_torch.models import moe
 
     t_phase = time.perf_counter()
@@ -1810,15 +1861,15 @@ def moe_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref, de
                                                  state["caches"], device="cuda")
             state["tok"] = out.argmax(-1)[:, None]
 
-    with moe_stages():
+    with stages():
         prof = profile_phase(decode)
     busy_ms = prof["device_busy_s"] * 1e3
     print(f"  decode profile, {steps} steps at {B} requests: wall {prof['wall_s'] * 1e3 / steps:.3f} "
           f"ms/step, device busy {busy_ms / steps:.3f} ms/step ({100 * prof['busy_share']:.1f}%), "
           f"{prof['launches'] / steps:.0f} device activities a step")
     print("  MoE stages, device ms a step (share of device busy): " + ", ".join(
-        f"{k} {v / steps:.4f} ({100 * v / busy_ms:.1f}%)"
-        for k, v in sorted(prof["moe_stages_ms"].items())))
+        f"{k.removeprefix('moe.')} {v / steps:.4f} ({100 * v / busy_ms:.1f}%)"
+        for k, v in sorted(prof["stages_ms"].items())))
     for row in prof["top"]:
         print(f"    {row['device_ms'] / steps:9.4f} ms/step x{row['calls'] // steps:<5} "
               f"{row['name']}")
@@ -1929,6 +1980,157 @@ def moe_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref, de
     torch.cuda.empty_cache()
     wall["phase_15_s"] = time.perf_counter() - t_phase
     print(f"  phase 15 {wall['phase_15_s']:.3f} s")
+    return timings
+
+
+# Phase 16's checks: the float32 card and CPU logits of the full-depth
+# xLSTM and Whisper within F32_REL of their max-abs (float32 on both sides,
+# TF32 off, only the order of sums differs: 1e-3, as phase 15's MOE_REL).
+F32_REL = 1e-3
+
+
+def float32_check(torch, M, cfg, params, Bc, Pc, steps, what, frames=None) -> float:
+    """The same weights in float32 on the card (TF32 off) and on the CPU,
+    the CPU fed the card's tokens: logits within ``F32_REL`` of their
+    max-abs and argmax equal at every step. Returns the worst share."""
+    cfg32 = _float32(cfg)
+    card = (cfg32, _map_leaves(params, lambda t: t.float()))
+    cpu = (cfg32, _map_leaves(params, lambda t: t.float().cpu()))
+    worst = 0.0
+    for step, got, want in lockstep(torch, M, card, cpu, Bc, Pc, steps, frames):
+        rel = float((got - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        check(rel <= F32_REL, f"{what} float32, step {step}: card vs CPU logits differ by "
+                              f"{rel:.3e} of their max-abs, over {F32_REL}")
+        check(torch.equal(got.argmax(-1), want.argmax(-1)),
+              f"{what} float32, step {step}: argmax differs")
+    print(f"  {what} in float32 (TF32 off), {Bc} x {Pc} prompt + {steps} steps, card vs CPU fed "
+          f"the card's tokens: logits within {worst:.3e} of their max-abs (<= {F32_REL}), "
+          f"argmax equal at every step")
+    return worst
+
+
+def profiled_serve(torch, M, cfg, params, B, P, steps, names, frames=None):
+    """One prefill (an encoder-decoder's encoder included) and ``steps``
+    decode steps at full width under the profiler, each labelled stage
+    (``profile_serve.STAGES``) in its own range; prints the walls, device
+    busy, the device ms of ``names`` and the top kernels of each."""
+    from repro_torch.launch.profile_serve import profile_phase, stages
+
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    state = {"extra": {}}
+
+    def prefill():
+        if frames is not None:
+            state["extra"] = {"encoder_out": M.encode(params, cfg, frames)}
+        caches = M.init_caches(cfg, B, P + steps, device="cuda")
+        logits, state["caches"] = M.prefill(params, cfg, {"tokens": prompt, **state["extra"]},
+                                            caches, device="cuda")
+        state["tok"] = logits.argmax(-1)[:, None]
+
+    def decode():
+        for _ in range(steps):
+            out, state["caches"] = M.decode_step(
+                params, cfg, {"tokens": state["tok"], **state["extra"]}, state["caches"],
+                device="cuda")
+            state["tok"] = out.argmax(-1)[:, None]
+
+    with stages():
+        profs = (("prefill", profile_phase(prefill), 1),
+                 (f"decode, {steps} steps", profile_phase(decode), steps))
+    for what, prof, per in profs:
+        unit = "" if per == 1 else " a step"
+        busy_ms = prof["device_busy_s"] * 1e3
+        print(f"  {what} profiled at {B} requests: wall {prof['wall_s'] * 1e3 / per:.3f} ms{unit}, "
+              f"device busy {busy_ms / per:.3f} ms{unit} ({100 * prof['busy_share']:.1f}%), "
+              f"{prof['launches'] / per:.0f} device activities{unit}")
+        seen = [n for n in names if n in prof["stages_ms"]]
+        print(f"    stages, device ms{unit} (share of device busy): " + ", ".join(
+            f"{n} {prof['stages_ms'][n] / per:.4f} ({100 * prof['stages_ms'][n] / busy_ms:.1f}%)"
+            for n in seen))
+        for row in prof["top"][:5]:
+            print(f"    {row['device_ms'] / per:9.4f} ms{unit} x{row['calls'] // per:<6} "
+                  f"{row['name']}")
+
+
+def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref,
+                        decode_ref, wall, smi):
+    """Phase 16: xLSTM and the Whisper encoder-decoder. Returns {kernel:
+    (whisper's launches, {shape: timing at whisper's shapes})}."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    lm_ops = (flash_ops, decode_ops, scan_ops)
+    print(f"[16] xlstm-125m and whisper-tiny at full width and depth; {smi}")
+
+    # (a) xlstm-125m at full width and depth, bf16 -----------------------------
+    cfg = get_config("xlstm-125m")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    B, P, G = 8, 512, 64
+    with PlainOnCard(flash_ops, decode_ops) as plain:
+        serve_run(torch, lm_ops, M, serve, cfg, params, B, P, G,
+                  dict(flash_attention=0, decode_attention=0, rglru_scan=0), wall)
+    check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
+    H, Dm = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
+    print(f"  blocks {'/'.join(sorted(set(cfg.resolved_block_pattern)))} alternating; mLSTM "
+          f"cell {H} heads of {Dm}, its state {B * H * Dm * Dm * 4 / 1e6:.1f} MB (float32) a "
+          f"block; prefill in {P // 256} chunks of 256; no attention kernel launched")
+    # Where the card's time goes: one prefill and 8 decode steps, profiled.
+    t0 = time.perf_counter()
+    profiled_serve(torch, M, cfg, params, B, P, 8,
+                   ("xlstm.mlstm_chunks", "xlstm.mlstm_decode", "xlstm.slstm_loop"))
+    wall["xlstm_profile_s"] = time.perf_counter() - t0
+
+    # (b) xlstm's full depth, float32 and bf16, card against CPU --------------
+    t0 = time.perf_counter()
+    float32_check(torch, M, cfg, params, 2, P, 8, "xlstm-125m, 12 blocks")
+    cpu_check(torch, M, cfg, params, 2, P, 8)
+    wall["xlstm_cpu_check_s"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) whisper-tiny at full width and depth, bf16 ---------------------------
+    cfg = get_config("whisper-tiny")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    L, Pw, S_enc = cfg.n_layers, 4, cfg.encoder_seq
+    # Per prefill: the encoder's bidirectional self-attention (encoder_layers),
+    # the decoder's self-attention and its cross-attention over the frames
+    # (L each), all B3; per step the decoder's two, B4.
+    with PlainOnCard(flash_ops, decode_ops) as plain:
+        launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, Pw, G,
+                             dict(flash_attention=cfg.encoder_layers + 2 * L,
+                                  decode_attention=2 * L * (G - 1), rglru_scan=0), wall)
+    check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
+    print(f"  {cfg.encoder_layers} encoder layers over {S_enc} stub frames (d_model "
+          f"{cfg.d_model}) + {L} decoder layers, vocab {cfg.vocab_size} padded to "
+          f"{cfg.padded_vocab}: {cfg.encoder_layers + 2 * L} B3 launches a prefill, {2 * L} B4 "
+          f"a step; no plain attention version ran on the card")
+    profiled_serve(torch, M, cfg, params, B, Pw, 8, ("whisper.encoder", "whisper.cross_attention"),
+                   frames=torch.randn(B, S_enc, cfg.d_model, device="cuda", dtype=torch.bfloat16,
+                                      generator=torch.Generator(device="cuda").manual_seed(5)))
+    frames = torch.randn(2, S_enc, cfg.d_model, generator=torch.Generator().manual_seed(4))
+    t0 = time.perf_counter()
+    float32_check(torch, M, cfg, params, 2, Pw, 8, f"whisper-tiny, {S_enc} frames", frames)
+    cpu_check(torch, M, cfg, params, 2, Pw, 8, frames)
+    wall["whisper_cpu_check_s"] = time.perf_counter() - t0
+
+    # (d) B3 and B4 at whisper's shapes -----------------------------------------
+    Hw, D = cfg.n_heads, cfg.resolved_head_dim
+    timings = {
+        "flash_attention": (launches["flash_attention"], {
+            "encoder": time_flash(torch, F, flash_ops, flash_ref, B, S_enc, Hw, Hw, D, 0,
+                                  causal=False),
+            "cross": time_flash(torch, F, flash_ops, flash_ref, B, Pw, Hw, Hw, D, 0, Sk=S_enc,
+                                causal=False)}),
+        "decode_attention": (launches["decode_attention"], {
+            "cross": time_decode(torch, F, decode_ops, decode_ref, B, Hw, Hw, S_enc, S_enc, D)}),
+    }
+    del params
+    torch.cuda.empty_cache()
+    wall["phase_16_s"] = time.perf_counter() - t_phase
+    print(f"  phase 16 {wall['phase_16_s']:.3f} s")
     return timings
 
 
@@ -2395,6 +2597,23 @@ def main() -> int:
                   f"{launches} in phase 15 (granite-moe-1b-a400m)")
             rec["launches"] += launches
             rec["max_abs_err"] = max(rec["max_abs_err"], timing[0])
+
+    # [16] xLSTM and the Whisper encoder-decoder ------------------------------
+    whisper_timings = xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops,
+                                          flash_attention_ref, decode_attention_ref, wall, smi)
+    for rec in records:
+        if rec["name"] in whisper_timings:
+            launches, shapes = whisper_timings[rec["name"]]
+            nested = {"launches": launches}
+            for shape, timing in shapes.items():
+                one = _record(rec["name"], rec["source"], rec["replaces"], launches, timing[0],
+                              timing)
+                nested[shape] = {k: one[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")}
+                rec["max_abs_err"] = max(rec["max_abs_err"], timing[0])
+            rec["whisper-tiny"] = nested
+            print(f"  {rec['name']}: {launches} launches in phase 16 (whisper-tiny)")
+            rec["launches"] += launches
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

@@ -40,9 +40,6 @@ _ALIASES = {
 
 # Architectures whose blocks the port does not run yet, and what brings them.
 _NOT_PORTED = {
-    "xlstm_125m": "mLSTM and sLSTM blocks: ROADMAP A12",
-    "whisper_tiny": "the encoder-decoder stack and cross-attention: ROADMAP A12, "
-                    "the Whisper slice",
     "qwen2_vl_72b": "M-RoPE and embedding inputs: ROADMAP A12",
 }
 

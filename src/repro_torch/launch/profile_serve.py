@@ -6,16 +6,19 @@
 
 (``--arch recurrentgemma-2b --prompt-len 2304`` profiles the hybrid,
 ``--arch granite-moe-1b-a400m`` the MoE model, ``--arch deepseek-v3-671b
---layers 4`` DeepSeek's first 4 layers, all that one card holds.)
+--layers 4`` DeepSeek's first 4 layers, all that one card holds,
+``--arch xlstm-125m`` xLSTM, ``--arch whisper-tiny --prompt-len 4`` the
+encoder-decoder over stub frames, its encoder inside the prefill.)
 Serves the published width and depth (the first ``--layers`` layers if
 given) with random weights (seed 0). For each phase it prints the host
 wall time (ended by a synchronise), the device busy time (the union of the
 kernels' and copies' intervals in the trace), the busy share, the device
 time and wrapper calls of each of the port's own kernels (B3 flash
 attention; B4 decode attention, its split and combine kernels summed; B5
-RG-LRU scan), for a MoE model the device time of each stage of its MoE
-layers (``MOE_STAGES``), and the kernels that took the most device time,
-then one JSON line with the same numbers.
+RG-LRU scan), the device time of each labelled stage (``STAGES``: a MoE
+layer's stages, xLSTM's recurrences, Whisper's encoder and
+cross-attention), and the kernels that took the most device time, then
+one JSON line with the same numbers.
 Needs a card; there is no CPU mode.
 """
 
@@ -32,10 +35,14 @@ from collections import defaultdict
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rglru_scan import ops as scan_ops
+from repro_torch.models import moe, xlstm
 from repro_torch.models import model as M
-from repro_torch.models import moe
 
-__all__ = ["MOE_STAGES", "PORT_KERNELS", "moe_stages", "profile_phase", "main"]
+__all__ = ["MOE_STAGES", "PORT_KERNELS", "STAGES", "stages", "port_call_ms", "profile_phase",
+           "main"]
 
 # The port's hand-written kernels: the substring of every trace kernel name
 # whose device time is theirs, and that of the one kernel they launch once a
@@ -43,6 +50,9 @@ __all__ = ["MOE_STAGES", "PORT_KERNELS", "moe_stages", "profile_phase", "main"]
 PORT_KERNELS = {"flash_attention": "flash_attention",
                 "decode_attention": "decode_attention_combine",
                 "rglru_scan": "rglru_scan"}
+# Their wrappers, by the same names.
+_PORT_OPS = {"flash_attention": flash_ops, "decode_attention": decode_ops,
+             "rglru_scan": scan_ops}
 
 
 # The stages of a MoE layer, by the function of ``models.moe`` that runs
@@ -51,37 +61,91 @@ PORT_KERNELS = {"flash_attention": "flash_attention",
 MOE_STAGES = {"_route": "route", "_slot_tables": "dispatch", "_dispatch": "dispatch",
               "_expert_ffn": "experts", "_combine": "combine", "mlp": "shared"}
 
+# Every labelled stage: (module, range prefix, {function: stage}). xLSTM's
+# recurrences (the mLSTM chunk loop, its one-token update, the sLSTM time
+# loop; torch ops, no kernel of the port) and Whisper's encoder (its B3
+# launches included) and cross-attention sub-layer (the norm, the k/v
+# projections of the frames, B3 or B4) beside the MoE stages.
+STAGES = (
+    (moe, "moe", MOE_STAGES),
+    (xlstm, "xlstm", {"_mlstm_chunk_parallel": "mlstm_chunks", "_mlstm_decode": "mlstm_decode",
+                      "_slstm_scan": "slstm_loop"}),
+    (M, "whisper", {"encode": "encoder", "_cross_sublayer": "cross_attention"}),
+)
+
+# While ``stages`` is open: the ranges open now (innermost last), and for
+# each launch of a port kernel, its name and the innermost range open then.
+_OPEN: list[str] = []
+_LAUNCHED: list[tuple[str, str | None]] = []
+
 
 @contextlib.contextmanager
-def moe_stages():
-    """While open, each MoE stage runs inside a profiler range named
-    ``moe.<stage>``, which ``profile_phase`` reads; serving outside it
-    carries no range."""
-    real = {name: getattr(moe, name) for name in MOE_STAGES}
+def stages():
+    """While open, each stage of ``STAGES`` runs inside a profiler range
+    named ``<prefix>.<stage>``, which ``profile_phase`` reads; serving
+    outside it carries no range. The port kernels' wrappers note the range
+    each launch falls in (the profiler does not link the kernels that the
+    port's own C entries launch to the ranges around them)."""
+    real = [(mod, name, getattr(mod, name)) for mod, _, names in STAGES for name in names]
+    real += [(ops, key, getattr(ops, key)) for key, ops in _PORT_OPS.items()]
 
-    def labelled(name):
+    def labelled(label, fn):
         def run(*args, **kwargs):
-            with torch.profiler.record_function(f"moe.{MOE_STAGES[name]}"):
-                return real[name](*args, **kwargs)
+            _OPEN.append(label)
+            try:
+                with torch.profiler.record_function(label):
+                    return fn(*args, **kwargs)
+            finally:
+                _OPEN.pop()
         return run
 
-    for name in MOE_STAGES:
-        setattr(moe, name, labelled(name))
+    def noted(key, ops, fn):
+        def run(*args, **kwargs):
+            before = ops.LAUNCHES[key]
+            out = fn(*args, **kwargs)
+            if ops.LAUNCHES[key] != before:
+                _LAUNCHED.append((key, _OPEN[-1] if _OPEN else None))
+            return out
+        return run
+
+    for mod, prefix, names in STAGES:
+        for name, stage in names.items():
+            setattr(mod, name, labelled(f"{prefix}.{stage}", getattr(mod, name)))
+    for key, ops in _PORT_OPS.items():
+        setattr(ops, key, noted(key, ops, getattr(ops, key)))
     try:
         yield
     finally:
-        for name, fn in real.items():
-            setattr(moe, name, fn)
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+        _LAUNCHED.clear()
+
+
+def port_call_ms(spans, key: str, once: str) -> list[float]:
+    """Device ms of each call of a port kernel, in launch order: the trace's
+    device activities whose names hold ``key``, by start time (one stream
+    runs them in launch order), a call ending at the one kernel it launches
+    once (``once``)."""
+    calls, acc = [], 0.0
+    for start, stop, name in spans:
+        if key in name:
+            acc += stop - start
+            if once in name:
+                calls.append(acc * 1e-3)
+                acc = 0.0
+    return calls
 
 
 def profile_phase(fn, top: int = 8, kernels: dict[str, str] = PORT_KERNELS) -> dict:
     """Run ``fn`` once under the profiler; wall and device-busy seconds, the
     device time and calls of each of ``kernels`` (named as in
-    ``PORT_KERNELS``), and the device time under each ``moe.<stage>`` range
-    (``moe_stages``; empty without one)."""
+    ``PORT_KERNELS``), and the device time under each ``<prefix>.<stage>``
+    range of ``STAGES`` (``stages``; empty without one): its torch ops'
+    and the port kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    _LAUNCHED.clear()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -106,12 +170,24 @@ def profile_phase(fn, top: int = 8, kernels: dict[str, str] = PORT_KERNELS) -> d
     port = {k: dict(device_ms=sum(t for n, (t, _) in by_name.items() if k in n) * 1e-3,
                     calls=sum(c for n, (_, c) in by_name.items() if once in n))
             for k, once in kernels.items()}
-    stages: dict[str, float] = defaultdict(float)
+    prefixes = tuple(f"{prefix}." for _, prefix, _ in STAGES)
+    stage_ms: dict[str, float] = defaultdict(float)
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith("moe."):
-            stages[e.name[4:]] += e.device_time_total * 1e-3
+        if e.device_type == DeviceType.CPU and e.name.startswith(prefixes):
+            stage_ms[e.name] += e.device_time_total * 1e-3
+    for key, once in kernels.items():
+        in_stage = [stage for k, stage in _LAUNCHED if k == key]
+        if not any(in_stage):
+            continue
+        per_call = port_call_ms(spans, key, once)
+        if len(per_call) != len(in_stage):
+            raise RuntimeError(f"{key}: {len(in_stage)} launches noted, {len(per_call)} in the "
+                               f"trace")
+        for stage, ms in zip(in_stage, per_call):
+            if stage is not None:
+                stage_ms[stage] += ms
     return dict(wall_s=wall, device_busy_s=busy_us * 1e-6, busy_share=busy_us * 1e-6 / wall,
-                launches=len(spans), port_kernels=port, moe_stages_ms=dict(stages),
+                launches=len(spans), port_kernels=port, stages_ms=dict(stage_ms),
                 top=[dict(name=n[:80], device_ms=t * 1e-3, calls=c) for n, (t, c) in ranked])
 
 
@@ -131,19 +207,24 @@ def main(argv: list[str] | None = None) -> None:
                                   block_pattern=cfg.block_pattern[:args.layers])
     B, P, steps = args.batch, args.prompt_len, args.steps
     params = M.init_params(cfg, seed=0, device="cuda")
-    prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(1))
-    state = {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda", generator=gen)
+    frames = (torch.randn(B, cfg.encoder_seq, cfg.d_model, device="cuda", generator=gen,
+                          dtype=M._DTYPES[cfg.dtype]) if cfg.is_encoder_decoder else None)
+    state = {"extra": {}}
 
     def prefill():
         caches = M.init_caches(cfg, B, P + steps + 1, device="cuda")
-        logits, state["caches"] = M.prefill(params, cfg, {"tokens": prompt}, caches)
+        if frames is not None:  # the encoder runs once a request batch, in the prefill
+            state["extra"] = {"encoder_out": M.encode(params, cfg, frames)}
+        logits, state["caches"] = M.prefill(params, cfg, {"tokens": prompt, **state["extra"]},
+                                            caches)
         state["tok"] = logits.argmax(-1)[:, None]
 
     def decode():
         for _ in range(steps):
-            logits, state["caches"] = M.decode_step(params, cfg, {"tokens": state["tok"]},
-                                                    state["caches"])
+            logits, state["caches"] = M.decode_step(
+                params, cfg, {"tokens": state["tok"], **state["extra"]}, state["caches"])
             state["tok"] = logits.argmax(-1)[:, None]
 
     prefill()  # first-call set-up (kernel build and load, allocator, cuBLAS handles)
@@ -153,17 +234,17 @@ def main(argv: list[str] | None = None) -> None:
     out = {"gpu": smi, "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "prompt_len": P,
            "steps": steps}
     for name, fn in (("prefill", prefill), ("decode", decode)):
-        with moe_stages():
+        with stages():
             out[name] = res = profile_phase(fn)
         print(f"[{name}] wall {res['wall_s']:.4f} s, device busy {res['device_busy_s']:.4f} s "
               f"({100 * res['busy_share']:.1f}%), {res['launches']} device activities")
         print("  port kernels: " + ", ".join(f"{k} {v['device_ms']:.3f} ms x{v['calls']}"
                                              for k, v in res["port_kernels"].items()))
-        if res["moe_stages_ms"]:
+        if res["stages_ms"]:
             busy_ms = res["device_busy_s"] * 1e3
-            print("  MoE stages: " + ", ".join(
+            print("  stages: " + ", ".join(
                 f"{k} {v:.3f} ms ({100 * v / busy_ms:.1f}% of device busy)"
-                for k, v in res["moe_stages_ms"].items()))
+                for k, v in res["stages_ms"].items()))
         for row in res["top"]:
             print(f"  {row['device_ms']:10.3f} ms  x{row['calls']:<6} {row['name']}")
     print(smi)

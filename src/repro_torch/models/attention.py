@@ -29,8 +29,14 @@ reference's blocked online-softmax attention in eager torch; MLA's
 expanded long-prompt branch (``models.mla``) runs it. Unlike the JAX package,
 which returns new arrays, the port writes the cache tensors in place (no
 second copy of every layer's cache per step) and returns a ``KVCache``
-with the advanced ``pos``. Cross-attention comes with the Whisper slice
-(ROADMAP A12).
+with the advanced ``pos``.
+
+Cross-attention (Whisper's decoder, ``cross_kv`` = the encoder's keys and
+values) takes no rope, writes no cache and returns the cache as given:
+Sq > 1 queries go through ``ops.flash_attention(causal=False)`` over every
+encoder frame, one query through ``ops.decode_attention`` with every row's
+length the frame count. Encoder self-attention is ``cache=None,
+causal=False``: ``flash_attention`` over the fresh keys and values.
 """
 
 from __future__ import annotations
@@ -206,11 +212,14 @@ def attention_block(
     """Full attention sub-layer: qkv proj -> rope -> (cache write) -> attention -> out.
 
     Returns (output, updated cache); the cache's tensors are written in place.
+    With ``cross_kv`` = (k, v), each (B, Sk, n_kv_heads, head_dim), rope and
+    the cache are ignored and the cache comes back as given.
     """
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention comes with the Whisper slice (ROADMAP A12)")
     B, Sq, _ = x.shape
     q = dense(p["wq"], x).reshape(B, Sq, n_heads, head_dim)
+    if cross_kv is not None:
+        out = _cross_attention(q, *cross_kv)
+        return dense(p["wo"], out.reshape(B, Sq, n_heads * head_dim)), cache
     k = dense(p["wk"], x).reshape(B, Sq, n_kv_heads, head_dim)
     v = dense(p["wv"], x).reshape(B, Sq, n_kv_heads, head_dim)
 
@@ -242,6 +251,16 @@ def attention_block(
                                             causal=causal)
         out = out.to(q.dtype)
     return dense(p["wo"], out.reshape(B, Sq, n_heads * head_dim)), cache
+
+
+def _cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Every query over every encoder frame: B3 without a mask for a prompt,
+    B4 over all Sk slots for one token."""
+    B, Sq = q.shape[:2]
+    if Sq > 1:
+        return flash_ops.flash_attention(q, k, v, causal=False)
+    lengths = torch.full((B,), k.shape[1], dtype=torch.int32, device=q.device)
+    return decode_ops.decode_attention(q[:, 0], k, v, lengths)[:, None]
 
 
 def _ring_attention(q, k, v, cache: KVCache, window: int, causal: bool):

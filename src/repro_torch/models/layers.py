@@ -8,8 +8,10 @@ rotation compute in float32 and cast back). Init functions draw from an
 explicit ``torch.Generator`` and create the tensors on its device; they do
 not give ``jax.random``'s numbers, so tests hand both packages the same
 parameters through ``repro_torch.models.convert``. ``MeshCtx`` and the
-sharding helpers are TPU tooling (ROADMAP A15); ``layer_norm``,
-``apply_mrope`` and the GELU MLP come with their families.
+sharding helpers are TPU tooling (ROADMAP A15); ``apply_mrope`` comes with
+qwen2-vl (ROADMAP A12). ``layer_norm`` and the GELU MLP are public layers of
+the reference that no model of either package calls (Whisper's blocks use
+``rms_norm`` and the SwiGLU ``mlp``, as the reference's do).
 """
 
 from __future__ import annotations
@@ -19,12 +21,15 @@ import torch.nn.functional as F
 
 __all__ = [
     "rms_norm",
+    "layer_norm",
     "rope",
     "apply_rope",
     "init_dense",
     "dense",
     "init_mlp",
     "mlp",
+    "init_gelu_mlp",
+    "gelu_mlp",
     "init_embedding",
     "embed_tokens",
 ]
@@ -36,6 +41,17 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in float32, cast back. No model of either package calls it."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 def rope(positions: torch.Tensor, dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -95,6 +111,21 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(p["w_down"], F.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x))
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) -> dict:
+    """Plain GELU MLP with biases (Whisper/StarCoder2-style). No model of
+    either package calls it."""
+    return {
+        "w_fc": init_dense(gen, d_model, d_ff, dtype, bias=True),
+        "w_out": init_dense(gen, d_ff, d_model, dtype, bias=True, scale=d_ff ** -0.5),
+    }
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU (``jax.nn.gelu``'s default). No model of either package
+    calls it."""
+    return dense(p["w_out"], F.gelu(dense(p["w_fc"], x), approximate="tanh"))
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype: torch.dtype) -> dict:

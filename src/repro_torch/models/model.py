@@ -3,15 +3,19 @@
 The port of ``repro.models.model`` for dense GQA architectures (every block
 ``attn``: ``qwen1.5-0.5b``, ``internlm2-1.8b``, ``yi-9b``, ``starcoder2-7b``),
 the Griffin hybrid (``rglru`` and ``local_attn`` blocks:
-``recurrentgemma-2b``) and the MoE family (routed and shared experts,
+``recurrentgemma-2b``), the MoE family (routed and shared experts,
 ``granite-moe-1b-a400m``; with MLA attention, dense-first layers and the
-MTP head's parameters, ``deepseek-v3-671b``); xLSTM, the encoder-decoder
-and M-RoPE come with later slices. The model is the same sequence of
-segments (``segments_of``); a Python loop over each segment's repeats
-replaces ``lax.scan`` and ``jax.checkpoint``. Parameters are plain
+MTP head's parameters, ``deepseek-v3-671b``), xLSTM (``mlstm`` and
+``slstm`` blocks: ``xlstm-125m``) and the Whisper encoder-decoder
+(``whisper-tiny``: a bidirectional encoder over stub frame embeddings,
+sinusoidal positions and no rotary, decoder blocks with cross-attention);
+M-RoPE and embedding inputs come with a later slice. The model is the same
+sequence of segments (``segments_of``); a Python loop over each segment's
+repeats replaces ``lax.scan`` and ``jax.checkpoint``. Parameters are plain
 dicts of tensors with the JAX tree's names; ``params["segments"][s][i]`` is
 the list, over the segment's repeats, of the dicts that the JAX package
-stacks along a leading axis. Caches nest the same way.
+stacks along a leading axis (``params["encoder"]["segments"]`` likewise).
+Caches nest the same way.
 
 Public entry points, each on an explicit device that defaults to
 ``"cuda"`` and raises without a card:
@@ -20,6 +24,11 @@ Public entry points, each on an explicit device that defaults to
 * ``init_caches(cfg, batch, s_cache, dtype=None, device=...)``
 * ``prefill(params, cfg, batch, caches, device=...)``   — fill caches, last-token logits
 * ``decode_step(params, cfg, batch, caches, device=...)`` — one-token serve step
+
+An encoder-decoder's ``batch`` carries ``encoder_out`` (the output of
+``encode(params, cfg, embeds)``, which serving computes once a request
+batch and hands to every step, the reference's decode contract) or
+``encoder_embeds`` (the forward then runs the encoder itself).
 
 ``loss_fn``, and with it the MoE aux loss and the MTP head's forward, come
 with the training slice (ROADMAP A13); serving drops the aux loss, as the
@@ -38,9 +47,11 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
+    dense,
     embed_tokens,
     init_dense,
     init_embedding,
@@ -53,9 +64,11 @@ from repro_torch.models.layers import (
 __all__ = [
     "Signature",
     "segments_of",
+    "encoder_segments",
     "init_params",
     "init_caches",
     "forward",
+    "encode",
     "prefill",
     "decode_step",
 ]
@@ -112,23 +125,25 @@ def segments_of(cfg: ModelConfig) -> list[tuple[tuple[Signature, ...], int]]:
     return segs
 
 
+def encoder_segments(cfg: ModelConfig) -> list[tuple[tuple[Signature, ...], int]]:
+    """An encoder-decoder's encoder: ``encoder_layers`` attn blocks without
+    cross-attention, in one segment."""
+    return [((Signature(kind="attn", moe=False, cross=False),), cfg.encoder_layers)]
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise for any part of a config the port's blocks cannot run yet."""
     missing = [
         what for what, present in (
-            ("the encoder-decoder stack (Whisper)", cfg.is_encoder_decoder),
             ("M-RoPE", bool(cfg.mrope_sections)),
             ("embedding inputs", cfg.embedding_inputs),
         ) if present
     ]
-    kinds = sorted(set(cfg.resolved_block_pattern) - {"attn", "local_attn", "rglru"})
-    if kinds:
-        missing.append(f"{'/'.join(kinds)} blocks (xLSTM)")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attn (GQA or MLA, dense or MoE), local_attn and "
-            f"rglru blocks only; "
-            f"{', '.join(missing)} come with later slices (ROADMAP A12)")
+            f"{cfg.name}: the port runs attn (GQA or MLA, dense or MoE, with cross-attention "
+            f"in an encoder-decoder), local_attn, rglru, mlstm and slstm blocks; "
+            f"{', '.join(missing)} come with a later slice (ROADMAP A12)")
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +154,10 @@ def _check_supported(cfg: ModelConfig) -> None:
 def _init_block(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dt: torch.dtype) -> dict:
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dt, device=gen.device)  # noqa: E731
     p: dict[str, Any] = {"norm1": zeros()}
+    if sig.kind in ("mlstm", "slstm"):  # the cell alone: no FFN sub-layer
+        init = xlstm_lib.init_mlstm_block if sig.kind == "mlstm" else xlstm_lib.init_slstm_block
+        p["cell"] = init(gen, cfg, dt)
+        return p
     if sig.kind == "rglru":
         p["rec"] = rglru_lib.init_rglru_block(gen, cfg, dt)
     elif cfg.use_mla:
@@ -148,6 +167,10 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dt: torc
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
             qkv_bias=cfg.qkv_bias,
         )
+    if sig.cross:
+        p["cross_norm"] = zeros()
+        p["cross"] = attn_lib.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_heads,
+                                             cfg.resolved_head_dim, dt)
     if cfg.d_ff or sig.kind != "rglru":
         p["norm2"] = zeros()
     if sig.moe:
@@ -155,6 +178,11 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, sig: Signature, dt: torc
     elif cfg.d_ff:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
     return p
+
+
+def _init_segments(gen: torch.Generator, cfg: ModelConfig, segs, dt: torch.dtype) -> list:
+    return [[[_init_block(gen, cfg, sig, dt) for _ in range(reps)] for sig in pattern]
+            for pattern, reps in segs]
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda") -> dict:
@@ -172,10 +200,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
     if not cfg.tie_embeddings:
         params["lm_head"] = init_dense(gen, cfg.d_model, cfg.padded_vocab, dt,
                                        scale=cfg.d_model ** -0.5)
-    params["segments"] = [
-        [[_init_block(gen, cfg, sig, dt) for _ in range(reps)] for sig in pattern]
-        for pattern, reps in segments_of(cfg)
-    ]
+    params["segments"] = _init_segments(gen, cfg, segments_of(cfg), dt)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "segments": _init_segments(gen, cfg, encoder_segments(cfg), dt),
+            "final_norm": torch.zeros(cfg.d_model, dtype=dt, device=dev),
+        }
     if cfg.mtp_depth:
         # DeepSeek MTP: projection of [h ; emb(next)] + one extra dense block.
         # Carried for the training slice; serving does not run it.
@@ -192,6 +222,10 @@ def _init_cache_for(sig: Signature, cfg: ModelConfig, batch: int, s_cache: int,
                     dtype: torch.dtype, device):
     if sig.kind == "rglru":
         return rglru_lib.init_rglru_state(batch, cfg, dtype, device)
+    if sig.kind == "mlstm":
+        return xlstm_lib.init_mlstm_state(batch, cfg, dtype, device)
+    if sig.kind == "slstm":
+        return xlstm_lib.init_slstm_state(batch, cfg, dtype, device)
     if cfg.use_mla:
         return mla_lib.init_mla_cache(batch, s_cache, cfg, dtype, device)
     size = min(s_cache, cfg.local_window) if sig.kind == "local_attn" else s_cache
@@ -204,7 +238,8 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, dtype: torch.dtype |
     """Empty caches, nested [segment][pattern entry][repeat]: a ``KVCache``
     per attention block (a ring of ``min(s_cache, local_window)`` slots for
     ``local_attn``; an ``MLACache`` under MLA), an ``RGLRUState`` per ``rglru``
-    block."""
+    block, an ``MLSTMState`` or ``SLSTMState`` (float32) per xLSTM block. An
+    encoder-decoder's encoder keeps no cache."""
     _check_supported(cfg)
     dtype = dtype or _DTYPES[cfg.dtype]
     return [
@@ -219,9 +254,26 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, dtype: torch.dtype |
 # ---------------------------------------------------------------------------
 
 
+def _cross_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                    encoder_out: torch.Tensor) -> torch.Tensor:
+    """Cross-attention over the encoder's output, its keys and values
+    projected at every step, as the reference does."""
+    h = rms_norm(p["cross_norm"], x, cfg.norm_eps)
+    B, Sk = encoder_out.shape[:2]
+    k = dense(p["cross"]["wk"], encoder_out).reshape(B, Sk, cfg.n_heads, cfg.resolved_head_dim)
+    v = dense(p["cross"]["wv"], encoder_out).reshape(B, Sk, cfg.n_heads, cfg.resolved_head_dim)
+    y, _ = attn_lib.attention_block(p["cross"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_heads,
+                                    head_dim=cfg.resolved_head_dim, cross_kv=(k, v))
+    return x + y
+
+
 def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cache, *,
-                 rope_fn, positions):
+                 rope_fn, positions, encoder_out=None, causal: bool = True):
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
+    if sig.kind in ("mlstm", "slstm"):
+        block = xlstm_lib.mlstm_block if sig.kind == "mlstm" else xlstm_lib.slstm_block
+        y, new_cache = block(p["cell"], h, cfg, state=cache)
+        return x + y, new_cache
     if sig.kind == "rglru":
         y, new_cache = rglru_lib.rglru_block(p["rec"], h, cfg, state=cache)
     elif cfg.use_mla:
@@ -232,12 +284,15 @@ def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cac
             n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim,
+            causal=causal,
             window=cfg.local_window if sig.kind == "local_attn" else 0,
             rope_fn=rope_fn,
             positions=positions,
             cache=cache,
         )
     x = x + y
+    if sig.cross:
+        x = _cross_sublayer(p, x, cfg, encoder_out)
     if sig.moe:
         x = x + moe_lib.moe_block(p["moe"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg)[0]
     elif "mlp" in p:
@@ -245,11 +300,49 @@ def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cac
     return x, new_cache
 
 
+def _run_segments(seg_params: list, segs, x: torch.Tensor, cfg: ModelConfig, caches, **kw):
+    """Every block of ``segs`` in order. Returns (x, new caches or None)."""
+    new_caches = [] if caches is not None else None
+    for si, (pattern, reps) in enumerate(segs):
+        seg_out = [[None] * reps for _ in pattern]
+        for r in range(reps):
+            for pi, sig in enumerate(pattern):
+                cache = caches[si][pi][r] if caches is not None else None
+                x, seg_out[pi][r] = _apply_block(seg_params[si][pi][r], sig, x, cfg, cache, **kw)
+        if new_caches is not None:
+            new_caches.append(seg_out)
+    return x, new_caches
+
+
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(S, d) float32 absolute position embeddings: sines then cosines. The
+    frequency step is the reference's float32 log(10000) / (d/2 - 1)."""
+    half = d // 2
+    step = torch.log(torch.tensor(10000.0, device=positions.device)) / (half - 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device) * step)
+    ang = positions.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(params: dict, cfg: ModelConfig, embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder of an encoder-decoder: frame embeddings (B, encoder_seq,
+    d_model) plus sinusoidal positions, ``encoder_layers`` bidirectional
+    attn blocks without rotary or cache, then the encoder's final norm."""
+    S = embeds.shape[1]
+    x = embeds + _sinusoidal(torch.arange(S, device=embeds.device), cfg.d_model).to(
+        embeds.dtype)[None]
+    x, _ = _run_segments(params["encoder"]["segments"], encoder_segments(cfg), x, cfg, None,
+                         rope_fn=None, positions=None, causal=False)
+    return rms_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[torch.Tensor, Any]:
     """Trunk forward. Returns (hidden (B, S, d), new caches).
 
     ``batch["tokens"]`` is (B, S) on the parameters' device; positions start
-    at ``batch["pos0"]``, else at the caches' ``pos``, else at 0.
+    at ``batch["pos0"]``, else at the caches' ``pos``, else at 0. An
+    encoder-decoder also takes ``batch["encoder_out"]`` or, without it,
+    ``batch["encoder_embeds"]``.
     """
     _check_supported(cfg)
     x = embed_tokens(params["embed"], batch["tokens"])
@@ -261,24 +354,23 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
         pos0 = _first_cache_pos(caches) if caches is not None else 0
     S = x.shape[1]
     positions = torch.arange(int(pos0), int(pos0) + S, device=x.device)
-    # Once for all layers; an MLA block rotates its rope slice itself.
-    cos, sin = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
-    def rope_fn(t, _positions):
-        return apply_rope(t, cos, sin)
+    encoder_out, rope_fn = None, None
+    if cfg.is_encoder_decoder:
+        encoder_out = batch.get("encoder_out")
+        if encoder_out is None:
+            encoder_out = encode(params, cfg, batch["encoder_embeds"])
+        # Absolute sinusoidal positions, no rotary.
+        x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)[None]
+    else:
+        # Once for all layers; an MLA block rotates its rope slice itself.
+        cos, sin = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
-    new_caches = [] if caches is not None else None
-    for si, (pattern, reps) in enumerate(segments_of(cfg)):
-        seg_params = params["segments"][si]
-        seg_out = [[None] * reps for _ in pattern]
-        for r in range(reps):
-            for pi, sig in enumerate(pattern):
-                cache = caches[si][pi][r] if caches is not None else None
-                x, seg_out[pi][r] = _apply_block(seg_params[pi][r], sig, x, cfg, cache,
-                                                 rope_fn=rope_fn, positions=positions)
-        if new_caches is not None:
-            new_caches.append(seg_out)
-    return x, new_caches
+        def rope_fn(t, _positions):
+            return apply_rope(t, cos, sin)
+
+    return _run_segments(params["segments"], segments_of(cfg), x, cfg, caches,
+                         rope_fn=rope_fn, positions=positions, encoder_out=encoder_out)
 
 
 def _first_cache_pos(caches) -> int:
@@ -307,11 +399,16 @@ def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def _on_device(params: dict, batch: dict, device) -> dict:
     """The batch with its tokens on ``device``, after checking the request
-    and that the parameters lie there."""
+    and that the parameters (and an encoder-decoder's encoder inputs) lie
+    there."""
     dev = resolve_device(device)
-    if params["embed"]["table"].device.type != dev.type:
-        raise ValueError(f"parameters lie on {params['embed']['table'].device}, not {dev}")
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"]["table"].device)
+    table = params["embed"]["table"]
+    if table.device.type != dev.type:
+        raise ValueError(f"parameters lie on {table.device}, not {dev}")
+    for key in ("encoder_out", "encoder_embeds"):
+        if key in batch and batch[key].device != table.device:
+            raise ValueError(f"batch[{key!r}] lies on {batch[key].device}, not {table.device}")
+    tokens = torch.as_tensor(batch["tokens"], device=table.device)
     return {**batch, "tokens": tokens}
 
 
@@ -331,6 +428,6 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, caches,
                 device: str | torch.device = "cuda"):
     """One-token decode. batch["tokens"]: (B, 1). Returns (logits (B, vocab_size), caches).
 
-    The same computation as ``prefill`` over one token: the attention block
-    takes its decode branch from the token count."""
+    The same computation as ``prefill`` over one token: the attention and
+    mLSTM blocks take their decode branch from the token count."""
     return prefill(params, cfg, batch, caches, device=device)

@@ -7,7 +7,10 @@ The port of the serving part of ``examples/serve_lm.py``:
 It serves the reduced variant of the architecture (``cfg.reduced()``), as
 the JAX example does; ``serve`` takes any config, and ``chip_smoke.py`` and
 ``repro_torch.launch.profile_serve`` drive it at the published width and
-depth. Weights and prompts are random, from fixed seeds. The example's first part, which plans the deployment across a fleet with
+depth. Weights and prompts are random, from fixed seeds; an
+encoder-decoder (whisper-tiny) takes stub frame embeddings, random too, in
+place of the conv/mel front end, which the JAX package stubs as well. The
+example's first part, which plans the deployment across a fleet with
 the paper's scheduler and replans after an elastic failure, needs
 ``repro.sched`` and waits for its port (ROADMAP A14).
 """
@@ -32,7 +35,7 @@ __all__ = ["ServeResult", "serve", "main"]
 @dataclasses.dataclass
 class ServeResult:
     tokens: torch.Tensor   # (B, gen_len) generated ids, on the serving device
-    prefill_s: float       # host seconds of the prefill, ended by a synchronise
+    prefill_s: float       # host seconds of the prefill (and the encoder), ended by a synchronise
     decode_s: float        # host seconds of the gen_len - 1 decode steps
 
 
@@ -52,25 +55,34 @@ def serve(
 ) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen_len`` tokens greedily (prefill gives the first). Without
-    ``params``, the weights are drawn with seed 0."""
+    ``params``, the weights are drawn with seed 0.
+
+    An encoder-decoder also draws (B, encoder_seq, d_model) stub frame
+    embeddings in the activation type; the encoder runs once, inside the
+    prefill's time, and every step takes its output."""
     dev = resolve_device(device)
     if params is None:
         params = M.init_params(cfg, seed=0, device=dev)
     caches = M.init_caches(cfg, batch, prompt_len + gen_len, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev)
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.randn(batch, cfg.encoder_seq, cfg.d_model, generator=gen, device=dev,
+                             dtype=M._DTYPES[cfg.dtype])
     prefill = make_prefill_step(cfg, device=dev)
     decode = make_serve_step(cfg, kind="decode", device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": prompt}, caches)
+    extra = {"encoder_out": M.encode(params, cfg, frames)} if frames is not None else {}
+    logits, caches = prefill(params, {"tokens": prompt, **extra}, caches)
     tok = logits.argmax(-1)[:, None]
     _sync(dev)
     t1 = time.perf_counter()
     generated = [tok]
     for _ in range(gen_len - 1):
-        logits, caches = decode(params, {"tokens": tok}, caches)
+        logits, caches = decode(params, {"tokens": tok, **extra}, caches)
         tok = logits.argmax(-1)[:, None]
         generated.append(tok)
     tokens = torch.cat(generated, dim=1)

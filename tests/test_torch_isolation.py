@@ -51,6 +51,8 @@ def test_importing_the_port_loads_no_jax():
         " repro_torch.kernels.rglru_scan.ops, repro_torch.models.rglru,"
         " repro_torch.models.moe, repro_torch.models.mla, repro_torch.models.attention,"
         " repro_torch.configs.granite_moe_1b_a400m, repro_torch.configs.deepseek_v3_671b,"
+        " repro_torch.models.xlstm, repro_torch.configs.xlstm_125m,"
+        " repro_torch.configs.whisper_tiny,"
         " repro_torch.models.model, repro_torch.models.convert, repro_torch.configs,"
         " repro_torch.launch.steps, repro_torch.launch.profile_serve, repro_torch.serve_lm,"
         " repro_torch.runtime_stream, repro_torch.runtime_stream.convert,"
@@ -108,22 +110,28 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
         lambda: serve(lm, batch=1, prompt_len=2, gen_len=2),
     ]
     # The MoE family's (granite's routed experts; DeepSeek's MLA, its
-    # shared expert and MTP parameters) on the same entry points.
-    from repro_torch.models import mla
+    # shared expert and MTP parameters), xLSTM's and Whisper's (its encoder
+    # and cross-attention) on the same entry points.
+    from repro_torch.models import mla, xlstm
 
-    for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b"):
+    for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b", "xlstm-125m", "whisper-tiny"):
         moe_lm = get_config(arch).reduced()
         moe_params = M.init_params(moe_lm, device="cpu")
         moe_caches = M.init_caches(moe_lm, 1, 4, device="cpu")
+        batch = dict(tokens)
+        if moe_lm.is_encoder_decoder:
+            batch["encoder_embeds"] = torch.zeros(1, moe_lm.encoder_seq, moe_lm.d_model)
         calls += [
             lambda c=moe_lm: M.init_params(c),
             lambda c=moe_lm: M.init_caches(c, 1, 4),
-            lambda c=moe_lm, p=moe_params, k=moe_caches: M.prefill(p, c, tokens, k),
-            lambda c=moe_lm, p=moe_params, k=moe_caches: M.decode_step(p, c, tokens, k),
+            lambda c=moe_lm, p=moe_params, k=moe_caches, b=batch: M.prefill(p, c, b, k),
+            lambda c=moe_lm, p=moe_params, k=moe_caches, b=batch: M.decode_step(p, c, b, k),
             lambda c=moe_lm: serve(c, batch=1, prompt_len=2, gen_len=2),
         ]
     calls.append(lambda: mla.init_mla_cache(1, 4, get_config("deepseek-v3-671b"),
                                             torch.bfloat16))
+    calls += [lambda: xlstm.init_mlstm_state(1, get_config("xlstm-125m")),
+              lambda: xlstm.init_slstm_state(1, get_config("xlstm-125m"))]
     # So do the streaming runtime's batch evaluator and its controllers.
     from repro_torch.runtime_stream import (
         OnlineController,

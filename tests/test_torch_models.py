@@ -103,16 +103,18 @@ def test_config_is_the_jax_packages(cfg, jax_cfg):
 
 
 PORTED_SINCE_MOE = ("deepseek-v3-671b", "granite-moe-1b-a400m")
+PORTED_SINCE_XLSTM_WHISPER = ("xlstm-125m", "whisper-tiny")
 
 
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "granite-moe-1b-a400m",
                                   "xlstm-125m", "whisper-tiny", "qwen2-vl-72b"])
 def test_unported_archs_raise_naming_the_roadmap(name):
     """An arch the port cannot run yet raises naming ROADMAP. The test keeps
-    its name and its five cases although the MoE slice ported two of them:
+    its name and its five cases although later slices ported four of them:
     for those the case now checks that the registry returns the JAX
-    package's config (tests/test_torch_moe_models.py runs them)."""
-    if name in PORTED_SINCE_MOE:
+    package's config (tests/test_torch_moe_models.py and
+    tests/test_torch_xlstm_whisper_models.py run them)."""
+    if name in PORTED_SINCE_MOE + PORTED_SINCE_XLSTM_WHISPER:
         assert dataclasses.asdict(get_config(name)) == _shared_fields(jax_get_config(name))
         return
     with pytest.raises(KeyError, match="ROADMAP"):
@@ -120,10 +122,10 @@ def test_unported_archs_raise_naming_the_roadmap(name):
 
 
 def test_unsupported_blocks_raise(cfg):
-    for change in (dict(block_pattern=("attn", "mlstm")), dict(mrope_sections=(2, 3, 3)),
-                   dict(is_encoder_decoder=True, encoder_layers=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            M.init_params(dataclasses.replace(cfg, **change), device="cpu")
+    """M-RoPE is still to come (the xLSTM blocks and the encoder-decoder run
+    since their slice)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        M.init_params(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)), device="cpu")
 
 
 def test_params_from_jax_keeps_every_leaf(np_params, params, cfg):
@@ -229,8 +231,10 @@ def test_attention_block_refuses_what_later_slices_bring(params, cfg):
     # Local attention takes a ring of at most `window` slots (tests/test_torch_hybrid_model.py).
     with pytest.raises(ValueError, match="at most window=2"):
         attention.attention_block(p, x, window=2, cache=cache, **kw)
-    with pytest.raises(NotImplementedError, match="Whisper"):
-        attention.attention_block(p, x, cross_kv=(x, x), **kw)
+    # Cross-attention writes no cache: it comes back as given.
+    kv = torch.ones(1, 5, cfg.n_kv_heads, cfg.resolved_head_dim)
+    _, same = attention.attention_block(p, x, cross_kv=(kv, kv), cache=cache, **kw)
+    assert same is cache and cache.pos == 0 and not bool(cache.k.any())
     _, cache = attention.attention_block(p, x, cache=cache, **kw)
     with pytest.raises(ValueError, match="cache full"):
         attention.attention_block(p, x, cache=cache, **kw)
