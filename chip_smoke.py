@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch + CUDA port: builds the kernels, drives the
 paper's main path, the LM serving paths, the streaming runtime, multi-tenant
-scheduling, the paper's reproduction, MoE serving, xLSTM and the Whisper
-encoder-decoder on one NVIDIA GPU,
+scheduling, the paper's reproduction, MoE serving, xLSTM, the Whisper
+encoder-decoder, qwen2-vl's backbone and the LM-serving planner on one
+NVIDIA GPU,
 holds every kernel against its plain PyTorch version, and prints the
 kernels' numbers.
 
@@ -165,19 +166,52 @@ Phases (each raises on failure; nothing is caught):
    float32; (d) B3 at the encoder's shape (8 x 1 500, 6 heads of 64,
    bidirectional) and the cross-attention prefill's (8 x 4 queries over
    1 500 frames), and B4 over 1 500 cross slots, each beside its plain
-   version and ``scaled_dot_product_attention``.
+   version and ``scaled_dot_product_attention``;
+17. qwen2-vl-72b's backbone (M-RoPE, embedding inputs; the vision front
+   end a stub in both packages): (a) at full width (d_model 8192, 64 query
+   heads on 8 KV heads of 128, d_ff 29 568, bf16, random weights from a
+   seed), its depth cut from 80 to 32 layers (30.58 G parameters, what one
+   80 GB card holds with a margin), serves 8 requests of 512 prompt
+   positions and 64 generated tokens through ``serve``: each prompt one
+   image in Qwen2-VL's layout (16 text positions, a 20 x 20 grid of merged
+   patches, 96 text positions; ``image_positions``), its text rows the
+   embedded tokens and its image rows stub embeddings, decode steps from
+   the generated tokens at their M-RoPE positions; 32 B3 launches a
+   prefill and 32 B4 a step, no plain attention version on the card; the
+   decode's and the prefill's floors (weights over the memory rate, FLOPs
+   over the bf16 rate) and the peak memory; (b) one prefill and 8 decode
+   steps under the profiler: busy share, device activities and where busy
+   goes, the decode's device busy beside its weights' floor; (c) its first
+   2 layers in float32 (TF32 off) on the card against the CPU, 2 x (64 + 8)
+   with the image scaled to a 4 x 4 grid, the CPU fed the card's tokens:
+   logits within ``F32_REL`` of their max-abs, argmax equal; (d) the same
+   2 layers in bf16 against float32 on the CPU as in phase 8; (e) B3 at
+   the prefill's shape (8 x 512, 64 heads on 8 of 128, causal) and B4 at
+   the last step's (575 of 576 slots), each beside its plain version and
+   ``scaled_dot_product_attention``;
+18. the LM-serving planner (``repro_torch.sched``): (a)
+   ``paper.planner.main`` on the card (H100 x 8 groups of 8, A100 x 4 of
+   8, L4 x 12 of 4; no plan comes under ``refine``'s 64-task gate), then
+   on the CPU in the same process: derived columns equal to each other and
+   to the reference's (``PLANNER_REF``); (b) ``ElasticController`` over the
+   serve example's fleet (H100 x 6 groups of 8, L4 x 8 of 4) for all ten
+   archs, each with ``fail(0, 2)`` and ``restore(0, 2)``, on the card and
+   on the CPU: replicas, assignments, rates and iterations equal; B1
+   launches exactly for the archs of ``PLANNER_REFINED``, and no plain
+   scorer runs on the card.
 
 Every phase's wall is printed at the end. The reference's results for
-phases 3-5, 12 and 14 are constants below; ``tests/test_torch_multitenant_golden.py``
+phases 3-5, 12, 14 and 18 are constants below; ``tests/test_torch_multitenant_golden.py``
 and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
-``tests/test_torch_paper_*.py`` phase 14's.
-The last lines are the ``{"kernels": [...]}`` record (B1, B2 and
-cut_traffic count their launches in phases 3-4, 12 and 14, policy_scan
-in phases 10 and 14, B3 and B4 in phases 8 (qwen1.5-0.5b), 15
-(granite-moe-1b-a400m) and 16 (whisper-tiny), with recurrentgemma-2b's,
-granite's and whisper-tiny's own numbers in nested keys; whisper-tiny's
-holds its launches and each timed shape), the card's ``nvidia-smi`` name
-and power limit,
+``tests/test_torch_paper_*.py`` phase 14's and phase 18's.
+The last lines are the ``{"kernels": [...]}`` record (B1 counts its
+launches in phases 3-4, 12, 14 and 18, B2 and cut_traffic in phases 3-4,
+12 and 14, policy_scan in phases 10 and 14, B3 and B4 in phases 8
+(qwen1.5-0.5b), 15 (granite-moe-1b-a400m), 16 (whisper-tiny) and 17
+(qwen2-vl-72b), with recurrentgemma-2b's, granite's, whisper-tiny's and
+qwen2-vl-72b's own numbers in nested keys; whisper-tiny's holds its
+launches and each timed shape, qwen2-vl-72b's its timed shape), the
+card's ``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
@@ -394,6 +428,28 @@ PAPER_REF = {
         "dispatch_crossover_stress_skew": "tasks=405;machines=180",
     },
 }
+
+# Phase 18: the reference's planner rows (``benchmarks/bench_planner.py`` on
+# ``repro.sched``, over the port's GPU fleet built from its chip constants),
+# derived columns; ``tests/test_torch_paper_planner.py`` recomputes them.
+PLANNER_REF = {
+    'planner_recurrentgemma_2b': 'admission=46,383tok/s;rr_baseline=5,433;gain=754%;iters=62',
+    'planner_deepseek_v3_671b': 'admission=3,789tok/s;rr_baseline=231;gain=1539%;iters=49',
+    'planner_granite_moe_1b_a400m': 'admission=307,605tok/s;rr_baseline=33,306;gain=824%;iters=76',
+    'planner_xlstm_125m': 'admission=1,012,887tok/s;rr_baseline=61,623;gain=1544%;iters=76',
+    'planner_whisper_tiny': 'admission=2,887,862tok/s;rr_baseline=281,108;gain=927%;iters=116',
+    'planner_internlm2_1_8b': 'admission=77,798tok/s;rr_baseline=7,029;gain=1007%;iters=70',
+    'planner_yi_9b': 'admission=15,730tok/s;rr_baseline=1,365;gain=1053%;iters=50',
+    'planner_starcoder2_7b': 'admission=13,592tok/s;rr_baseline=832;gain=1533%;iters=59',
+    'planner_qwen1_5_0_5b': 'admission=281,808tok/s;rr_baseline=28,099;gain=903%;iters=68',
+    'planner_qwen2_vl_72b': 'admission=1,894tok/s;rr_baseline=142;gain=1238%;iters=45',
+}
+# The archs whose first plan on the serve example's fleet (H100 x 6 groups
+# of 8, L4 x 8 groups of 4) comes under refine's gate (at most 64 tasks),
+# and so launches B1 on the card; tests/test_torch_sched.py checks the same
+# set. Once two H100 groups fail, every arch's plan comes under it.
+PLANNER_REFINED = ("recurrentgemma_2b", "granite_moe_1b_a400m", "xlstm_125m", "whisper_tiny",
+                   "starcoder2_7b", "qwen2_vl_72b")
 
 
 def check(cond, message: str) -> None:
@@ -839,18 +895,22 @@ def kernel_phase(torch, flash_ops, decode_ops, scan_ops, flash_ref, decode_ref, 
     return max_err
 
 
-def serve_run(torch, kernel_ops, M, serve, cfg, params, B, prompt_len, gen_len, expected, wall):
+def serve_run(torch, kernel_ops, M, serve, cfg, params, B, prompt_len, gen_len, expected, wall,
+              serve_kw=None):
     """Serve at full width on the card with every launch count set to 0
     just before; check the launches of the run against ``expected`` and
     return them. A set-up run at the same batch and prompt length first
     (allocator growth, cuBLAS's first calls at these shapes), so the times
-    are those of a warm server."""
+    are those of a warm server. ``serve_kw`` goes to ``serve`` (qwen2-vl's
+    prompt embeddings and M-RoPE positions)."""
     n_params = sum(t.numel() for t in _leaves(params))
-    serve(cfg, batch=B, prompt_len=prompt_len, gen_len=2, params=params, device="cuda")
+    kw = serve_kw or {}
+    setup = {k: v[:, :, :1] if k == "decode_positions" else v for k, v in kw.items()}
+    serve(cfg, batch=B, prompt_len=prompt_len, gen_len=2, params=params, device="cuda", **setup)
     for ops in kernel_ops:
         ops.reset_launches()
     res = serve(cfg, batch=B, prompt_len=prompt_len, gen_len=gen_len, params=params,
-                device="cuda")
+                device="cuda", **kw)
     launches = {k: v for ops in kernel_ops for k, v in ops.LAUNCHES.items()}
     check(launches == expected, f"{cfg.name}: launches {launches}, not {expected}")
     toks = res.tokens
@@ -870,23 +930,37 @@ def serve_run(torch, kernel_ops, M, serve, cfg, params, B, prompt_len, gen_len, 
     return launches
 
 
-def lockstep(torch, M, card, cpu, Bc, Pc, steps, frames=None):
+def lockstep(torch, M, card, cpu, Bc, Pc, steps, frames=None, image=None):
     """The card's and the CPU's model, each a (cfg, params), on one random
     prompt (and an encoder-decoder's encoder on the same CPU ``frames``,
     each side's own output handed to every step), the CPU fed the card's
     tokens: yields (step, card logits on the CPU in float32, CPU logits)
-    for the prefill and each of ``steps`` decode steps."""
+    for the prefill and each of ``steps`` decode steps. With ``image`` =
+    (text before, (rows, cols), text after), qwen2-vl's prompt: each side
+    embeds the prompt's ids with its own table (``image_embeds``) around
+    the same stub image rows, and every call takes its M-RoPE positions."""
     (cfg, params), (cfg_c, params_c) = card, cpu
-    prompt = torch.randint(0, cfg.vocab_size, (Bc, Pc),
-                           generator=torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (Bc, Pc), generator=gen)
     card_x, cpu_x = {}, {}
     if frames is not None:
         card_x = {"encoder_out": M.encode(params, cfg, frames.to("cuda", M._DTYPES[cfg.dtype]))}
         cpu_x = {"encoder_out": M.encode(params_c, cfg_c, frames.to(M._DTYPES[cfg_c.dtype]))}
+    card_b, cpu_b = {"tokens": prompt, **card_x}, {"tokens": prompt, **cpu_x}
+    step_pos = None
+    if image is not None:
+        pre, grid, post = image
+        check(pre + grid[0] * grid[1] + post == Pc, f"image layout {image} is not {Pc} positions")
+        pos, step_pos = image_positions(torch, Bc, pre, grid, post, steps)
+        stub = image_stub(torch, cfg, Bc, grid[0] * grid[1], gen)
+        card_b = {"embeds": image_embeds(torch, M, cfg, params, prompt, stub, pre),
+                  "mrope_positions": pos}
+        cpu_b = {"embeds": image_embeds(torch, M, cfg_c, params_c, prompt, stub, pre),
+                 "mrope_positions": pos}
     card_c = M.init_caches(cfg, Bc, Pc + steps, device="cuda")
     cpu_c = M.init_caches(cfg_c, Bc, Pc + steps, device="cpu")
-    card_l, card_c = M.prefill(params, cfg, {"tokens": prompt, **card_x}, card_c, device="cuda")
-    cpu_l, cpu_c = M.prefill(params_c, cfg_c, {"tokens": prompt, **cpu_x}, cpu_c, device="cpu")
+    card_l, card_c = M.prefill(params, cfg, card_b, card_c, device="cuda")
+    cpu_l, cpu_c = M.prefill(params_c, cfg_c, cpu_b, cpu_c, device="cpu")
     for step in range(steps + 1):
         got = card_l.float().cpu()
         check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (Bc, cfg.vocab_size),
@@ -894,23 +968,24 @@ def lockstep(torch, M, card, cpu, Bc, Pc, steps, frames=None):
         yield step, got, cpu_l
         if step < steps:
             tok = got.argmax(-1)[:, None]
-            card_l, card_c = M.decode_step(params, cfg, {"tokens": tok, **card_x}, card_c,
-                                           device="cuda")
-            cpu_l, cpu_c = M.decode_step(params_c, cfg_c, {"tokens": tok, **cpu_x}, cpu_c,
-                                         device="cpu")
+            pos_x = {} if step_pos is None else {"mrope_positions": step_pos[:, :, step:step + 1]}
+            card_l, card_c = M.decode_step(params, cfg, {"tokens": tok, **card_x, **pos_x},
+                                           card_c, device="cuda")
+            cpu_l, cpu_c = M.decode_step(params_c, cfg_c, {"tokens": tok, **cpu_x, **pos_x},
+                                         cpu_c, device="cpu")
 
 
 def _float32(cfg):
     return dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
 
 
-def cpu_check(torch, M, cfg, params, Bc, Pc, steps, frames=None) -> None:
+def cpu_check(torch, M, cfg, params, Bc, Pc, steps, frames=None, image=None) -> None:
     """The same weights on the CPU in float32, teacher-forced with the card's
     tokens: the card's bf16 logits within ``LOGIT_TOL`` at every step."""
     cpu = (_float32(cfg), _map_leaves(params, lambda t: t.float().cpu()))
     worst = (0.0, 0.0)
     agree = 0
-    for step, got, want in lockstep(torch, M, (cfg, params), cpu, Bc, Pc, steps, frames):
+    for step, got, want in lockstep(torch, M, (cfg, params), cpu, Bc, Pc, steps, frames, image):
         rel_l2 = float((got - want).norm() / want.norm())
         rel_max = float((got - want).abs().max() / want.abs().max())
         check(rel_l2 <= LOGIT_TOL and rel_max <= LOGIT_TOL,
@@ -1989,7 +2064,7 @@ def moe_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref, de
 F32_REL = 1e-3
 
 
-def float32_check(torch, M, cfg, params, Bc, Pc, steps, what, frames=None) -> float:
+def float32_check(torch, M, cfg, params, Bc, Pc, steps, what, frames=None, image=None) -> float:
     """The same weights in float32 on the card (TF32 off) and on the CPU,
     the CPU fed the card's tokens: logits within ``F32_REL`` of their
     max-abs and argmax equal at every step. Returns the worst share."""
@@ -1997,7 +2072,7 @@ def float32_check(torch, M, cfg, params, Bc, Pc, steps, what, frames=None) -> fl
     card = (cfg32, _map_leaves(params, lambda t: t.float()))
     cpu = (cfg32, _map_leaves(params, lambda t: t.float().cpu()))
     worst = 0.0
-    for step, got, want in lockstep(torch, M, card, cpu, Bc, Pc, steps, frames):
+    for step, got, want in lockstep(torch, M, card, cpu, Bc, Pc, steps, frames, image):
         rel = float((got - want).abs().max() / want.abs().max())
         worst = max(worst, rel)
         check(rel <= F32_REL, f"{what} float32, step {step}: card vs CPU logits differ by "
@@ -2010,30 +2085,34 @@ def float32_check(torch, M, cfg, params, Bc, Pc, steps, what, frames=None) -> fl
     return worst
 
 
-def profiled_serve(torch, M, cfg, params, B, P, steps, names, frames=None):
+def profiled_serve(torch, M, cfg, params, B, P, steps, names, frames=None, first=None,
+                   step_x=None):
     """One prefill (an encoder-decoder's encoder included) and ``steps``
     decode steps at full width under the profiler, each labelled stage
     (``profile_serve.STAGES``) in its own range; prints the walls, device
-    busy, the device ms of ``names`` and the top kernels of each."""
+    busy, the device ms of ``names`` and of the port's kernels and the top
+    kernels of each. The prefill takes ``first`` (random tokens by default), decode step i also
+    ``step_x(i)``. Returns the prefill's and the decode steps' records."""
     from repro_torch.launch.profile_serve import profile_phase, stages
 
-    prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(1))
+    if first is None:
+        first = {"tokens": torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                                         generator=torch.Generator(device="cuda").manual_seed(1))}
     state = {"extra": {}}
 
     def prefill():
         if frames is not None:
             state["extra"] = {"encoder_out": M.encode(params, cfg, frames)}
         caches = M.init_caches(cfg, B, P + steps, device="cuda")
-        logits, state["caches"] = M.prefill(params, cfg, {"tokens": prompt, **state["extra"]},
+        logits, state["caches"] = M.prefill(params, cfg, {**first, **state["extra"]},
                                             caches, device="cuda")
         state["tok"] = logits.argmax(-1)[:, None]
 
     def decode():
-        for _ in range(steps):
+        for i in range(steps):
             out, state["caches"] = M.decode_step(
-                params, cfg, {"tokens": state["tok"], **state["extra"]}, state["caches"],
-                device="cuda")
+                params, cfg, {"tokens": state["tok"], **state["extra"],
+                              **(step_x(i) if step_x else {})}, state["caches"], device="cuda")
             state["tok"] = out.argmax(-1)[:, None]
 
     with stages():
@@ -2046,12 +2125,19 @@ def profiled_serve(torch, M, cfg, params, B, P, steps, names, frames=None):
               f"device busy {busy_ms / per:.3f} ms{unit} ({100 * prof['busy_share']:.1f}%), "
               f"{prof['launches'] / per:.0f} device activities{unit}")
         seen = [n for n in names if n in prof["stages_ms"]]
-        print(f"    stages, device ms{unit} (share of device busy): " + ", ".join(
-            f"{n} {prof['stages_ms'][n] / per:.4f} ({100 * prof['stages_ms'][n] / busy_ms:.1f}%)"
-            for n in seen))
+        if seen:
+            print(f"    stages, device ms{unit} (share of device busy): " + ", ".join(
+                f"{n} {prof['stages_ms'][n] / per:.4f} "
+                f"({100 * prof['stages_ms'][n] / busy_ms:.1f}%)" for n in seen))
+        ran = {k: v for k, v in prof["port_kernels"].items() if v["calls"]}
+        if ran:
+            print(f"    port kernels, device ms{unit} (share of device busy): " + ", ".join(
+                f"{k} {v['device_ms'] / per:.4f} x{v['calls'] // per} "
+                f"({100 * v['device_ms'] / busy_ms:.1f}%)" for k, v in ran.items()))
         for row in prof["top"][:5]:
             print(f"    {row['device_ms'] / per:9.4f} ms{unit} x{row['calls'] // per:<6} "
                   f"{row['name']}")
+    return profs[0][1], profs[1][1]
 
 
 def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref,
@@ -2132,6 +2218,272 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
     wall["phase_16_s"] = time.perf_counter() - t_phase
     print(f"  phase 16 {wall['phase_16_s']:.3f} s")
     return timings
+
+
+# Phase 17: qwen2-vl-72b at full width, its depth cut to what one 80 GB card
+# holds in bf16 with a clear margin (30.58 G parameters, 61.15 GB). The prompt
+# is Qwen2-VL's layout for one image (arXiv:2409.12191, M-RoPE): 16 text
+# positions, one 560 x 560 image at patch 14 and a 2 x 2 merge (a 1 x 20 x 20
+# grid of merged patches, 400 positions), 96 text positions; the CPU checks
+# scale the grid to 4 x 4 in a 64-position prompt.
+VLM_LAYERS = 32
+VLM_IMAGE = (16, (20, 20), 96)
+VLM_CHECK_IMAGE = (16, (4, 4), 32)
+
+
+def image_positions(torch, B, pre, grid, post, steps):
+    """Qwen2-VL's M-RoPE positions for a prompt of ``pre`` text positions,
+    one image of ``grid`` = (rows, cols) merged patches and ``post`` text
+    positions, then ``steps`` decode steps: (3, B, prompt) and (3, B, steps),
+    on the CPU.
+
+    Text runs 0.. on all three streams; patch (r, c) takes t = pre,
+    h = pre + r, w = pre + c; text after the image resumes at the largest
+    position so far + 1, and decode steps go on from there (at 16, 20 x 20,
+    96: the text after the image from 36, decode step i at 132 + i).
+    ``tests/test_torch_vlm.py`` holds a copy.
+    """
+    rows, cols = grid
+    text = torch.arange(pre)
+    t = torch.full((rows * cols,), pre)
+    h = pre + torch.arange(rows).repeat_interleave(cols)
+    w = pre + torch.arange(cols).repeat(rows)
+    after = pre + max(rows, cols)
+    tail = after + torch.arange(post)
+    streams = [torch.cat([text, s, tail]) for s in (t, h, w)]
+    prompt = torch.stack(streams)[:, None, :].expand(3, B, -1)
+    steps = (after + post + torch.arange(steps))[None, None, :].expand(3, B, -1)
+    return prompt.contiguous(), steps.contiguous()
+
+
+def image_stub(torch, cfg, B, n, gen):
+    """(B, n, d_model) float32 stub image embeddings from ``gen`` on its
+    device, at the scale of the embedded tokens (the table's 0.02 times
+    sqrt(d_model)): the vision front end is a stub in both packages."""
+    return torch.randn(B, n, cfg.d_model, generator=gen, device=gen.device) * (
+        0.02 * cfg.d_model ** 0.5)
+
+
+def image_embeds(torch, M, cfg, params, ids, stub, pre):
+    """The prompt's embeddings on the parameters' device, in the activation
+    type: each text row ``embed_tokens(id) * sqrt(d_model)``, what a decode
+    step computes for a token, and the image's rows (from ``pre`` on) the
+    stub's."""
+    table = params["embed"]["table"]
+    x = table[ids.to(table.device)]
+    emb = (x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()).to(M._DTYPES[cfg.dtype])
+    emb[:, pre:pre + stub.shape[1]] = stub.to(table.device, emb.dtype)
+    return emb
+
+
+def vlm_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref, decode_ref, wall,
+              smi):
+    """Phase 17: qwen2-vl-72b's backbone. Returns {kernel: (launches, timing
+    at its serving shapes)}."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    lm_ops = (flash_ops, decode_ops, scan_ops)
+    full = get_config("qwen2-vl-72b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    L, H, Hkv, D = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    print(f"[17] qwen2-vl-72b at full width, its depth cut from {full.n_layers} to {L} layers, "
+          f"from an image prompt; {smi}")
+
+    # (a) serving at full width, bf16 -------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall["qwen2vl_init_s"] = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    embed_rows = params["embed"]["table"]
+    # A decode step reads every weight but the embedding table's rows it
+    # does not look up. A prefill's matmuls take 2 FLOPs a weight a token
+    # in the layers, the lm head runs on the last position only, and
+    # attention takes 4 D FLOPs a causal (query, key) pair a head.
+    step_bytes = weight_bytes - embed_rows.numel() * embed_rows.element_size()
+    B, G = 8, 64
+    pre, grid, post = VLM_IMAGE
+    P = pre + grid[0] * grid[1] + post
+    head = cfg.padded_vocab * cfg.d_model
+    attn_flops = L * 4 * D * B * H * P * (P + 1) // 2
+    prefill_flops = 2 * (step_bytes // 2 - head) * B * P + 2 * head * B + attn_flops
+    print(f"  {weight_bytes / 1e9:.2f} GB of bf16 weights ({weight_bytes / 2 ** 30:.2f} GiB); "
+          f"floors at {HBM_BYTES_PER_S / 1e12:.2f} TB/s and {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s: "
+          f"decode {step_bytes / 1e9:.2f} GB a step, {1e3 * step_bytes / HBM_BYTES_PER_S:.2f} ms; "
+          f"prefill {prefill_flops / 1e12:.1f} TFLOP for {B} x {P} positions, "
+          f"{prefill_flops / BF16_FLOPS_PER_S:.4f} s (init {wall['qwen2vl_init_s']:.2f} s)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda")
+    emb = image_embeds(torch, M, cfg, params, ids,
+                       image_stub(torch, cfg, B, grid[0] * grid[1], gen), pre)
+    pos, step_pos = image_positions(torch, B, pre, grid, post, G - 1)
+    kw = dict(prompt_embeds=emb, mrope_positions=pos.cuda(), decode_positions=step_pos.cuda())
+    with PlainOnCard(flash_ops, decode_ops) as plain:
+        launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, P, G,
+                             dict(flash_attention=L, decode_attention=L * (G - 1), rglru_scan=0),
+                             wall, serve_kw=kw)
+    check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
+    peak = torch.cuda.max_memory_allocated()
+    prefill_s, decode_s = wall[f"{cfg.name}_prefill_s"], wall[f"{cfg.name}_decode_s"]
+    print(f"  prompt: {pre} text + {grid[0]} x {grid[1]} image patches + {post} text positions, "
+          f"M-RoPE text after the image from {pre + max(grid)}, decode from "
+          f"{int(step_pos[0, 0, 0])}; {L} B3 launches a prefill, {L} B4 a step; no plain "
+          f"attention version ran on the card; peak memory {peak / 2 ** 30:.2f} GiB")
+    print(f"  prefill {prefill_s:.4f} s ({100 * prefill_flops / BF16_FLOPS_PER_S / prefill_s:.1f}% "
+          f"of its floor's rate), decode {1e3 * decode_s / (G - 1):.3f} ms a step "
+          f"({100 * step_bytes / HBM_BYTES_PER_S / (decode_s / (G - 1)):.1f}% of the weights' "
+          f"floor's rate)")
+
+    # (b) one prefill and 8 decode steps under the profiler ----------------------
+    t0 = time.perf_counter()
+    steps = 8
+    _, dec = profiled_serve(torch, M, cfg, params, B, P, steps, (), first={
+        "embeds": emb, "mrope_positions": pos.cuda()},
+        step_x=lambda i: {"mrope_positions": step_pos[:, :, i:i + 1].cuda()})
+    busy_ms = dec["device_busy_s"] * 1e3 / steps
+    print(f"  decode: device busy {busy_ms:.3f} ms a step against the weights' floor "
+          f"{1e3 * step_bytes / HBM_BYTES_PER_S:.3f} ms, wall {dec['wall_s'] * 1e3 / steps:.3f} ms")
+    wall["qwen2vl_profile_s"] = time.perf_counter() - t0
+
+    # (c), (d) the first 2 layers in float32 and bf16, card against CPU ---------
+    cut, cut_params = first_layers(M, cfg, params, 2)
+    del params, emb, kw
+    torch.cuda.empty_cache()
+    n_cut = sum(t.numel() for t in _leaves(cut_params))
+    pre_c, grid_c, post_c = VLM_CHECK_IMAGE
+    Pc = pre_c + grid_c[0] * grid_c[1] + post_c
+    print(f"  CPU checks on {cut.n_layers} of {full.n_layers} layers at full width: "
+          f"{n_cut / 1e9:.2f} G parameters, {4 * n_cut / 1e9:.2f} GB in float32 on the host; "
+          f"{pre_c} text + {grid_c[0]} x {grid_c[1]} image + {post_c} text positions")
+    t0 = time.perf_counter()
+    float32_check(torch, M, cut, cut_params, 2, Pc, 8, "qwen2-vl-72b, 2 layers",
+                  image=VLM_CHECK_IMAGE)
+    cpu_check(torch, M, cut, cut_params, 2, Pc, 8, image=VLM_CHECK_IMAGE)
+    wall["qwen2vl_cpu_check_s"] = time.perf_counter() - t0
+    del cut_params
+    torch.cuda.empty_cache()
+
+    # (e) B3 and B4 at qwen2-vl's serving shapes ---------------------------------
+    timings = {
+        "flash_attention": (launches["flash_attention"],
+                            time_flash(torch, F, flash_ops, flash_ref, B, P, H, Hkv, D, 0)),
+        # The last decode step: 512 + 63 tokens cached of 576 slots.
+        "decode_attention": (launches["decode_attention"],
+                             time_decode(torch, F, decode_ops, decode_ref, B, H, Hkv, P + G,
+                                         P + G - 1, D)),
+    }
+    wall["phase_17_s"] = time.perf_counter() - t_phase
+    print(f"  phase 17 {wall['phase_17_s']:.3f} s")
+    return timings
+
+
+def planner_phase(torch, ops, wall, smi):
+    """Phase 18: the LM-serving planner on the card. Returns its B1 launches."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import ARCHS, get_config
+    import repro_torch.sched.planner as planner_mod
+    from repro_torch.paper import planner
+    from repro_torch.paper.common import comparable
+    from repro_torch.sched import ElasticController
+    from repro_torch.serve_lm import FLEET
+
+    print(f"[18] the LM-serving planner: paper.planner over H100 x 8 groups of 8, A100 x 4 of 8 "
+          f"and L4 x 12 of 4, then ElasticController over serve_lm's H100 x 6 of 8 and L4 x 8 of "
+          f"4; {smi}")
+    t_phase = time.perf_counter()
+    plain, eager = ops.sched_scoring_ref, []
+
+    def counting(*args, **kwargs):
+        if args[0].is_cuda:
+            eager.append(tuple(args[0].shape))
+        return plain(*args, **kwargs)
+
+    ops.sched_scoring_ref = counting
+    # (a) the benchmark on the card, then on the CPU ------------------------------
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        card = planner.main("cuda")
+    wall["planner_card_s"] = time.perf_counter() - t0
+    bench_b1 = ops.LAUNCHES["sched_scoring"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = planner.main("cpu")
+    for name, us, derived in card:
+        print(f"  {name},{us:.1f},{derived}")
+    ours = {name: comparable(d, planner.MEASURED) for name, _us, d in card}
+    check(ours == PLANNER_REF, f"planner rows differ from the reference's: "
+                               f"{ {k: v for k, v in ours.items() if PLANNER_REF.get(k) != v} }")
+    check({name: comparable(d, planner.MEASURED) for name, _us, d in cpu} == ours,
+          "planner rows on the card differ from the CPU's")
+    print(f"  {len(card)} rows equal the reference's and the CPU's; {bench_b1} B1 launches (no "
+          f"plan over these 24 groups comes under refine's 64 tasks); "
+          f"{wall['planner_card_s']:.3f} s on the card")
+
+    # (b) the elastic controller on the serve example's fleet ---------------------
+    # Each plan's refine call (the tasks of the ETG it refines), counted on
+    # the planner's own name for it.
+    real_refine, refined = planner_mod.refine, []
+
+    def counted(etg, cluster, **kwargs):
+        refined.append(etg.total_tasks)
+        return real_refine(etg, cluster, **kwargs)
+
+    planner_mod.refine = counted
+    b1, first = {}, []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        ops.reset_launches()
+        refined.clear()
+        t0 = time.perf_counter()
+        card = ElasticController(cfg, FLEET, device="cuda")
+        if refined:
+            first.append(arch)
+        card.fail(0, 2)
+        card.restore(0, 2)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        card_refines = list(refined)
+        refined.clear()
+        b1[arch] = ops.LAUNCHES["sched_scoring"]
+        check(ops.LAUNCHES["sched_scoring_resources"] == 0, f"{arch}: B2 launched")
+        check(bool(b1[arch]) == bool(card_refines),
+              f"{arch}: {len(card_refines)} refines, {b1[arch]} B1 launches")
+        t0 = time.perf_counter()
+        cpu = ElasticController(cfg, FLEET, device="cpu")
+        cpu.fail(0, 2)
+        cpu.restore(0, 2)
+        t_cpu = time.perf_counter() - t0
+        check(refined == card_refines, f"{arch}: refined {card_refines} on the card, {refined} "
+                                       f"on the CPU")
+        for (reason, a), (_, b) in zip(card.history, cpu.history, strict=True):
+            check(a.replicas.tolist() == b.replicas.tolist()
+                  and all(x.tolist() == y.tolist() for x, y in zip(a.assignment, b.assignment,
+                                                                  strict=True))
+                  and (a.tokens_per_s, a.predicted_throughput, a.baseline_tokens_per_s,
+                       a.iterations) == (b.tokens_per_s, b.predicted_throughput,
+                                         b.baseline_tokens_per_s, b.iterations),
+                  f"{arch}, {reason}: the card's plan differs from the CPU's")
+        rates = " -> ".join(f"{p.tokens_per_s:,.0f}" for _, p in card.history)
+        print(f"  {arch}: admission {rates} tok/s (initial, 2 h100 groups lost, restored); "
+              f"refine in {len(card_refines)} of 3 plans (tasks {card_refines}), {b1[arch]} B1 "
+              f"launches; card {t_card:.3f} s, cpu {t_cpu:.3f} s")
+    planner_mod.refine = real_refine
+    ops.sched_scoring_ref = plain
+    check(not eager, f"the scorer's plain version ran on the card: {eager[:4]}")
+    check(tuple(first) == PLANNER_REFINED,
+          f"the first plans of {tuple(first)} ran refine, not those of {PLANNER_REFINED}")
+    wall["phase_18_s"] = time.perf_counter() - t_phase
+    print(f"  every plan equal to the CPU's (replicas, assignments, rates, iterations, refine "
+          f"calls); the first plans of {len(first)} archs refine on B1 ({', '.join(first)}); "
+          f"{sum(b1.values())} B1 launches; no plain scorer on the card; phase 18 "
+          f"{wall['phase_18_s']:.3f} s")
+    return bench_b1 + sum(b1.values())
 
 
 def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
@@ -2614,6 +2966,28 @@ def main() -> int:
             rec["whisper-tiny"] = nested
             print(f"  {rec['name']}: {launches} launches in phase 16 (whisper-tiny)")
             rec["launches"] += launches
+
+    # [17] qwen2-vl-72b's backbone --------------------------------------------
+    vlm_timings = vlm_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops,
+                            flash_attention_ref, decode_attention_ref, wall, smi)
+    shapes = {"flash_attention": "B=8 S=512 H=64 Hkv=8 D=128 causal",
+              "decode_attention": "B=8 H=64 Hkv=8 S=576 lengths 575 D=128"}
+    for rec in records:
+        if rec["name"] in vlm_timings:
+            launches, timing = vlm_timings[rec["name"]]
+            one = _record(rec["name"], rec["source"], rec["replaces"], launches, timing[0], timing)
+            rec["qwen2-vl-72b"] = {"shape": shapes[rec["name"]], **{k: one[k] for k in (
+                "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            rec["max_abs_err"] = max(rec["max_abs_err"], timing[0])
+            print(f"  {rec['name']}: {launches} launches in phase 17 (qwen2-vl-72b)")
+            rec["launches"] += launches
+
+    # [18] the LM-serving planner ----------------------------------------------
+    planner_b1 = planner_phase(torch, ops, wall, smi)
+    for rec in records:
+        if rec["name"] == "sched_scoring":
+            print(f"  sched_scoring: {planner_b1} launches in phase 18 (the planner's refine)")
+            rec["launches"] += planner_b1
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

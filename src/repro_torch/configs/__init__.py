@@ -2,8 +2,7 @@
 
 ``get_config(name)`` returns the full published config (``CONFIG`` of
 ``repro_torch.configs.<arch>``), under the same names and aliases as
-``repro.configs``. An architecture whose blocks the port cannot run yet
-raises ``KeyError`` naming the ROADMAP item that brings it.
+``repro.configs``; the port runs every one of them.
 """
 
 from __future__ import annotations
@@ -38,18 +37,11 @@ _ALIASES = {
     "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
-# Architectures whose blocks the port does not run yet, and what brings them.
-_NOT_PORTED = {
-    "qwen2_vl_72b": "M-RoPE and embedding inputs: ROADMAP A12",
-}
-
 
 def get_config(name: str) -> ModelConfig:
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in ARCHS:
         raise KeyError(f"unknown arch '{name}'; known: {sorted(_ALIASES)}")
-    if mod_name in _NOT_PORTED:
-        raise KeyError(f"arch '{name}' needs {_NOT_PORTED[mod_name]}; not ported yet")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 

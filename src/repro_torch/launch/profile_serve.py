@@ -8,7 +8,9 @@
 ``--arch granite-moe-1b-a400m`` the MoE model, ``--arch deepseek-v3-671b
 --layers 4`` DeepSeek's first 4 layers, all that one card holds,
 ``--arch xlstm-125m`` xLSTM, ``--arch whisper-tiny --prompt-len 4`` the
-encoder-decoder over stub frames, its encoder inside the prefill.)
+encoder-decoder over stub frames, its encoder inside the prefill,
+``--arch qwen2-vl-72b --layers 32`` qwen2-vl's first 32 of 80 layers,
+prefilled from stub embeddings as ``serve_lm.serve`` draws them.)
 Serves the published width and depth (the first ``--layers`` layers if
 given) with random weights (seed 0). For each phase it prints the host
 wall time (ended by a synchronise), the device busy time (the union of the
@@ -208,17 +210,21 @@ def main(argv: list[str] | None = None) -> None:
     B, P, steps = args.batch, args.prompt_len, args.steps
     params = M.init_params(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda", generator=gen)
+    act = M._DTYPES[cfg.dtype]
+    # qwen2-vl prefills from stub embeddings, as ``serve`` draws them, its
+    # rotary at the text-only positions; its decode steps take tokens.
+    first = ({"embeds": torch.randn(B, P, cfg.d_model, device="cuda", generator=gen, dtype=act)}
+             if cfg.embedding_inputs else
+             {"tokens": torch.randint(0, cfg.vocab_size, (B, P), device="cuda", generator=gen)})
     frames = (torch.randn(B, cfg.encoder_seq, cfg.d_model, device="cuda", generator=gen,
-                          dtype=M._DTYPES[cfg.dtype]) if cfg.is_encoder_decoder else None)
+                          dtype=act) if cfg.is_encoder_decoder else None)
     state = {"extra": {}}
 
     def prefill():
         caches = M.init_caches(cfg, B, P + steps + 1, device="cuda")
         if frames is not None:  # the encoder runs once a request batch, in the prefill
             state["extra"] = {"encoder_out": M.encode(params, cfg, frames)}
-        logits, state["caches"] = M.prefill(params, cfg, {"tokens": prompt, **state["extra"]},
-                                            caches)
+        logits, state["caches"] = M.prefill(params, cfg, {**first, **state["extra"]}, caches)
         state["tok"] = logits.argmax(-1)[:, None]
 
     def decode():

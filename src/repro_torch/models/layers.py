@@ -8,10 +8,11 @@ rotation compute in float32 and cast back). Init functions draw from an
 explicit ``torch.Generator`` and create the tensors on its device; they do
 not give ``jax.random``'s numbers, so tests hand both packages the same
 parameters through ``repro_torch.models.convert``. ``MeshCtx`` and the
-sharding helpers are TPU tooling (ROADMAP A15); ``apply_mrope`` comes with
-qwen2-vl (ROADMAP A12). ``layer_norm`` and the GELU MLP are public layers of
-the reference that no model of either package calls (Whisper's blocks use
-``rms_norm`` and the SwiGLU ``mlp``, as the reference's do).
+sharding helpers are TPU tooling (ROADMAP A15). ``mrope`` builds
+qwen2-vl's multimodal rotary tables, which ``apply_rope`` applies.
+``layer_norm`` and the GELU MLP are public layers of the reference that no
+model of either package calls (Whisper's blocks use ``rms_norm`` and the
+SwiGLU ``mlp``, as the reference's do).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ __all__ = [
     "layer_norm",
     "rope",
     "apply_rope",
+    "mrope",
+    "apply_mrope",
     "init_dense",
     "dense",
     "init_mlp",
@@ -75,6 +78,35 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     else:              # (B, S, D/2)
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dtype)
+
+
+def mrope(positions: torch.Tensor, dim: int, sections, theta: float
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE tables (Qwen2-VL): (3, B, S) int temporal / height /
+    width positions -> cos/sin of shape (B, S, dim/2), float32.
+
+    ``sections`` are in pair units and sum to dim/2; section i takes the
+    contiguous frequency slots after the previous sections' (the reference's
+    layout, not HF's interleaving) and its own position stream. Angles are
+    float32 position times float32 frequency, as the reference rounds them.
+    """
+    if sum(sections) != dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {dim // 2}")
+    exponents = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    freqs = 1.0 / (theta ** exponents)
+    cos_parts, sin_parts = [], []
+    off = 0
+    for i, sec in enumerate(sections):
+        ang = positions[i].float()[..., None] * freqs[off:off + sec]  # (B, S, sec)
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        off += sec
+    return torch.cat(cos_parts, dim=-1), torch.cat(sin_parts, dim=-1)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections, theta: float) -> torch.Tensor:
+    """Rotate x (B, S, H, D) by M-RoPE at (3, B, S) positions (``mrope``)."""
+    return apply_rope(x, *mrope(positions, x.shape[-1], sections, theta))
 
 
 def init_dense(

@@ -8,8 +8,10 @@ the Griffin hybrid (``rglru`` and ``local_attn`` blocks:
 MTP head's parameters, ``deepseek-v3-671b``), xLSTM (``mlstm`` and
 ``slstm`` blocks: ``xlstm-125m``) and the Whisper encoder-decoder
 (``whisper-tiny``: a bidirectional encoder over stub frame embeddings,
-sinusoidal positions and no rotary, decoder blocks with cross-attention);
-M-RoPE and embedding inputs come with a later slice. The model is the same
+sinusoidal positions and no rotary, decoder blocks with cross-attention)
+and the Qwen2-VL backbone (``qwen2-vl-72b``: multimodal RoPE over (3, B, S)
+temporal / height / width positions, inputs given as embeddings, the vision
+front end a stub in both packages). The model is the same
 sequence of segments (``segments_of``); a Python loop over each segment's
 repeats replaces ``lax.scan`` and ``jax.checkpoint``. Parameters are plain
 dicts of tensors with the JAX tree's names; ``params["segments"][s][i]`` is
@@ -24,6 +26,13 @@ Public entry points, each on an explicit device that defaults to
 * ``init_caches(cfg, batch, s_cache, dtype=None, device=...)``
 * ``prefill(params, cfg, batch, caches, device=...)``   — fill caches, last-token logits
 * ``decode_step(params, cfg, batch, caches, device=...)`` — one-token serve step
+
+A model with ``cfg.embedding_inputs`` takes ``batch["embeds"]`` (B, S,
+d_model) as given, unscaled, in place of ``tokens`` (a decode step passes
+``tokens``, embedded and scaled as usual); with ``cfg.mrope_sections`` its
+rotary angles come from ``batch["mrope_positions"]`` (3, B, S), else from
+the text-only fallback, all three streams at ``pos0 + arange(S)``. The
+reference's forward contract, both.
 
 An encoder-decoder's ``batch`` carries ``encoder_out`` (the output of
 ``encode(params, cfg, embeds)``, which serving computes once a request
@@ -57,6 +66,7 @@ from repro_torch.models.layers import (
     init_embedding,
     init_mlp,
     mlp,
+    mrope,
     rms_norm,
     rope,
 )
@@ -131,21 +141,6 @@ def encoder_segments(cfg: ModelConfig) -> list[tuple[tuple[Signature, ...], int]
     return [((Signature(kind="attn", moe=False, cross=False),), cfg.encoder_layers)]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for any part of a config the port's blocks cannot run yet."""
-    missing = [
-        what for what, present in (
-            ("M-RoPE", bool(cfg.mrope_sections)),
-            ("embedding inputs", cfg.embedding_inputs),
-        ) if present
-    ]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs attn (GQA or MLA, dense or MoE, with cross-attention "
-            f"in an encoder-decoder), local_attn, rglru, mlstm and slstm blocks; "
-            f"{', '.join(missing)} come with a later slice (ROADMAP A12)")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -189,7 +184,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
     """Random parameters (normal * fan-in^-1/2, zero norms and biases, as the
     JAX package draws them) from a ``torch.Generator`` seeded with ``seed``
     on ``device``. The numbers are not ``jax.random``'s."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = _DTYPES[cfg.param_dtype]
@@ -240,7 +234,6 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, dtype: torch.dtype |
     ``local_attn``; an ``MLACache`` under MLA), an ``RGLRUState`` per ``rglru``
     block, an ``MLSTMState`` or ``SLSTMState`` (float32) per xLSTM block. An
     encoder-decoder's encoder keeps no cache."""
-    _check_supported(cfg)
     dtype = dtype or _DTYPES[cfg.dtype]
     return [
         [[_init_cache_for(sig, cfg, batch, s_cache, dtype, device) for _ in range(reps)]
@@ -339,15 +332,18 @@ def encode(params: dict, cfg: ModelConfig, embeds: torch.Tensor) -> torch.Tensor
 def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[torch.Tensor, Any]:
     """Trunk forward. Returns (hidden (B, S, d), new caches).
 
-    ``batch["tokens"]`` is (B, S) on the parameters' device; positions start
-    at ``batch["pos0"]``, else at the caches' ``pos``, else at 0. An
-    encoder-decoder also takes ``batch["encoder_out"]`` or, without it,
-    ``batch["encoder_embeds"]``.
+    ``batch["tokens"]`` is (B, S) on the parameters' device, or, with
+    ``cfg.embedding_inputs``, ``batch["embeds"]`` (B, S, d); positions start
+    at ``batch["pos0"]``, else at the caches' ``pos``, else at 0, and M-RoPE
+    takes ``batch["mrope_positions"]`` where given. An encoder-decoder also
+    takes ``batch["encoder_out"]`` or, without it, ``batch["encoder_embeds"]``.
     """
-    _check_supported(cfg)
-    x = embed_tokens(params["embed"], batch["tokens"])
-    # The scale rounded to the activation type first, as the JAX package does.
-    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    if cfg.embedding_inputs and "embeds" in batch:
+        x = batch["embeds"]  # as given: the front end's scale, not sqrt(d_model)
+    else:
+        x = embed_tokens(params["embed"], batch["tokens"])
+        # The scale rounded to the activation type first, as the JAX package does.
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
 
     pos0 = batch.get("pos0")
     if pos0 is None:
@@ -364,7 +360,14 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)[None]
     else:
         # Once for all layers; an MLA block rotates its rope slice itself.
-        cos, sin = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        if cfg.mrope_sections:
+            pos3 = batch.get("mrope_positions")
+            if pos3 is None:  # text only: the three streams share the positions
+                pos3 = positions[None, None, :].expand(3, x.shape[0], S)
+            # (B, S, D/2) tables: each row of the batch has its own positions.
+            cos, sin = mrope(pos3, cfg.resolved_head_dim, cfg.mrope_sections, cfg.rope_theta)
+        else:
+            cos, sin = rope(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
         def rope_fn(t, _positions):
             return apply_rope(t, cos, sin)
@@ -398,18 +401,18 @@ def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _on_device(params: dict, batch: dict, device) -> dict:
-    """The batch with its tokens on ``device``, after checking the request
-    and that the parameters (and an encoder-decoder's encoder inputs) lie
-    there."""
+    """The batch with its tokens and M-RoPE positions on ``device``, after
+    checking the request and that the parameters (and the input embeddings
+    or an encoder-decoder's encoder inputs) lie there."""
     dev = resolve_device(device)
     table = params["embed"]["table"]
     if table.device.type != dev.type:
         raise ValueError(f"parameters lie on {table.device}, not {dev}")
-    for key in ("encoder_out", "encoder_embeds"):
+    for key in ("embeds", "encoder_out", "encoder_embeds"):
         if key in batch and batch[key].device != table.device:
             raise ValueError(f"batch[{key!r}] lies on {batch[key].device}, not {table.device}")
-    tokens = torch.as_tensor(batch["tokens"], device=table.device)
-    return {**batch, "tokens": tokens}
+    return {**batch, **{key: torch.as_tensor(batch[key], device=table.device)
+                        for key in ("tokens", "mrope_positions") if key in batch}}
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, caches,
@@ -426,7 +429,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, caches,
 
 def decode_step(params: dict, cfg: ModelConfig, batch: dict, caches,
                 device: str | torch.device = "cuda"):
-    """One-token decode. batch["tokens"]: (B, 1). Returns (logits (B, vocab_size), caches).
+    """One-token decode. batch["tokens"]: (B, 1) (and, under M-RoPE, the
+    step's ``mrope_positions`` (3, B, 1)). Returns (logits (B, vocab_size), caches).
 
     The same computation as ``prefill`` over one token: the attention and
     mLSTM blocks take their decode branch from the token count."""

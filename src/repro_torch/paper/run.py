@@ -16,11 +16,12 @@ Port of ``benchmarks/run.py``; prints ``name,us_per_call,derived`` CSV rows.
          runtime
   netaware network-aware vs distance-blind placement on rack-structured
          clusters
+  planner LM-serving pipeline-stage planning over a mixed GPU fleet
 
-The reference's ``planner`` (the LM-serving fleet planner, ROADMAP A14) and
-``roofline`` (dry-run roofline aggregation, A15) benchmarks wait for those
-modules of the port. With ``--json-dir`` the benchmarks that write a
-``BENCH_*.json`` in the reference write it there, under the same name.
+The reference's ``roofline`` benchmark (dry-run roofline aggregation of
+compiled TPU programs) waits for ROADMAP A15. With ``--json-dir`` the
+benchmarks that write a ``BENCH_*.json`` in the reference write it there,
+under the same name.
 
     PYTHONPATH=src python -m repro_torch.paper.run [--device cpu] [--json-dir DIR]
 """
@@ -37,6 +38,7 @@ from repro_torch.paper import (
     largescale,
     multitenant,
     netaware,
+    planner,
     prediction,
     refine_speed,
     runtime,
@@ -58,6 +60,7 @@ BENCHMARKS = (
     (runtime, "BENCH_runtime.json"),
     (multitenant, "BENCH_multitenant.json"),
     (netaware, "BENCH_netaware.json"),
+    (planner, None),
 )
 
 

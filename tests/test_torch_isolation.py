@@ -64,7 +64,10 @@ def test_importing_the_port_loads_no_jax():
         " repro_torch.paper.instances, repro_torch.paper.utilization,"
         " repro_torch.paper.largescale, repro_torch.paper.sched_speed,"
         " repro_torch.paper.refine_speed, repro_torch.paper.netaware, repro_torch.paper.runtime,"
-        " repro_torch.paper.multitenant, repro_torch.paper.dispatch;"
+        " repro_torch.paper.multitenant, repro_torch.paper.dispatch, repro_torch.paper.planner,"
+        " repro_torch.configs.qwen2_vl_72b, repro_torch.roofline, repro_torch.sched,"
+        " repro_torch.sched.fleet, repro_torch.sched.stage_model, repro_torch.sched.planner,"
+        " repro_torch.sched.elastic;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')];"
         "sys.exit(1 if bad else 0)"
     )
@@ -114,13 +117,17 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
     # and cross-attention) on the same entry points.
     from repro_torch.models import mla, xlstm
 
-    for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b", "xlstm-125m", "whisper-tiny"):
+    for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b", "xlstm-125m", "whisper-tiny",
+                 "qwen2-vl-72b"):
         moe_lm = get_config(arch).reduced()
         moe_params = M.init_params(moe_lm, device="cpu")
         moe_caches = M.init_caches(moe_lm, 1, 4, device="cpu")
         batch = dict(tokens)
         if moe_lm.is_encoder_decoder:
             batch["encoder_embeds"] = torch.zeros(1, moe_lm.encoder_seq, moe_lm.d_model)
+        if moe_lm.embedding_inputs:  # qwen2-vl: embeddings and M-RoPE positions
+            batch = {"embeds": torch.zeros(1, 2, moe_lm.d_model),
+                     "mrope_positions": torch.zeros(3, 1, 2, dtype=torch.int64)}
         calls += [
             lambda c=moe_lm: M.init_params(c),
             lambda c=moe_lm: M.init_caches(c, 1, 4),
@@ -165,6 +172,21 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
         lambda: MT.MultiTenantRuntime(ms, MT.TenantSet(tenants), cl, mtrace).run(),
         lambda: runtime_demo(),
     ]
+    # And the serving planner: ``plan`` (also where its refine gate skips
+    # the card), the elastic controller and the serve example's fleet half.
+    from repro_torch.paper import planner as paper_planner
+    from repro_torch.sched import ElasticController, plan
+    from repro_torch.serve_lm import FLEET
+    from repro_torch.serve_lm import main as serve_main
+
+    vlm = get_config("qwen2-vl-72b")
+    calls += [
+        lambda: plan(vlm, FLEET),
+        lambda: plan(vlm, paper_planner.FLEET),
+        lambda: ElasticController(vlm, FLEET),
+        lambda: paper_planner.main(),
+        lambda: serve_main([]),
+    ]
     # And the paper's reproduction and every benchmark.
     import repro_torch.paper_repro as paper_repro
     from repro_torch.paper import run as paper_run
@@ -179,6 +201,29 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
     assert P.max_stable_rate_batch(etg, cl, tm, device="cpu")[1][0] == P.max_stable_rate(etg, cl)[1]
     with pytest.raises(ValueError):
         resolve_device("mps")
+
+
+def test_planner_resolves_the_device_before_any_host_work(no_card, monkeypatch):
+    """``plan``, and with it the planner benchmark (``paper.run``'s last
+    entry) and ``serve_lm.main``, refuse a ``"cuda"`` request before they
+    build a stage model or a config's plan."""
+    import repro_torch.sched.planner as planner_mod
+    from repro_torch.paper import planner as paper_planner
+    from repro_torch.paper.run import BENCHMARKS
+    from repro_torch.serve_lm import main as serve_main
+
+    assert BENCHMARKS[-1] == (paper_planner, None)
+    work = []
+    monkeypatch.setattr(planner_mod, "build_stage_model", lambda *a, **k: work.append(a))
+    monkeypatch.setattr(paper_planner, "get_config", lambda *a: work.append(a))
+    monkeypatch.setattr("repro_torch.serve_lm.get_config", lambda *a: work.append(a))
+    from repro_torch.configs import get_config
+
+    for call in (lambda: planner_mod.plan(get_config("xlstm-125m"), paper_planner.FLEET),
+                 lambda: paper_planner.main("cuda"), lambda: serve_main(["--device", "cuda"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert work == []
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(no_card, tmp_path):

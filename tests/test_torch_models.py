@@ -104,28 +104,52 @@ def test_config_is_the_jax_packages(cfg, jax_cfg):
 
 PORTED_SINCE_MOE = ("deepseek-v3-671b", "granite-moe-1b-a400m")
 PORTED_SINCE_XLSTM_WHISPER = ("xlstm-125m", "whisper-tiny")
+PORTED_SINCE_VLM = ("qwen2-vl-72b",)
 
 
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "granite-moe-1b-a400m",
                                   "xlstm-125m", "whisper-tiny", "qwen2-vl-72b"])
 def test_unported_archs_raise_naming_the_roadmap(name):
-    """An arch the port cannot run yet raises naming ROADMAP. The test keeps
-    its name and its five cases although later slices ported four of them:
-    for those the case now checks that the registry returns the JAX
-    package's config (tests/test_torch_moe_models.py and
-    tests/test_torch_xlstm_whisper_models.py run them)."""
-    if name in PORTED_SINCE_MOE + PORTED_SINCE_XLSTM_WHISPER:
-        assert dataclasses.asdict(get_config(name)) == _shared_fields(jax_get_config(name))
-        return
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config(name)
+    """The archs that the first slices could not run. The test keeps its name
+    and its five cases although later slices ported all of them: each case
+    checks that the registry returns the JAX package's config
+    (tests/test_torch_moe_models.py, tests/test_torch_xlstm_whisper_models.py
+    and tests/test_torch_vlm.py run them); an unknown name still raises."""
+    assert name in PORTED_SINCE_MOE + PORTED_SINCE_XLSTM_WHISPER + PORTED_SINCE_VLM
+    assert dataclasses.asdict(get_config(name)) == _shared_fields(jax_get_config(name))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config(name + "-x")
 
 
-def test_unsupported_blocks_raise(cfg):
-    """M-RoPE is still to come (the xLSTM blocks and the encoder-decoder run
-    since their slice)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        M.init_params(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)), device="cpu")
+def test_unsupported_blocks_raise(cfg, jax_cfg, monkeypatch):
+    """Nothing is left to refuse: an M-RoPE config (the reduced sections
+    (2, 3, 3)) initialises with the reference's parameter shapes, and its
+    forward rotates by ``mrope`` tables built once, at the batch's
+    (3, B, S) positions."""
+    mcfg = dataclasses.replace(cfg, mrope_sections=(2, 3, 3))
+    jcfg = dataclasses.replace(jax_cfg, mrope_sections=(2, 3, 3))
+    port = M.init_params(mcfg, device="cpu")
+    want = jax.eval_shape(lambda: jax_model.init_params(jax.random.PRNGKey(0), jcfg))
+    stacked = jax.tree.map(lambda a: tuple(a.shape), want)["segments"][0][0]
+    assert stacked == jax.tree.map(lambda t: (cfg.n_layers, *t.shape), port["segments"][0][0][0])
+    assert tuple(port["embed"]["table"].shape) == tuple(want["embed"]["table"].shape)
+    calls = []
+    real = M.mrope
+
+    def spy(positions, *args):
+        calls.append(positions)
+        return real(positions, *args)
+
+    monkeypatch.setattr(M, "mrope", spy)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 5), generator=torch.Generator().manual_seed(0))
+    pos3 = torch.randint(0, 50, (3, B, 5), generator=torch.Generator().manual_seed(1))
+    h, _ = M.forward(port, mcfg, {"tokens": tokens, "mrope_positions": pos3})
+    assert len(calls) == 1 and torch.equal(calls[0], pos3)
+    # The text-only fallback (three equal streams) is plain RoPE.
+    h_text, _ = M.forward(port, mcfg, {"tokens": tokens})
+    h_rope, _ = M.forward(port, cfg, {"tokens": tokens})
+    torch.testing.assert_close(h_text, h_rope, rtol=1e-6, atol=1e-6)
+    assert not torch.allclose(h, h_text)
 
 
 def test_params_from_jax_keeps_every_leaf(np_params, params, cfg):
