@@ -2,8 +2,8 @@
 """Chip smoke of the PyTorch + CUDA port: builds the kernels, drives the
 paper's main path, the LM serving paths, the streaming runtime, multi-tenant
 scheduling, the paper's reproduction, MoE serving, xLSTM, the Whisper
-encoder-decoder, qwen2-vl's backbone and the LM-serving planner on one
-NVIDIA GPU,
+encoder-decoder, qwen2-vl's backbone, the LM-serving planner and LM
+training on one NVIDIA GPU,
 holds every kernel against its plain PyTorch version, and prints the
 kernels' numbers.
 
@@ -198,7 +198,26 @@ Phases (each raises on failure; nothing is caught):
    archs, each with ``fail(0, 2)`` and ``restore(0, 2)``, on the card and
    on the CPU: replicas, assignments, rates and iterations equal; B1
    launches exactly for the archs of ``PLANNER_REFINED``, and no plain
-   scorer runs on the card.
+   scorer runs on the card;
+19. training (``repro_torch.runtime.trainer``, ``launch.steps``,
+   ``optim.adamw``, ``checkpoint.store``, ``data.pipeline``): (a)
+   qwen1.5-0.5b at full width and depth in its own types (bf16
+   parameters, float32 AdamW moments, remat), 8 x 512 tokens a step from
+   a ``SyntheticLM`` stream, 20 steps of the cosine schedule through the
+   ``Trainer`` with async checkpoints at steps 10 and 20 in a temporary
+   directory: the loss falls, no B3, B4 or B5 launch (training attends
+   through ``sdpa``), the step wall (median of steps 3-10; and of steps
+   11-20, beside the async write of the step-10 checkpoint), tokens/s, the
+   achieved 6 N D FLOP/s and the peak memory; (b) a trainer of 10 steps
+   into a second directory, the parameters in its checkpoint equal to its
+   own bit for bit, then a new trainer there with 20 steps resumes at step 10: its
+   losses within ``RESTART_REL`` of the uninterrupted run's; (c) one
+   profiled step (device busy); (d) one float32 step at 2 layers on the
+   card and on the CPU from the same parameters and batch (loss, grad
+   norm, update); (e) B3, B4 and B5 refuse CUDA inputs that require grad,
+   ``loss_fn`` refuses an RG-LRU model on the card (ROADMAP A13b); (f)
+   the trained weights serve 8 prompts of 128 tokens and 8 decode steps:
+   exactly 24 B3 and 24 x 8 B4 launches.
 
 Every phase's wall is printed at the end. The reference's results for
 phases 3-5, 12, 14 and 18 are constants below; ``tests/test_torch_multitenant_golden.py``
@@ -207,8 +226,8 @@ and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
 The last lines are the ``{"kernels": [...]}`` record (B1 counts its
 launches in phases 3-4, 12, 14 and 18, B2 and cut_traffic in phases 3-4,
 12 and 14, policy_scan in phases 10 and 14, B3 and B4 in phases 8
-(qwen1.5-0.5b), 15 (granite-moe-1b-a400m), 16 (whisper-tiny) and 17
-(qwen2-vl-72b), with recurrentgemma-2b's, granite's, whisper-tiny's and
+(qwen1.5-0.5b), 15 (granite-moe-1b-a400m), 16 (whisper-tiny), 17
+(qwen2-vl-72b) and 19 (the trained qwen1.5-0.5b), with recurrentgemma-2b's, granite's, whisper-tiny's and
 qwen2-vl-72b's own numbers in nested keys; whisper-tiny's holds its
 launches and each timed shape, qwen2-vl-72b's its timed shape), the
 card's ``nvidia-smi`` name and power limit,
@@ -221,6 +240,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2486,6 +2506,251 @@ def planner_phase(torch, ops, wall, smi):
     return bench_b1 + sum(b1.values())
 
 
+# Phase 19: training. qwen1.5-0.5b at full width and depth in its config's
+# types (bf16 parameters and activations, float32 AdamW moments), remat on,
+# a SyntheticLM stream of TRAIN_B x TRAIN_S tokens from TRAIN_SEED, the
+# cosine schedule over TRAIN_STEPS steps, checkpoints every 10.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_SEED = 8, 512, 20, 0
+TRAIN_LR, TRAIN_WARMUP = 6e-4, 5
+# A run resumed from its step-10 checkpoint against the uninterrupted run,
+# steps 11-20: |loss - loss'| <= RESTART_REL loss'. The restored state is
+# the checkpoint's bit for bit; the two runs part only where the card's
+# backward is not deterministic (the embedding gather's scatter-add, the
+# order of bf16 atomics), each difference a bf16 rounding of a parameter.
+RESTART_REL = 1e-2
+# One float32 step at 2 layers, card (TF32 off) against the CPU from the
+# same parameters and batch: the loss within F32_LOSS_REL, the grad norm
+# within F32_NORM_REL, and the parameter update within F32_UPDATE_REL of
+# the CPU's in l2 (an element whose gradient lies within rounding of 0 may
+# take the opposite sign, and AdamW's first step moves it by +-lr: the
+# largest difference is printed beside the count of such elements).
+F32_LOSS_REL, F32_NORM_REL, F32_UPDATE_REL = 1e-4, 1e-3, 1e-3
+# The trained model serves: TRAIN_B prompts of TRAIN_SERVE_P tokens, then
+# TRAIN_SERVE_STEPS decode steps.
+TRAIN_SERVE_P, TRAIN_SERVE_STEPS = 128, 8
+
+
+class _Stream:
+    """A ``SyntheticLM`` read in order, with the ``state()``/``seek()`` that
+    the trainer writes into its checkpoints and seeks on resume (the
+    reference's ``SyntheticLM`` has neither; ``MemmapDataset`` has both)."""
+
+    def __init__(self, ds):
+        self.ds, self.index = ds, 0
+
+    def state(self):
+        return {"index": self.index}
+
+    def seek(self, state):
+        self.index = int(state["index"])
+
+    def __iter__(self):
+        while True:
+            batch = self.ds.batch_at(self.index)
+            self.index += 1
+            yield batch
+
+
+def train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi):
+    """Phase 19: train qwen1.5-0.5b at full width and depth through the
+    ``Trainer``, resume it from a checkpoint, hold one float32 step at 2
+    layers against the CPU, and serve from the trained weights. Returns
+    the serving's B3 and B4 launches."""
+    import tempfile
+
+    from repro_torch._tree import leaves
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.profile_serve import profile_phase
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import model_flops, param_counts
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("qwen1.5-0.5b")
+    print(f"[19] training {cfg.name} at full width and depth ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, tied embeddings), {cfg.param_dtype} "
+          f"parameters, float32 AdamW moments, remat; {TRAIN_B} x {TRAIN_S} tokens a step; {smi}")
+    t_phase = time.perf_counter()
+    opt = adamw.AdamWConfig(lr=TRAIN_LR)
+    step = make_train_step(cfg, opt, device="cuda",
+                           lr_fn=adamw.cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS),
+                           remat=True)
+    walls = []
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        float(out[1]["loss"])
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    def init_state():
+        params = M.init_params(cfg, seed=TRAIN_SEED, device="cuda")
+        return {"params": params, "opt": adamw.init_opt_state(params, opt)}
+
+    def trainer(ckpt_dir, total, logs):
+        tcfg = TrainerConfig(total_steps=total, ckpt_dir=ckpt_dir, ckpt_every=10, keep=1,
+                             log_every=10)
+        data = _Stream(SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=TRAIN_SEED))
+        return Trainer(tcfg, timed, init_state, data, log=logs.append)
+
+    for ops in (flash_ops, decode_ops, scan_ops):
+        ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        # (a) 20 steps, checkpoints at 10 and 20 (async, keep 1) ------------
+        logs = []
+        t0 = time.perf_counter()
+        straight = trainer(f"{tmp}/straight", TRAIN_STEPS, logs).run()
+        wall["train_s"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: v for ops in (flash_ops, decode_ops, scan_ops) for k, v in ops.LAUNCHES.items()}
+        check(not any(launched.values()), f"training launched {launched}: B3/B4/B5 have no backward")
+        losses = straight["losses"]
+        check(straight["final_step"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+              and all(map(math.isfinite, losses)), f"training: {straight['final_step']} steps, "
+              f"losses {losses}")
+        check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+        for line in logs:
+            print(f"  {line}")
+        # Steps 3-10 run alone; steps 11-20 beside the async write of the
+        # step-10 checkpoint, which takes the host's time from the
+        # (host-bound) steps.
+        step_s = statistics.median(walls[2:10])
+        saving_s = statistics.median(walls[10:TRAIN_STEPS])
+        tokens = TRAIN_B * TRAIN_S
+        flops = model_flops(cfg, ShapeConfig("train", TRAIN_S, TRAIN_B, "train"))
+        n_params = sum(t.numel() for t in leaves(straight["state"]["params"]))
+        print(f"  {n_params / 1e6:.1f} M parameters ({param_counts(cfg)['total'] / 1e6:.1f} M "
+              f"without the vocab padding); loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+              f"{TRAIN_STEPS} steps: " + " ".join(f"{x:.3f}" for x in losses))
+        print(f"  step wall {step_s * 1e3:.1f} ms (median of steps 3-10; first "
+              f"{walls[0] * 1e3:.1f} ms, second {walls[1] * 1e3:.1f} ms; steps 11-{TRAIN_STEPS}, "
+              f"beside the step-10 checkpoint's write, {saving_s * 1e3:.1f} ms), "
+              f"{tokens / step_s:,.0f} "
+              f"tokens/s; 6 N D = {flops / 1e12:.2f} TFLOP a step, {flops / step_s / 1e12:.1f} "
+              f"TFLOP/s achieved ({100 * flops / step_s / BF16_FLOPS_PER_S:.1f}% of the bf16 "
+              f"peak at 700 W); peak memory {peak / 2**30:.2f} GiB; the 20-step run "
+              f"{wall['train_s']:.2f} s with its two checkpoints; {smi}")
+        wall["train_step_ms"] = step_s * 1e3
+        wall["train_step_saving_ms"] = saving_s * 1e3
+
+        # (b) 10 steps, a checkpoint at 10; a new trainer resumes to 20 -----
+        t0 = time.perf_counter()
+        logs = []
+        first = trainer(f"{tmp}/restart", 10, logs).run()
+        # The parameters only (a sixth of the state's bytes); the resumed
+        # losses below test the moments.
+        ckpt, _ = store.restore(f"{tmp}/restart", {"params": first["state"]["params"]})
+        check(all(torch.equal(a, b) for a, b in zip(leaves(ckpt["params"]),
+                                                    leaves(first["state"]["params"]))),
+              "the step-10 checkpoint does not hold the trained parameters bit for bit")
+        del first, ckpt
+        resumed = trainer(f"{tmp}/restart", TRAIN_STEPS, logs).run()
+        check(any("resumed from step 10" in line for line in logs)
+              and resumed["final_step"] == TRAIN_STEPS and len(resumed["losses"]) == 10,
+              f"the second trainer did not resume at step 10: {logs}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], losses[10:]))
+        check(rel <= RESTART_REL, f"resumed losses {resumed['losses']} differ from the "
+                                  f"uninterrupted run's {losses[10:]} by {rel:.2e} (relative)")
+        print(f"  restart: a trainer resumed at step 10 from the first 10 steps' checkpoint "
+              f"(parameters equal bit for bit); its losses for steps 11-20 within {rel:.2e} of the "
+              f"uninterrupted run's (relative, tolerance {RESTART_REL:g}); "
+              f"{time.perf_counter() - t0:.2f} s")
+        wall["train_restart_s"] = time.perf_counter() - t0
+        del resumed
+
+    # (c) one profiled step of the trained state --------------------------------
+    trained = straight["state"]
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=TRAIN_SEED).batch_at(TRAIN_STEPS)
+    prof = profile_phase(lambda: step(trained, batch))
+    print(f"  one profiled step: wall {prof['wall_s'] * 1e3:.1f} ms, device busy "
+          f"{prof['device_busy_s'] * 1e3:.1f} ms ({100 * prof['busy_share']:.1f}%), "
+          f"{prof['launches']} device activities; top: " + "; ".join(
+              f"{t['name'][:40]} {t['device_ms']:.1f} ms x{t['calls']}" for t in prof["top"][:5]))
+    wall["train_busy_share"] = prof["busy_share"]
+
+    # (d) float32 at 2 layers: one step on the card and on the CPU ----------------
+    t0 = time.perf_counter()
+    c32 = dataclasses.replace(cfg, n_layers=2, dtype="float32", param_dtype="float32")
+    p_cpu = M.init_params(c32, seed=TRAIN_SEED + 1, device="cpu")
+    batch32 = SyntheticLM(c32.vocab_size, 128, 2, seed=TRAIN_SEED + 1).batch_at(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _map_leaves(p_cpu, lambda t, d=dev: t.to(d))
+        out[dev] = make_train_step(c32, opt, device=dev)(
+            {"params": p, "opt": adamw.init_opt_state(p, opt)}, batch32)
+    (cpu, m_cpu), (card, m_card) = out["cpu"], out["cuda"]
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    norm_rel = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) / float(
+        m_cpu["grad_norm"])
+    d_cpu = torch.cat([(a - b).flatten() for a, b in zip(leaves(cpu["params"]), leaves(p_cpu))])
+    d_card = torch.cat([(a.cpu() - b).flatten()
+                        for a, b in zip(leaves(card["params"]), leaves(p_cpu))])
+    upd_rel = float((d_card - d_cpu).norm() / d_cpu.norm())
+    flips = int(((d_card > 0) != (d_cpu > 0)).sum())
+    max_abs = float((d_card - d_cpu).abs().max())
+    check(loss_rel <= F32_LOSS_REL and norm_rel <= F32_NORM_REL and upd_rel <= F32_UPDATE_REL,
+          f"float32 step, card vs CPU: loss {loss_rel:.2e}, grad norm {norm_rel:.2e}, update "
+          f"{upd_rel:.2e} (relative)")
+    print(f"  float32, {c32.n_layers} layers, 2 x 128 tokens, one step card vs CPU: loss "
+          f"{float(m_card['loss']):.6f} vs {float(m_cpu['loss']):.6f} ({loss_rel:.2e} relative, "
+          f"<= {F32_LOSS_REL:g}), grad norm {norm_rel:.2e} (<= {F32_NORM_REL:g}), update "
+          f"{upd_rel:.2e} in l2 (<= {F32_UPDATE_REL:g}); largest parameter difference "
+          f"{max_abs:.3e} (lr {TRAIN_LR:g}), {flips} of {d_cpu.numel()} updates of opposite "
+          f"sign; {time.perf_counter() - t0:.2f} s")
+    wall["train_f32_check_s"] = time.perf_counter() - t0
+    del out, cpu, card, p_cpu
+
+    # (e) the kernels refuse autograd; RG-LRU training waits for A13b -----------
+    q = torch.randn(1, 4, 2, 64, device="cuda", requires_grad=True)
+    kv = torch.randn(1, 4, 2, 64, device="cuda")
+    a = torch.rand(1, 4, 8, device="cuda", requires_grad=True)
+    refusals = (lambda: flash_ops.flash_attention(q, kv, kv, causal=True),
+                lambda: decode_ops.decode_attention(
+                    q[:, 0], kv, kv, torch.full((1,), 4, dtype=torch.int32, device="cuda")),
+                lambda: scan_ops.rglru_scan(a, a.detach(), torch.zeros(1, 8, device="cuda")))
+    for call in refusals:
+        try:
+            call()
+            check(False, "a kernel without a backward returned a result under autograd")
+        except RuntimeError as e:
+            check("no backward" in str(e), f"unexpected refusal: {e}")
+    rg = get_config("recurrentgemma-2b").reduced()
+    try:
+        M.loss_fn(M.init_params(rg, device="cuda"), rg,
+                  {"tokens": torch.zeros(1, 4, dtype=torch.int64)}, device="cuda")
+        check(False, "loss_fn trained an RG-LRU model on the card")
+    except NotImplementedError as e:
+        check("A13b" in str(e), f"unexpected refusal: {e}")
+    print("  B3, B4 and B5 refuse CUDA inputs that require grad; loss_fn refuses RG-LRU on the "
+          "card (ROADMAP A13b)")
+
+    # (f) serve from the trained weights -----------------------------------------
+    for ops in (flash_ops, decode_ops, scan_ops):
+        ops.reset_launches()
+    gen_len = TRAIN_SERVE_STEPS + 1
+    res = serve(cfg, batch=TRAIN_B, prompt_len=TRAIN_SERVE_P, gen_len=gen_len,
+                params=trained["params"], device="cuda")
+    launches = {k: v for ops in (flash_ops, decode_ops, scan_ops) for k, v in ops.LAUNCHES.items()}
+    want = dict(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * TRAIN_SERVE_STEPS,
+                rglru_scan=0)
+    check(launches == want, f"serving the trained weights: launches {launches}, not {want}")
+    toks = res.tokens
+    check(tuple(toks.shape) == (TRAIN_B, gen_len) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, "served tokens out of shape or vocabulary")
+    print(f"  served the trained weights: {TRAIN_B} prompts x {TRAIN_SERVE_P} tokens + "
+          f"{TRAIN_SERVE_STEPS} decode steps, launches {launches} ({cfg.n_layers} B3 a prefill, "
+          f"{cfg.n_layers} B4 a step); sample ids {toks[0].tolist()}")
+    wall["phase_19_s"] = time.perf_counter() - t_phase
+    print(f"  phase 19 wall {wall['phase_19_s']:.1f} s")
+    return {k: launches[k] for k in ("flash_attention", "decode_attention")}
+
+
 def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
     """A redesigned kernel's launch, printed beside its time: the ceiling
     without FMA (every product and sum its own FP64 instruction, half the
@@ -2988,6 +3253,13 @@ def main() -> int:
         if rec["name"] == "sched_scoring":
             print(f"  sched_scoring: {planner_b1} launches in phase 18 (the planner's refine)")
             rec["launches"] += planner_b1
+    # [19] training, then serving from the trained weights ------------------------
+    train_launches = train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi)
+    for rec in records:
+        if rec["name"] in train_launches:
+            print(f"  {rec['name']}: {train_launches[rec['name']]} launches in phase 19 (serving "
+                  f"the trained qwen1.5-0.5b)")
+            rec["launches"] += train_launches[rec["name"]]
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

@@ -7,7 +7,9 @@ the hand-written kernel (``csrc/decode_attention.cu``, the port of
 ``repro/kernels/decode_attention/kernel.py``'s Pallas kernel: a split pass
 over ``split_count`` slices of the cache and a combine pass); on CPU
 tensors it runs the plain PyTorch version (``ref.py``). There is no
-fallback between the two: a launch that fails raises.
+fallback between the two: a launch that fails raises. The kernel has no
+backward: on CUDA tensors that require grad (under grad mode) it raises
+rather than return a result without a gradient.
 """
 
 from __future__ import annotations
@@ -93,6 +95,9 @@ def decode_attention(
         return decode_attention_ref(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda tensors, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the decode_attention kernel has no backward, so its result would carry "
+                           "no gradient: train through models.attention.sdpa, as model.loss_fn does")
     return _launch(q, k, v, lengths)
 
 

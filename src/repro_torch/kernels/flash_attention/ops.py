@@ -5,7 +5,9 @@
 tensors it launches the hand-written kernel (``csrc/flash_attention.cu``,
 the port of ``repro/kernels/flash_attention/kernel.py``'s Pallas kernel);
 on CPU tensors it runs the plain PyTorch version (``ref.py``). There is no
-fallback between the two: a launch that fails raises.
+fallback between the two: a launch that fails raises. The kernel has no
+backward: on CUDA tensors that require grad (under grad mode) it raises
+rather than return a result without a gradient.
 """
 
 from __future__ import annotations
@@ -77,6 +79,9 @@ def flash_attention(
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the flash_attention kernel has no backward, so its result would carry "
+                           "no gradient: train through models.attention.sdpa, as model.loss_fn does")
     return _launch(q, k, v, causal, window)
 
 

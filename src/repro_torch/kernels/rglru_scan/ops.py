@@ -5,7 +5,9 @@ b_t``, as ``repro.kernels.rglru_scan.ops.rglru_scan`` does. On CUDA
 tensors it launches the hand-written kernel (``csrc/rglru_scan.cu``, the
 port of ``repro/kernels/rglru_scan/kernel.py``'s Pallas kernel); on CPU
 tensors it runs the plain PyTorch version (``ref.py``). There is no
-fallback between the two: a launch that fails raises.
+fallback between the two: a launch that fails raises. The kernel has no
+backward: on CUDA tensors that require grad (under grad mode) it raises
+rather than return a result without a gradient.
 """
 
 from __future__ import annotations
@@ -52,6 +54,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
         return rglru_scan_ref(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cpu or cuda tensors, not {a.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
+        raise RuntimeError("the rglru_scan kernel has no backward, so its result would carry "
+                           "no gradient: RG-LRU training on the card waits for ROADMAP A13b")
     return _launch(a, b, h0.to(torch.float32).contiguous())
 
 

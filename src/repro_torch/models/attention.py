@@ -37,6 +37,12 @@ Sq > 1 queries go through ``ops.flash_attention(causal=False)`` over every
 encoder frame, one query through ``ops.decode_attention`` with every row's
 length the frame count. Encoder self-attention is ``cache=None,
 causal=False``: ``flash_attention`` over the fresh keys and values.
+
+Training (``train=True``, which ``model.loss_fn`` passes down) takes the
+reference's differentiable route instead of the kernels, which have no
+backward: attention without a cache, and cross-attention, through ``sdpa``
+(``sdpa_chunked`` from ``CHUNKED_MIN_SEQ`` queries on), as the reference's
+``attention_block`` computes it under its default ``attention_impl="xla"``.
 """
 
 from __future__ import annotations
@@ -60,6 +66,10 @@ __all__ = [
 ]
 
 NEG_INF = -2.0e38
+
+# From this many queries the training route attends through
+# ``sdpa_chunked``, as the reference's ``_CHUNKED_THRESHOLD_SEQ``.
+CHUNKED_MIN_SEQ = 2048
 
 
 @dataclasses.dataclass
@@ -208,17 +218,23 @@ def attention_block(
     positions: torch.Tensor | None = None,  # (Sq,) absolute positions
     cache: KVCache | None = None,
     cross_kv=None,
+    train: bool = False,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Full attention sub-layer: qkv proj -> rope -> (cache write) -> attention -> out.
 
     Returns (output, updated cache); the cache's tensors are written in place.
     With ``cross_kv`` = (k, v), each (B, Sk, n_kv_heads, head_dim), rope and
-    the cache are ignored and the cache comes back as given.
+    the cache are ignored and the cache comes back as given. ``train``
+    attends through ``sdpa`` rather than the kernels (module docstring); it
+    takes no cache.
     """
     B, Sq, _ = x.shape
     q = dense(p["wq"], x).reshape(B, Sq, n_heads, head_dim)
     if cross_kv is not None:
-        out = _cross_attention(q, *cross_kv)
+        if train:
+            out = _train_attention(q, *cross_kv, causal=False)
+        else:
+            out = _cross_attention(q, *cross_kv)
         return dense(p["wo"], out.reshape(B, Sq, n_heads * head_dim)), cache
     k = dense(p["wk"], x).reshape(B, Sq, n_kv_heads, head_dim)
     v = dense(p["wv"], x).reshape(B, Sq, n_kv_heads, head_dim)
@@ -230,7 +246,9 @@ def attention_block(
         q = rope_fn(q, positions)
         k = rope_fn(k, positions)
 
-    if cache is None:
+    if train:
+        out = _train_attention(q, k, v, causal=causal, window=window, positions=positions)
+    elif cache is None:
         out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     elif window:
         out, cache = _ring_attention(q, k, v, cache, window, causal)
@@ -251,6 +269,14 @@ def attention_block(
                                             causal=causal)
         out = out.to(q.dtype)
     return dense(p["wo"], out.reshape(B, Sq, n_heads * head_dim)), cache
+
+
+def _train_attention(q, k, v, *, causal: bool, window: int = 0, positions=None):
+    """The reference's differentiable attention over fresh keys and values:
+    ``sdpa`` below ``CHUNKED_MIN_SEQ`` queries, ``sdpa_chunked`` from there."""
+    if q.shape[1] >= CHUNKED_MIN_SEQ:
+        return sdpa_chunked(q, k, v, causal=causal, window=window)
+    return sdpa(q, k, v, causal=causal, window=window, q_positions=positions)
 
 
 def _cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ The counterpart of ``repro_torch.core.convert`` for the models: after
 conversion both packages compute the same function (the tests hold the
 port's ``prefill`` and ``decode_step`` against ``repro.models.model``'s).
 The caller turns the JAX tree into numpy (``jax.tree.map(np.asarray, ...)``);
-nothing here imports JAX.
+nothing here imports JAX. ``opt_state_from_jax`` carries the optimizer's
+state across the same way, so both packages can train on from one state.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch.models.model import encoder_segments, segments_of
 from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.xlstm import MLSTMState, SLSTMState
 
-__all__ = ["caches_from_jax", "params_from_jax"]
+__all__ = ["caches_from_jax", "opt_state_from_jax", "params_from_jax"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -57,6 +58,17 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device: str | torch.device = "
         out["encoder"]["segments"] = _unstack(enc["segments"], encoder_segments(cfg), dev,
                                               f"{cfg.name}'s encoder")
     return out
+
+
+def opt_state_from_jax(state: dict, cfg: ModelConfig,
+                       device: str | torch.device = "cuda") -> dict:
+    """Convert ``repro.optim.adamw.init_opt_state``'s state (or a later
+    one; leaves as numpy arrays): ``m`` and ``v`` as ``params_from_jax``
+    converts the parameters (segments unstacked), ``step`` an int32 0-d
+    tensor."""
+    dev = resolve_device(device)
+    return {"m": params_from_jax(state["m"], cfg, dev), "v": params_from_jax(state["v"], cfg, dev),
+            "step": _tensor(np.asarray(state["step"], dtype=np.int32), dev)}
 
 
 def _unstack(seg_trees: list, segs, dev: torch.device, what: str) -> list:

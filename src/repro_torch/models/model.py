@@ -26,6 +26,7 @@ Public entry points, each on an explicit device that defaults to
 * ``init_caches(cfg, batch, s_cache, dtype=None, device=...)``
 * ``prefill(params, cfg, batch, caches, device=...)``   — fill caches, last-token logits
 * ``decode_step(params, cfg, batch, caches, device=...)`` — one-token serve step
+* ``loss_fn(params, cfg, batch, device=..., remat=False)`` — training loss (chunked xent)
 
 A model with ``cfg.embedding_inputs`` takes ``batch["embeds"]`` (B, S,
 d_model) as given, unscaled, in place of ``tokens`` (a decode step passes
@@ -39,9 +40,20 @@ An encoder-decoder's ``batch`` carries ``encoder_out`` (the output of
 batch and hands to every step, the reference's decode contract) or
 ``encoder_embeds`` (the forward then runs the encoder itself).
 
-``loss_fn``, and with it the MoE aux loss and the MTP head's forward, come
-with the training slice (ROADMAP A13); serving drops the aux loss, as the
-reference's ``prefill`` and ``decode_step`` do.
+Training: ``loss_fn(params, cfg, batch, device=...)`` is the reference's
+next-token loss (``_chunked_xent`` over 512-token chunks of the sequence,
+float32), plus ``0.3 *`` the MTP head's loss where the config has one and
+``0.01 *`` the MoE blocks' aux loss. ``forward`` keeps its two results; the
+aux loss comes out of the private ``_trunk`` that both share, which also
+takes the training route: attention without a cache (and cross-attention)
+through the model-path ``sdpa`` (``sdpa_chunked`` from 2048 queries), the
+computation the reference differentiates, never B3 or B4, which have no
+backward. With ``remat=True`` every repeat of a segment and every loss
+chunk runs in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+under ``cfg.remat``; the port's config keeps no ``remat`` field, so the
+caller passes it). RG-LRU blocks train on the CPU only (ROADMAP A13b).
+Serving drops the aux loss, as the reference's ``prefill`` and
+``decode_step`` do.
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -81,9 +94,13 @@ __all__ = [
     "encode",
     "prefill",
     "decode_step",
+    "loss_fn",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+# Tokens of the sequence in one chunk of the cross entropy, as the reference.
+_LOSS_SEQ_CHUNK = 512
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +265,7 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, dtype: torch.dtype |
 
 
 def _cross_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                    encoder_out: torch.Tensor) -> torch.Tensor:
+                    encoder_out: torch.Tensor, train: bool = False) -> torch.Tensor:
     """Cross-attention over the encoder's output, its keys and values
     projected at every step, as the reference does."""
     h = rms_norm(p["cross_norm"], x, cfg.norm_eps)
@@ -256,17 +273,19 @@ def _cross_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k = dense(p["cross"]["wk"], encoder_out).reshape(B, Sk, cfg.n_heads, cfg.resolved_head_dim)
     v = dense(p["cross"]["wv"], encoder_out).reshape(B, Sk, cfg.n_heads, cfg.resolved_head_dim)
     y, _ = attn_lib.attention_block(p["cross"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_heads,
-                                    head_dim=cfg.resolved_head_dim, cross_kv=(k, v))
+                                    head_dim=cfg.resolved_head_dim, cross_kv=(k, v), train=train)
     return x + y
 
 
 def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cache, *,
-                 rope_fn, positions, encoder_out=None, causal: bool = True):
+                 rope_fn, positions, encoder_out=None, causal: bool = True, train: bool = False):
+    """One block. Returns (x, new cache, aux): aux is the MoE block's float32
+    aux loss, None for a block without experts."""
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
     if sig.kind in ("mlstm", "slstm"):
         block = xlstm_lib.mlstm_block if sig.kind == "mlstm" else xlstm_lib.slstm_block
         y, new_cache = block(p["cell"], h, cfg, state=cache)
-        return x + y, new_cache
+        return x + y, new_cache, None
     if sig.kind == "rglru":
         y, new_cache = rglru_lib.rglru_block(p["rec"], h, cfg, state=cache)
     elif cfg.use_mla:
@@ -282,29 +301,46 @@ def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cac
             rope_fn=rope_fn,
             positions=positions,
             cache=cache,
+            train=train,
         )
     x = x + y
     if sig.cross:
-        x = _cross_sublayer(p, x, cfg, encoder_out)
+        x = _cross_sublayer(p, x, cfg, encoder_out, train=train)
+    aux = None
     if sig.moe:
-        x = x + moe_lib.moe_block(p["moe"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg)[0]
+        y, aux = moe_lib.moe_block(p["moe"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg)
+        x = x + y
     elif "mlp" in p:
         x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
-    return x, new_cache
+    return x, new_cache, aux
 
 
-def _run_segments(seg_params: list, segs, x: torch.Tensor, cfg: ModelConfig, caches, **kw):
-    """Every block of ``segs`` in order. Returns (x, new caches or None)."""
+def _run_segments(seg_params: list, segs, x: torch.Tensor, cfg: ModelConfig, caches, *,
+                  remat: bool = False, **kw):
+    """Every block of ``segs`` in order. Returns (x, new caches or None, the
+    MoE blocks' aux losses in block order). With ``remat`` each repeat of a
+    segment's pattern runs in ``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` wraps its scan body (training only: no caches)."""
     new_caches = [] if caches is not None else None
+    auxes = []
     for si, (pattern, reps) in enumerate(segs):
         seg_out = [[None] * reps for _ in pattern]
         for r in range(reps):
-            for pi, sig in enumerate(pattern):
-                cache = caches[si][pi][r] if caches is not None else None
-                x, seg_out[pi][r] = _apply_block(seg_params[si][pi][r], sig, x, cfg, cache, **kw)
+            layer = [seg_params[si][pi][r] for pi in range(len(pattern))]
+
+            def repeat(x, layer=layer, pattern=pattern, si=si, r=r, seg_out=seg_out):
+                aux_r = []
+                for pi, sig in enumerate(pattern):
+                    cache = caches[si][pi][r] if caches is not None else None
+                    x, seg_out[pi][r], aux = _apply_block(layer[pi], sig, x, cfg, cache, **kw)
+                    aux_r += [aux] if aux is not None else []
+                return x, aux_r
+
+            x, aux_r = checkpoint(repeat, x, use_reentrant=False) if remat else repeat(x)
+            auxes += aux_r
         if new_caches is not None:
             new_caches.append(seg_out)
-    return x, new_caches
+    return x, new_caches, auxes
 
 
 def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -317,15 +353,18 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def encode(params: dict, cfg: ModelConfig, embeds: torch.Tensor) -> torch.Tensor:
+def encode(params: dict, cfg: ModelConfig, embeds: torch.Tensor, *, train: bool = False,
+           remat: bool = False) -> torch.Tensor:
     """The encoder of an encoder-decoder: frame embeddings (B, encoder_seq,
     d_model) plus sinusoidal positions, ``encoder_layers`` bidirectional
-    attn blocks without rotary or cache, then the encoder's final norm."""
+    attn blocks without rotary or cache, then the encoder's final norm.
+    ``train`` and ``remat`` are ``loss_fn``'s route (module docstring)."""
     S = embeds.shape[1]
     x = embeds + _sinusoidal(torch.arange(S, device=embeds.device), cfg.d_model).to(
         embeds.dtype)[None]
-    x, _ = _run_segments(params["encoder"]["segments"], encoder_segments(cfg), x, cfg, None,
-                         rope_fn=None, positions=None, causal=False)
+    x, _, _ = _run_segments(params["encoder"]["segments"], encoder_segments(cfg), x, cfg, None,
+                            rope_fn=None, positions=None, causal=False, train=train,
+                            remat=remat)
     return rms_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
@@ -338,6 +377,15 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
     takes ``batch["mrope_positions"]`` where given. An encoder-decoder also
     takes ``batch["encoder_out"]`` or, without it, ``batch["encoder_embeds"]``.
     """
+    h, caches, _auxes, _rope_fn = _trunk(params, cfg, batch, caches)
+    return h, caches
+
+
+def _trunk(params: dict, cfg: ModelConfig, batch: dict, caches=None, *, train: bool = False,
+           remat: bool = False):
+    """``forward``'s body. Returns (hidden, new caches, the MoE blocks' aux
+    losses, the rotary function of the blocks or None); ``train`` and
+    ``remat`` are ``loss_fn``'s route (module docstring)."""
     if cfg.embedding_inputs and "embeds" in batch:
         x = batch["embeds"]  # as given: the front end's scale, not sqrt(d_model)
     else:
@@ -355,7 +403,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
     if cfg.is_encoder_decoder:
         encoder_out = batch.get("encoder_out")
         if encoder_out is None:
-            encoder_out = encode(params, cfg, batch["encoder_embeds"])
+            encoder_out = encode(params, cfg, batch["encoder_embeds"], train=train, remat=remat)
         # Absolute sinusoidal positions, no rotary.
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)[None]
     else:
@@ -372,8 +420,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
         def rope_fn(t, _positions):
             return apply_rope(t, cos, sin)
 
-    return _run_segments(params["segments"], segments_of(cfg), x, cfg, caches,
-                         rope_fn=rope_fn, positions=positions, encoder_out=encoder_out)
+    h, caches, auxes = _run_segments(params["segments"], segments_of(cfg), x, cfg, caches,
+                                     rope_fn=rope_fn, positions=positions,
+                                     encoder_out=encoder_out, train=train, remat=remat)
+    return h, caches, auxes, rope_fn
 
 
 def _first_cache_pos(caches) -> int:
@@ -398,6 +448,85 @@ def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def _chunked_xent(params: dict, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """Mean next-token cross entropy over the unmasked positions, without
+    (B, S, V) logits: chunks of ``_LOSS_SEQ_CHUNK`` positions, each its
+    float32 ``logsumexp`` minus the gold logit, sums and counts in float32
+    (a gather of the gold logit where the reference contracts a one-hot:
+    the same number). Each chunk in ``torch.utils.checkpoint`` under
+    ``remat``, as the reference's in ``jax.checkpoint``."""
+
+    def piece(hc, yc, mc):
+        logits = _logits(params, cfg, hc).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, yc[..., None].long())[..., 0]
+        return ((lse - gold) * mc).sum(), mc.sum()
+
+    S = h.shape[1]
+    chunk = min(_LOSS_SEQ_CHUNK, S)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, S, chunk):
+        args = (h[:, s0:s0 + chunk], labels[:, s0:s0 + chunk], mask[:, s0:s0 + chunk].float())
+        t, c = checkpoint(piece, *args, use_reentrant=False) if remat else piece(*args)
+        total = total + t
+        count = count + c
+    return total / torch.clamp(count, min=1.0)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, device: str | torch.device = "cuda",
+            *, remat: bool = False) -> torch.Tensor:
+    """Next-token LM loss (+ MoE aux + MTP head where configured): a float32
+    scalar to differentiate with respect to ``params``.
+
+    ``batch`` as ``forward`` takes it; labels are ``batch["labels"]``, else
+    the tokens shifted by one (an embedding-input model needs explicit
+    labels), and the mask ``batch["mask"]``, else ones with the last column
+    zero. ``remat`` recomputes every repeat and loss chunk in the backward
+    pass. A model with RG-LRU blocks trains on the CPU only: B5 has no
+    backward (ROADMAP A13b).
+    """
+    if torch.device(device).type == "cuda" and "rglru" in cfg.resolved_block_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: RG-LRU training on the card needs a backward for B5 or the "
+            "associative scan in torch (ROADMAP A13b); train it with device='cpu'")
+    tokens, labels = batch.get("tokens"), batch.get("labels")
+    if labels is None and tokens is None:
+        raise ValueError("embedding-input models need explicit labels")
+    batch = _on_device(params, batch, device)
+    table = params["embed"]["table"]
+    tokens = batch.get("tokens")
+    h, _, auxes, rope_fn = _trunk(params, cfg, batch, train=True, remat=remat)
+    if labels is None:
+        labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    labels = torch.as_tensor(labels, device=table.device)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=table.device)
+        mask[:, -1] = 0.0
+    loss = _chunked_xent(params, cfg, h, labels, torch.as_tensor(mask, device=table.device),
+                         remat)
+
+    if cfg.mtp_depth and "mtp" in params and not cfg.embedding_inputs:
+        # Predict token t+2 from [h_t ; emb(token_{t+1})].
+        p = params["mtp"]
+        emb_next = embed_tokens(params["embed"], torch.nn.functional.pad(tokens[:, 1:], (0, 1)))
+        hh = torch.cat([rms_norm(p["norm_h"], h, cfg.norm_eps),
+                        rms_norm(p["norm_e"], emb_next, cfg.norm_eps)], dim=-1)
+        hh = dense(p["proj"], hh)
+        hh, _, _ = _apply_block(p["block"], Signature(kind="attn", moe=False), hh, cfg, None,
+                                rope_fn=rope_fn, positions=torch.arange(hh.shape[1],
+                                                                        device=hh.device),
+                                train=True)
+        labels2 = torch.nn.functional.pad(tokens[:, 2:], (0, 2))
+        mask2 = torch.ones(labels2.shape, dtype=torch.float32, device=table.device)
+        mask2[:, -2:] = 0.0
+        loss = loss + 0.3 * _chunked_xent(params, cfg, hh, labels2, mask2, remat)
+
+    return loss + 0.01 * sum(auxes)
 
 
 def _on_device(params: dict, batch: dict, device) -> dict:
