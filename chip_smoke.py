@@ -214,16 +214,35 @@ Phases (each raises on failure; nothing is caught):
    losses within ``RESTART_REL`` of the uninterrupted run's; (c) one
    profiled step (device busy); (d) one float32 step at 2 layers on the
    card and on the CPU from the same parameters and batch (loss, grad
-   norm, update); (e) B3, B4 and B5 refuse CUDA inputs that require grad,
-   ``loss_fn`` refuses an RG-LRU model on the card (ROADMAP A13b); (f)
-   the trained weights serve 8 prompts of 128 tokens and 8 decode steps:
-   exactly 24 B3 and 24 x 8 B4 launches.
+   norm, update); (e) B3 and B4 refuse CUDA inputs that require grad, B5
+   under autograd launches its kernel and ``rglru_scan_bwd`` once each and
+   gives the plain version's gradient; (f) the trained weights serve 8
+   prompts of 128 tokens and 8 decode steps: exactly 24 B3 and 24 x 8 B4
+   launches; (c') ``step_analysis.analyze_step`` on one step of the
+   trained state: the counted product FLOPs beside 6 N D, touched and
+   collective bytes, the three ``roofline_terms`` on H100 constants beside
+   the measured step wall;
+20. RG-LRU training (ROADMAP A13b): (a) ``recurrentgemma-2b`` at full
+   width (d_model 2560, lru width 2560, d_ff 7 680, vocab 256 000), its
+   depth cut to 9 of 26 layers (three Griffin periods, 1.43 G parameters:
+   full depth needs ~116 GB at phase 19's recipe), bf16 parameters,
+   float32 moments, remat, 8 x 512 ``SyntheticLM`` tokens a step, 10
+   steps through the ``Trainer``: the loss falls, exactly 2 x 6 B5 and
+   6 ``rglru_scan_bwd`` launches a step (the forward and remat's
+   recompute; the backward), no B3 or B4; the step wall (median of steps
+   3-10), tokens/s, peak memory; (b) one float32 step of the first 3
+   layers (both block kinds) on the card and on the CPU from the same
+   parameters and batch, within phase 19's tolerances; (c)
+   ``rglru_scan_bwd`` at (8, 512, 2560) float32 against its plain version
+   (within ``SCAN_TOL``), timed beside it with its bound.
 
 Every phase's wall is printed at the end. The reference's results for
 phases 3-5, 12, 14 and 18 are constants below; ``tests/test_torch_multitenant_golden.py``
 and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
 ``tests/test_torch_paper_*.py`` phase 14's and phase 18's.
-The last lines are the ``{"kernels": [...]}`` record (B1 counts its
+The last lines are the ``{"kernels": [...]}`` record (eight kernels:
+``rglru_scan_bwd`` counts its launches in phase 20, B5 in phases 8 and
+20; B1 counts its
 launches in phases 3-4, 12, 14 and 18, B2 and cut_traffic in phases 3-4,
 12 and 14, policy_scan in phases 10 and 14, B3 and B4 in phases 8
 (qwen1.5-0.5b), 15 (granite-moe-1b-a400m), 16 (whisper-tiny), 17
@@ -1928,7 +1947,7 @@ def moe_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref, de
     with PlainOnCard(flash_ops, decode_ops) as plain:
         launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, P, G,
                              dict(flash_attention=cfg.n_layers,
-                                  decode_attention=cfg.n_layers * (G - 1), rglru_scan=0), wall)
+                                  decode_attention=cfg.n_layers * (G - 1), rglru_scan=0, rglru_scan_bwd=0), wall)
     check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
     print("  no plain attention version ran on the card")
     prompt = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
@@ -2030,7 +2049,7 @@ def moe_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref, de
     params = M.init_params(ds, seed=0, device="cuda")
     Bd, Pd, Gd = 4, 256, 16
     serve_run(torch, lm_ops, M, serve, ds, params, Bd, Pd, Gd,
-              dict(flash_attention=0, decode_attention=0, rglru_scan=0), wall)
+              dict(flash_attention=0, decode_attention=0, rglru_scan=0, rglru_scan_bwd=0), wall)
     peak = torch.cuda.max_memory_allocated()
     latent_bytes = Bd * (Pd + Gd) * (ds.kv_lora_rank + ds.qk_rope_dim) * 2
     mha_bytes = Bd * (Pd + Gd) * ds.n_heads * (ds.qk_nope_dim + ds.qk_rope_dim + ds.v_head_dim) * 2
@@ -2177,7 +2196,7 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
     B, P, G = 8, 512, 64
     with PlainOnCard(flash_ops, decode_ops) as plain:
         serve_run(torch, lm_ops, M, serve, cfg, params, B, P, G,
-                  dict(flash_attention=0, decode_attention=0, rglru_scan=0), wall)
+                  dict(flash_attention=0, decode_attention=0, rglru_scan=0, rglru_scan_bwd=0), wall)
     check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
     H, Dm = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
     print(f"  blocks {'/'.join(sorted(set(cfg.resolved_block_pattern)))} alternating; mLSTM "
@@ -2207,7 +2226,7 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
     with PlainOnCard(flash_ops, decode_ops) as plain:
         launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, Pw, G,
                              dict(flash_attention=cfg.encoder_layers + 2 * L,
-                                  decode_attention=2 * L * (G - 1), rglru_scan=0), wall)
+                                  decode_attention=2 * L * (G - 1), rglru_scan=0, rglru_scan_bwd=0), wall)
     check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
     print(f"  {cfg.encoder_layers} encoder layers over {S_enc} stub frames (d_model "
           f"{cfg.d_model}) + {L} decoder layers, vocab {cfg.vocab_size} padded to "
@@ -2344,7 +2363,7 @@ def vlm_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref, de
     kw = dict(prompt_embeds=emb, mrope_positions=pos.cuda(), decode_positions=step_pos.cuda())
     with PlainOnCard(flash_ops, decode_ops) as plain:
         launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, P, G,
-                             dict(flash_attention=L, decode_attention=L * (G - 1), rglru_scan=0),
+                             dict(flash_attention=L, decode_attention=L * (G - 1), rglru_scan=0, rglru_scan_bwd=0),
                              wall, serve_kw=kw)
     check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
     peak = torch.cuda.max_memory_allocated()
@@ -2551,7 +2570,7 @@ class _Stream:
             yield batch
 
 
-def train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi):
+def train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, scan_ref, wall, smi):
     """Phase 19: train qwen1.5-0.5b at full width and depth through the
     ``Trainer``, resume it from a checkpoint, hold one float32 step at 2
     layers against the CPU, and serve from the trained weights. Returns
@@ -2566,8 +2585,9 @@ def train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.config import ShapeConfig
     from repro_torch.optim import adamw
-    from repro_torch.roofline import model_flops, param_counts
+    from repro_torch.roofline import model_flops, param_counts, roofline_terms
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.step_analysis import analyze_step
 
     cfg = get_config("qwen1.5-0.5b")
     print(f"[19] training {cfg.name} at full width and depth ({cfg.n_layers} layers, d_model "
@@ -2609,7 +2629,8 @@ def train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi):
         wall["train_s"] = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launched = {k: v for ops in (flash_ops, decode_ops, scan_ops) for k, v in ops.LAUNCHES.items()}
-        check(not any(launched.values()), f"training launched {launched}: B3/B4/B5 have no backward")
+        check(not any(launched.values()), f"training launched {launched}: qwen1.5-0.5b trains "
+                                          "with no B3/B4 (attention through sdpa) and no RG-LRU")
         losses = straight["losses"]
         check(straight["final_step"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
               and all(map(math.isfinite, losses)), f"training: {straight['final_step']} steps, "
@@ -2674,6 +2695,26 @@ def train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi):
               f"{t['name'][:40]} {t['device_ms']:.1f} ms x{t['calls']}" for t in prof["top"][:5]))
     wall["train_busy_share"] = prof["busy_share"]
 
+    # (c') the step analyser on one step, and its roofline terms on H100 constants
+    t0 = time.perf_counter()
+    costs = analyze_step(step, trained, batch)
+    terms = roofline_terms(costs.matmul_flops, costs.touched_bytes, costs.collective_bytes)
+    bound = max(terms.values())
+    check(costs.matmul_flops >= flops and costs.collective_bytes == 0,
+          f"the analyser counted {costs.matmul_flops:.4e} FLOP (6 N D {flops:.4e}) and "
+          f"{costs.collective_bytes} collective bytes on one card")
+    print(f"  analyze_step on one step: {costs.matmul_flops / 1e12:.3f} TFLOP of products "
+          f"counted ({costs.matmul_flops / flops:.3f} x 6 N D = {flops / 1e12:.3f} TFLOP: remat "
+          f"recomputes each repeat's forward, attention's products are counted), touched bytes "
+          f"{costs.touched_bytes / 1e9:.2f} GB (an upper bound: every op's result, views "
+          f"included), collective bytes {costs.collective_bytes:g}; roofline terms on H100 "
+          f"constants: compute {terms['compute'] * 1e3:.2f} ms, memory "
+          f"{terms['memory'] * 1e3:.2f} ms, collective {terms['collective'] * 1e3:.2f} ms, "
+          f"against the measured step wall {step_s * 1e3:.1f} ms "
+          f"({100 * bound / step_s:.1f}% of it is the larger term); "
+          f"{time.perf_counter() - t0:.2f} s; {smi}")
+    wall["train_analyse_s"] = time.perf_counter() - t0
+
     # (d) float32 at 2 layers: one step on the card and on the CPU ----------------
     t0 = time.perf_counter()
     c32 = dataclasses.replace(cfg, n_layers=2, dtype="float32", param_dtype="float32")
@@ -2706,29 +2747,33 @@ def train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi):
     wall["train_f32_check_s"] = time.perf_counter() - t0
     del out, cpu, card, p_cpu
 
-    # (e) the kernels refuse autograd; RG-LRU training waits for A13b -----------
+    # (e) B3 and B4 refuse autograd; B5 differentiates through its kernels -------
     q = torch.randn(1, 4, 2, 64, device="cuda", requires_grad=True)
     kv = torch.randn(1, 4, 2, 64, device="cuda")
-    a = torch.rand(1, 4, 8, device="cuda", requires_grad=True)
     refusals = (lambda: flash_ops.flash_attention(q, kv, kv, causal=True),
                 lambda: decode_ops.decode_attention(
-                    q[:, 0], kv, kv, torch.full((1,), 4, dtype=torch.int32, device="cuda")),
-                lambda: scan_ops.rglru_scan(a, a.detach(), torch.zeros(1, 8, device="cuda")))
+                    q[:, 0], kv, kv, torch.full((1,), 4, dtype=torch.int32, device="cuda")))
     for call in refusals:
         try:
             call()
             check(False, "a kernel without a backward returned a result under autograd")
         except RuntimeError as e:
             check("no backward" in str(e), f"unexpected refusal: {e}")
-    rg = get_config("recurrentgemma-2b").reduced()
-    try:
-        M.loss_fn(M.init_params(rg, device="cuda"), rg,
-                  {"tokens": torch.zeros(1, 4, dtype=torch.int64)}, device="cuda")
-        check(False, "loss_fn trained an RG-LRU model on the card")
-    except NotImplementedError as e:
-        check("A13b" in str(e), f"unexpected refusal: {e}")
-    print("  B3, B4 and B5 refuse CUDA inputs that require grad; loss_fn refuses RG-LRU on the "
-          "card (ROADMAP A13b)")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    a, b, h0 = (t.requires_grad_(True) for t in scan_inputs(torch, gen, 2, 300, 640,
+                                                           torch.float32))
+    g = torch.randn(a.shape, device="cuda", generator=gen)
+    scan_ops.reset_launches()
+    got = torch.autograd.grad(scan_ops.rglru_scan(a, b, h0), (a, b, h0), g)
+    launched = dict(scan_ops.LAUNCHES)
+    want = torch.autograd.grad(scan_ref(a, b, h0), (a, b, h0), g)
+    err = max(float((x - w).abs().max()) for x, w in zip(got, want))
+    check(launched == {"rglru_scan": 1, "rglru_scan_bwd": 1},
+          f"B5 under autograd launched {launched}, not one forward and one backward")
+    check(err <= SCAN_TOL, f"B5's gradient differs from its plain version's by {err:.3e}")
+    print(f"  B3 and B4 refuse CUDA inputs that require grad; B5 under autograd launches its "
+          f"kernel and rglru_scan_bwd once each, its gradient within {err:.3e} of autograd "
+          f"through the plain version (2 x 300 x 640, float32; <= {SCAN_TOL:g})")
 
     # (f) serve from the trained weights -----------------------------------------
     for ops in (flash_ops, decode_ops, scan_ops):
@@ -2738,7 +2783,7 @@ def train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi):
                 params=trained["params"], device="cuda")
     launches = {k: v for ops in (flash_ops, decode_ops, scan_ops) for k, v in ops.LAUNCHES.items()}
     want = dict(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * TRAIN_SERVE_STEPS,
-                rglru_scan=0)
+                rglru_scan=0, rglru_scan_bwd=0)
     check(launches == want, f"serving the trained weights: launches {launches}, not {want}")
     toks = res.tokens
     check(tuple(toks.shape) == (TRAIN_B, gen_len) and int(toks.min()) >= 0
@@ -2749,6 +2794,182 @@ def train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi):
     wall["phase_19_s"] = time.perf_counter() - t_phase
     print(f"  phase 19 wall {wall['phase_19_s']:.1f} s")
     return {k: launches[k] for k in ("flash_attention", "decode_attention")}
+
+
+# Phase 20: RG-LRU training. recurrentgemma-2b at full width, its depth cut
+# to RG_TRAIN_LAYERS of 26 (three Griffin periods: 6 RG-LRU and 3
+# local-attention blocks, 1.43 G parameters), phase 19's recipe (bf16
+# parameters, float32 moments, remat, TRAIN_B x TRAIN_S SyntheticLM tokens
+# from TRAIN_SEED, the cosine schedule) over RG_TRAIN_STEPS steps. Full
+# depth (2.89 G parameters) needs ~116 GB at phase 19's ~40 bytes a
+# parameter and waits for a leaner AdamW (ROADMAP A13a). The float32 check
+# runs the first Griffin period (RG_CHECK_LAYERS, both block kinds).
+RG_TRAIN_LAYERS, RG_TRAIN_STEPS, RG_CHECK_LAYERS = 9, 10, 3
+
+
+def time_scan_bwd(torch, scan_ops, bwd_ref, B, S, W):
+    """``rglru_scan_bwd`` at (B, S, W) float32 against its plain version on
+    the card (within ``SCAN_TOL``), then timed beside it; no PyTorch call
+    computes it (library_ms null). The training path asks for no dh0 (h0 is
+    a constant zero state), so neither does the timed call."""
+    from repro_torch.launch.timing import time_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    before = dict(scan_ops.LAUNCHES)
+    a, b, h0 = scan_inputs(torch, gen, B, S, W, torch.float32)
+    h = scan_ops.rglru_scan(a, b, h0)
+    g = torch.randn(B, S, W, device="cuda", generator=gen)
+    got = scan_ops.rglru_scan_bwd(g, a, h, h0)
+    want = bwd_ref(g, a, h, h0)
+    err = max(scan_error(torch, f"rglru_scan_bwd {name} at {B} x {S} x {W}", x, w)
+              for name, x, w in zip(("da", "db", "dh0"), got, want))
+    ms = time_cuda(lambda: scan_ops.rglru_scan_bwd(g, a, h, h0, grad_h0=False))
+    plain_ms = time_cuda(lambda: bwd_ref(g, a, h, h0), reps=5)
+    scan_ops.LAUNCHES.update(before)  # the comparison's launches are not the path's
+    n = B * S * W
+    n_bytes = 5 * n * 4 + B * W * 4  # g, a, h read and da, db written once; h0 read
+    bound = _bound(3 * n / FP32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    print(f"  rglru_scan_bwd B={B} S={S} W={W} float32: within {err:.3e} of its plain version "
+          f"(<= {SCAN_TOL:g}); {ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({n_bytes / 1e6:.2f} MB; {100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.4f} ms; "
+          f"no single PyTorch call computes it, so library_ms is null")
+    return err, ms, plain_ms, bound, None
+
+
+def rglru_train_phase(torch, M, flash_ops, decode_ops, scan_ops, bwd_ref, wall, smi):
+    """Phase 20: train recurrentgemma-2b at full width (RG_TRAIN_LAYERS of
+    its layers) through the ``Trainer``, B5 and ``rglru_scan_bwd``, with the
+    exact launch counts; one float32 step of its first Griffin period
+    against the CPU; ``rglru_scan_bwd`` against its plain version at the
+    training shape, timed. Returns (B5's and the backward's launches in the
+    training run, the backward's timing)."""
+    import tempfile
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import model_flops, param_counts
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    full = get_config("recurrentgemma-2b")
+    cfg = dataclasses.replace(full, n_layers=RG_TRAIN_LAYERS,
+                              block_pattern=full.resolved_block_pattern[:RG_TRAIN_LAYERS])
+    kinds = cfg.resolved_block_pattern
+    n_rec = kinds.count("rglru")
+    print(f"[20] training {full.name} at full width (d_model {cfg.d_model}, lru width "
+          f"{cfg.lru_width}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {cfg.n_layers} of "
+          f"{full.n_layers} layers ({n_rec} RG-LRU, {kinds.count('local_attn')} local attention; "
+          f"full depth, {param_counts(full)['total'] / 1e9:.3f} G parameters, waits for a leaner "
+          f"AdamW, ROADMAP A13a), {cfg.param_dtype} parameters, float32 AdamW moments, remat; "
+          f"{TRAIN_B} x {TRAIN_S} tokens a step; {smi}")
+    t_phase = time.perf_counter()
+    opt = adamw.AdamWConfig(lr=TRAIN_LR)
+    step = make_train_step(cfg, opt, device="cuda", remat=True,
+                           lr_fn=adamw.cosine_schedule(TRAIN_LR, TRAIN_WARMUP, RG_TRAIN_STEPS))
+    walls = []
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        float(out[1]["loss"])
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    def init_state():
+        params = M.init_params(cfg, seed=TRAIN_SEED, device="cuda")
+        return {"params": params, "opt": adamw.init_opt_state(params, opt)}
+
+    # (a) RG_TRAIN_STEPS steps through the Trainer ----------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rglru_train_") as tmp:
+        data = _Stream(SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=TRAIN_SEED))
+        trainer = Trainer(TrainerConfig(total_steps=RG_TRAIN_STEPS, ckpt_dir=tmp,
+                                        ckpt_every=10 ** 9, keep=1, log_every=RG_TRAIN_STEPS),
+                          timed, init_state, data, log=logs.append)
+        for ops in (flash_ops, decode_ops, scan_ops):
+            ops.reset_launches()
+        t0 = time.perf_counter()
+        out = trainer.run()
+        wall["rglru_train_s"] = time.perf_counter() - t0
+        launches = {k: v for ops in (flash_ops, decode_ops, scan_ops)
+                    for k, v in ops.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # Remat: each recurrent block's scan runs in the forward and again in the
+    # recompute of its repeat, its backward once; training attends through
+    # sdpa (no B3, no B4).
+    want = dict(flash_attention=0, decode_attention=0, rglru_scan=2 * n_rec * RG_TRAIN_STEPS,
+                rglru_scan_bwd=n_rec * RG_TRAIN_STEPS)
+    check(launches == want, f"RG-LRU training launched {launches}, not {want}")
+    losses = out["losses"]
+    check(out["final_step"] == RG_TRAIN_STEPS and len(losses) == RG_TRAIN_STEPS
+          and all(map(math.isfinite, losses)), f"RG-LRU training: {out['final_step']} steps, "
+          f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    n_params = sum(t.numel() for t in leaves(out["state"]["params"]))
+    del out, trainer
+    step_s = statistics.median(walls[2:RG_TRAIN_STEPS])
+    tokens = TRAIN_B * TRAIN_S
+    flops = model_flops(cfg, ShapeConfig("train", TRAIN_S, TRAIN_B, "train"))
+    for line in logs:
+        print(f"  {line}")
+    print(f"  {n_params / 1e9:.3f} G parameters; loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{RG_TRAIN_STEPS} steps: " + " ".join(f"{x:.3f}" for x in losses))
+    print(f"  step wall {step_s * 1e3:.1f} ms (median of steps 3-{RG_TRAIN_STEPS}; first "
+          f"{walls[0] * 1e3:.1f} ms), {tokens / step_s:,.0f} tokens/s; 6 N D = "
+          f"{flops / 1e12:.2f} TFLOP a step, {flops / step_s / 1e12:.1f} TFLOP/s achieved "
+          f"({100 * flops / step_s / BF16_FLOPS_PER_S:.1f}% of the bf16 peak at 700 W); peak "
+          f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB, {peak / n_params:.1f} bytes a "
+          f"parameter); launches {launches} (B5 twice and rglru_scan_bwd once a recurrent "
+          f"block a step); {wall['rglru_train_s']:.2f} s; {smi}")
+    wall["rglru_train_step_ms"] = step_s * 1e3
+    wall["rglru_train_peak_gib"] = peak / 2**30
+
+    # (b) float32, the first Griffin period: one step on the card and the CPU ---
+    t0 = time.perf_counter()
+    c32 = dataclasses.replace(cfg, n_layers=RG_CHECK_LAYERS,
+                              block_pattern=kinds[:RG_CHECK_LAYERS], dtype="float32",
+                              param_dtype="float32")
+    p_cpu = M.init_params(c32, seed=TRAIN_SEED + 1, device="cpu")
+    batch32 = SyntheticLM(c32.vocab_size, 128, 2, seed=TRAIN_SEED + 1).batch_at(0)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = _map_leaves(p_cpu, lambda t, d=dev: t.to(d))
+        res[dev] = make_train_step(c32, opt, device=dev)(
+            {"params": p, "opt": adamw.init_opt_state(p, opt)}, batch32)
+        del p
+    (cpu, m_cpu), (card, m_card) = res["cpu"], res["cuda"]
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    norm_rel = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) / float(
+        m_cpu["grad_norm"])
+    d_cpu = torch.cat([(x - y).flatten() for x, y in zip(leaves(cpu["params"]), leaves(p_cpu))])
+    d_card = torch.cat([(x.cpu() - y).flatten()
+                        for x, y in zip(leaves(card["params"]), leaves(p_cpu))])
+    upd_rel = float((d_card - d_cpu).norm() / d_cpu.norm())
+    flips = int(((d_card > 0) != (d_cpu > 0)).sum())
+    check(loss_rel <= F32_LOSS_REL and norm_rel <= F32_NORM_REL and upd_rel <= F32_UPDATE_REL,
+          f"RG-LRU float32 step, card vs CPU: loss {loss_rel:.2e}, grad norm {norm_rel:.2e}, "
+          f"update {upd_rel:.2e} (relative)")
+    print(f"  float32, {c32.n_layers} layers ({', '.join(c32.resolved_block_pattern)}), 2 x 128 "
+          f"tokens, one step card vs CPU: loss {float(m_card['loss']):.6f} vs "
+          f"{float(m_cpu['loss']):.6f} ({loss_rel:.2e} relative, <= {F32_LOSS_REL:g}), grad norm "
+          f"{norm_rel:.2e} (<= {F32_NORM_REL:g}), update {upd_rel:.2e} in l2 "
+          f"(<= {F32_UPDATE_REL:g}); {flips} of {d_cpu.numel()} updates of opposite sign; "
+          f"{time.perf_counter() - t0:.2f} s")
+    wall["rglru_train_f32_check_s"] = time.perf_counter() - t0
+    del res, cpu, card, p_cpu, d_cpu, d_card
+    torch.cuda.empty_cache()
+
+    # (c) rglru_scan_bwd at the training shape ---------------------------------
+    timing = time_scan_bwd(torch, scan_ops, bwd_ref, TRAIN_B, TRAIN_S, cfg.lru_width)
+    wall["phase_20_s"] = time.perf_counter() - t_phase
+    print(f"  phase 20 wall {wall['phase_20_s']:.1f} s")
+    return {k: launches[k] for k in ("rglru_scan", "rglru_scan_bwd")}, timing
 
 
 def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
@@ -3117,7 +3338,7 @@ def main() -> int:
     qwen_launches = serve_run(
         torch, lm_ops, M, serve, lm_cfg, params, 8, 512, gen_len,
         dict(flash_attention=lm_cfg.n_layers, decode_attention=lm_cfg.n_layers * (gen_len - 1),
-             rglru_scan=0), wall)
+             rglru_scan=0, rglru_scan_bwd=0), wall)
     cpu_check(torch, M, lm_cfg, params, 2, 128, 8)
     del params
 
@@ -3128,7 +3349,7 @@ def main() -> int:
     rg_launches = serve_run(
         torch, lm_ops, M, serve, rg_cfg, params, 8, 2304, gen_len,
         dict(flash_attention=n_local, decode_attention=n_local * (gen_len - 1),
-             rglru_scan=n_rec), wall)
+             rglru_scan=n_rec, rglru_scan_bwd=0), wall)
     print(f"  local-attention rings of {min(2304 + gen_len, rg_cfg.local_window)} slots: the "
           f"prefill rolls 2304 tokens into them, decode wraps them {gen_len - 1} times")
     cut, cut_params = first_layers(M, rg_cfg, params, 6)
@@ -3254,12 +3475,26 @@ def main() -> int:
             print(f"  sched_scoring: {planner_b1} launches in phase 18 (the planner's refine)")
             rec["launches"] += planner_b1
     # [19] training, then serving from the trained weights ------------------------
-    train_launches = train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops, wall, smi)
+    train_launches = train_phase(torch, M, serve, flash_ops, decode_ops, scan_ops,
+                                 rglru_scan_ref, wall, smi)
     for rec in records:
         if rec["name"] in train_launches:
             print(f"  {rec['name']}: {train_launches[rec['name']]} launches in phase 19 (serving "
                   f"the trained qwen1.5-0.5b)")
             rec["launches"] += train_launches[rec["name"]]
+    # [20] RG-LRU training through B5 and its backward kernel --------------------
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+
+    rg_train, bwd_timing = rglru_train_phase(torch, M, flash_ops, decode_ops, scan_ops,
+                                             rglru_scan_bwd_ref, wall, smi)
+    for rec in records:
+        if rec["name"] == "rglru_scan":
+            print(f"  rglru_scan: {rec['launches']} launches in phase 8, "
+                  f"{rg_train['rglru_scan']} in phase 20 (training recurrentgemma-2b)")
+            rec["launches"] += rg_train["rglru_scan"]
+    records.append(_record("rglru_scan_bwd", kernel_src.format("rglru_scan"),
+                           "src/repro/models/rglru.py:95", rg_train["rglru_scan_bwd"],
+                           bwd_timing[0], bwd_timing))
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

@@ -1,7 +1,9 @@
 """Build and load ``csrc/rglru_scan.cu`` (nvcc -> shared library -> ctypes).
 
 Built by ``repro_torch.kernels._build`` into ``build/`` beside this file at
-first use. Nothing here runs at import time.
+first use. Nothing here runs at import time. The library holds two
+entries: ``rglru_scan_launch`` (the forward) and ``rglru_scan_bwd_launch``
+(its backward).
 """
 
 from __future__ import annotations
@@ -24,8 +26,20 @@ _ARGTYPES = [
     _I64, _I64, _I64,         # B, S, W
     _P,                       # stream
 ]
+_BWD_ARGTYPES = [
+    _I32,                     # device
+    _P, _P, _P, _P,           # g, a, h, h0 (float32)
+    _P, _P, _P,               # da, db, dh0 (float32; dh0 may be null)
+    _I64, _I64, _I64,         # B, S, W
+    _P,                       # stream
+]
 
 
 def load_library() -> ctypes.CDLL:
-    """The built kernel library (built on first call, then cached)."""
-    return _build.load_library(SOURCE, "rglru_scan_launch", _ARGTYPES)
+    """The built kernel library (built on first call, then cached), both
+    entries bound."""
+    lib = _build.load_library(SOURCE, "rglru_scan_launch", _ARGTYPES)
+    bwd = lib.rglru_scan_bwd_launch
+    bwd.argtypes = _BWD_ARGTYPES
+    bwd.restype = ctypes.c_int
+    return lib

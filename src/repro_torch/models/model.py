@@ -51,7 +51,7 @@ computation the reference differentiates, never B3 or B4, which have no
 backward. With ``remat=True`` every repeat of a segment and every loss
 chunk runs in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
 under ``cfg.remat``; the port's config keeps no ``remat`` field, so the
-caller passes it). RG-LRU blocks train on the CPU only (ROADMAP A13b).
+caller passes it). RG-LRU blocks train through B5 and its backward kernel.
 Serving drops the aux loss, as the reference's ``prefill`` and
 ``decode_step`` do.
 """
@@ -486,13 +486,9 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, device: str | torch.dev
     the tokens shifted by one (an embedding-input model needs explicit
     labels), and the mask ``batch["mask"]``, else ones with the last column
     zero. ``remat`` recomputes every repeat and loss chunk in the backward
-    pass. A model with RG-LRU blocks trains on the CPU only: B5 has no
-    backward (ROADMAP A13b).
+    pass. RG-LRU blocks differentiate through B5 and its hand-written
+    backward (``kernels.rglru_scan.ops``).
     """
-    if torch.device(device).type == "cuda" and "rglru" in cfg.resolved_block_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: RG-LRU training on the card needs a backward for B5 or the "
-            "associative scan in torch (ROADMAP A13b); train it with device='cpu'")
     tokens, labels = batch.get("tokens"), batch.get("labels")
     if labels is None and tokens is None:
         raise ValueError("embedding-input models need explicit labels")

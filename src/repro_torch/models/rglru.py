@@ -16,7 +16,10 @@ RG-LRU recurrence (diagonal, elementwise over the lru width):
 Prefill runs the recurrence through ``ops.rglru_scan`` (the hand-written
 B5 kernel on the card, its plain sequential version on the CPU), where the
 JAX package evaluates it with ``jax.lax.associative_scan``: the two agree
-to float tolerance, not bit for bit. Decode (one token) is the same
+to float tolerance, not bit for bit. Training differentiates the scan
+through ``ops.rglru_scan``'s backward (a reverse scan: the hand-written
+kernel on the card), where the JAX package differentiates the associative
+scan. Decode (one token) is the same
 elementwise update as in the JAX package. The casts are the JAX package's:
 gate products in the activation type, ``r``, ``i``, ``a``, ``b`` and the
 carry in float32, the states cast back before ``* gate``.

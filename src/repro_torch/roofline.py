@@ -1,19 +1,67 @@
-"""Model-FLOPs accounting: analytic parameter counts and model FLOPs.
+"""Roofline terms on H100 constants, and model-FLOPs accounting.
 
-The port of ``param_counts`` and ``model_flops`` of ``repro.roofline``:
-pure arithmetic on a ``ModelConfig`` (and a ``ShapeConfig``), with the
-reference's order of sums, so that both packages give the same floats.
-The serving planner (``repro_torch.sched.stage_model``) costs its stages
-with them. The rest of the reference's module (its hardware constants,
-``roofline_terms`` and the HLO analysis of compiled programs) is TPU
-tooling and waits for ROADMAP A15.
+The port of ``repro.roofline``:
+
+* ``param_counts`` and ``model_flops``: pure arithmetic on a
+  ``ModelConfig`` (and a ``ShapeConfig``), with the reference's order of
+  sums, so that both packages give the same floats. The serving planner
+  (``repro_torch.sched.stage_model``) costs its stages with them.
+* ``H100_CONSTANTS`` and ``roofline_terms``: the reference's three per-step
+  terms (compute, memory, collective, in seconds per device) on the
+  constants of one H100 SXM, taken from ``sched.fleet.H100_SXM`` so that
+  the port holds them once. ``ici_bw`` keeps the reference's name: here it
+  is one NVLink link's rate, as in ``ChipSpec``.
+* ``collective_bytes_of(fn, *args, **kwargs)``: the keys of the
+  reference's ``collective_bytes_from_hlo``, from a run of ``fn`` under
+  ``step_analysis.analyze_step`` (eager PyTorch has no HLO text to parse).
+
+The reference's TPU constants have no counterpart here.
 """
 
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.sched.fleet import H100_SXM
 
-__all__ = ["model_flops", "param_counts"]
+__all__ = ["H100_CONSTANTS", "collective_bytes_of", "model_flops", "param_counts",
+           "roofline_terms"]
+
+H100_CONSTANTS = {
+    "peak_flops": H100_SXM.peak_flops,   # bf16 FLOP/s per card, dense
+    "hbm_bw": H100_SXM.hbm_bw,           # bytes/s per card
+    "ici_bw": H100_SXM.ici_bw,           # bytes/s per NVLink link
+}
+
+
+def collective_bytes_of(fn, *args, **kwargs) -> dict:
+    """Collective payload bytes per device of one call ``fn(*args,
+    **kwargs)``, with its matmul FLOPs and touched bytes (see
+    ``step_analysis.analyze_step``): the keys of the reference's
+    ``collective_bytes_from_hlo``."""
+    from repro_torch.step_analysis import analyze_step
+
+    c = analyze_step(fn, *args, **kwargs)
+    return {
+        "total": c.collective_bytes,
+        "by_kind": c.by_kind,
+        "counts": c.collective_counts,
+        "matmul_flops": c.matmul_flops,
+        "touched_bytes": c.touched_bytes,
+    }
+
+
+def roofline_terms(
+    flops_per_dev: float,
+    bytes_per_dev: float,
+    coll_bytes_per_dev: float,
+    constants: dict = H100_CONSTANTS,
+) -> dict:
+    """The three per-step roofline terms, in seconds (per device)."""
+    return {
+        "compute": flops_per_dev / constants["peak_flops"],
+        "memory": bytes_per_dev / constants["hbm_bw"],
+        "collective": coll_bytes_per_dev / constants["ici_bw"],
+    }
 
 
 def param_counts(cfg: ModelConfig) -> dict:

@@ -22,7 +22,7 @@ import numpy as np
 from repro_torch.core.graph import UserGraph
 from repro_torch.core.profiles import Cluster, Profile
 from repro_torch.models.config import ModelConfig
-from repro_torch.roofline import param_counts
+from repro_torch import roofline  # a module: roofline imports sched.fleet
 from repro_torch.sched.fleet import Fleet
 
 __all__ = ["StageModel", "build_stage_model", "fleet_cluster"]
@@ -44,7 +44,7 @@ def build_stage_model(
     met_points: float = 0.5,
 ) -> StageModel:
     """Cut the model into stages and profile them against fleet pools."""
-    counts = param_counts(cfg)
+    counts = roofline.param_counts(cfg)
     n_active = counts["active"]
     L = cfg.n_layers
     n_stages = min(n_stages, L)

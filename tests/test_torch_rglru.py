@@ -61,7 +61,7 @@ def test_scan_matches_jax(B, S, W, fn, impl):
     got = scan(_t(a), _t(b), _t(h0))
     assert got.dtype == torch.float32 and got.shape == (B, S, W)
     _close(got, want)
-    assert scan_ops.LAUNCHES == before == {"rglru_scan": 0}  # the CPU path launches nothing
+    assert scan_ops.LAUNCHES == before == {"rglru_scan": 0, "rglru_scan_bwd": 0}  # CPU: none
 
 
 def test_scan_from_zero_state_and_bfloat16_inputs():

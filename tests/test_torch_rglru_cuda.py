@@ -1,5 +1,5 @@
-"""The CUDA RG-LRU scan kernel (B5) against its plain PyTorch version on the
-card. Marked ``cuda``: they skip without a card. This file imports no JAX,
+"""The CUDA RG-LRU scan kernel (B5) and its backward kernel
+(``rglru_scan_bwd``) against their plain PyTorch versions on the card. Marked ``cuda``: they skip without a card. This file imports no JAX,
 so it runs on a machine that has torch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_rglru_cuda.py
@@ -7,14 +7,15 @@ so it runs on a machine that has torch alone:
 Tolerance 1e-5, the scan tolerance of ``tests/test_kernels.py``. Both
 versions carry h in float32 and round the product and the sum of every step
 separately, so on the card they agree bit for bit; in bfloat16 both round
-the same float32 states once.
+the same float32 states once. The backward rounds every product and sum of
+its reverse loop in the plain version's order too (float32 only).
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels.rglru_scan import ops as scan_ops
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 SHAPES = [
     # B, S, W
@@ -66,3 +67,35 @@ def test_cuda_scan_empty_and_checked_inputs_launch_nothing(cuda_device):
     with pytest.raises(ValueError, match="one device"):
         scan_ops.rglru_scan(a, b, h0.cpu())
     assert scan_ops.LAUNCHES["rglru_scan"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_h0", (True, False), ids=("dh0", "no-dh0"))
+@pytest.mark.parametrize("B,S,W", SHAPES + [(3, 16, 129), (2, 33, 2560)])
+def test_cuda_scan_backward_matches_plain_version(cuda_device, B, S, W, grad_h0):
+    a, b, h0 = _inputs(B, S, W, torch.float32, cuda_device)
+    g = torch.randn(B, S, W, generator=torch.Generator().manual_seed(S)).to(cuda_device)
+    h = rglru_scan_ref(a, b, h0)
+    want = rglru_scan_bwd_ref(g, a, h, h0)
+    before = dict(scan_ops.LAUNCHES)
+    got = scan_ops.rglru_scan_bwd(g, a, h, h0, grad_h0=grad_h0)
+    torch.cuda.synchronize()
+    assert scan_ops.LAUNCHES == dict(before, rglru_scan_bwd=before["rglru_scan_bwd"] + 1)
+    assert (got[2] is None) == (not grad_h0)
+    for x, w in zip(got, want if grad_h0 else want[:2]):
+        assert x.dtype == torch.float32 and x.shape == w.shape
+        torch.testing.assert_close(x, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_autograd_launches_both_kernels(cuda_device):
+    a, b, h0 = (t.requires_grad_(True) for t in _inputs(2, 40, 96, torch.float32, cuda_device))
+    g = torch.randn(2, 40, 96, device=cuda_device)
+    scan_ops.reset_launches()
+    got = torch.autograd.grad(scan_ops.rglru_scan(a, b, h0), (a, b, h0), g)
+    assert scan_ops.LAUNCHES == {"rglru_scan": 1, "rglru_scan_bwd": 1}
+    want = torch.autograd.grad(rglru_scan_ref(a, b, h0), (a, b, h0), g)
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x, w, atol=1e-5, rtol=1e-5)
+    with pytest.raises(TypeError, match="float32"):
+        scan_ops.rglru_scan(a.detach().bfloat16().requires_grad_(True), b.detach().bfloat16(), h0)

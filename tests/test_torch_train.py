@@ -11,7 +11,8 @@ norm scales and biases drawn from a numpy seed, go to the port through
   route (``torch.utils.checkpoint``) gives the same number.
 * Without a card ``loss_fn``, the train step, a ``Trainer`` that trains on
   ``"cuda"`` and ``train_lm.main`` raise before any host work; an RG-LRU
-  model's ``"cuda"`` request names ROADMAP A13b.
+  model's ``"cuda"`` request is refused the same way, and its CPU loss
+  differentiates through B5's backward.
 
 ``tests/test_torch_train_step.py`` holds the gradients and the steps.
 """
@@ -24,6 +25,7 @@ import torch
 
 from repro.models import model as jax_model
 from repro.models.layers import MeshCtx
+from repro_torch._tree import leaves, leaves_with_path
 from repro_torch.configs import get_config
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as M
@@ -119,9 +121,19 @@ def test_training_raises_without_a_card_before_host_work(no_card, monkeypatch, t
 
 
 def test_rglru_training_on_the_card_is_deferred():
-    """B5 has no backward: a ``"cuda"`` request for an RG-LRU model names
-    ROADMAP A13b (whether a card is present or not)."""
+    """RG-LRU training is no longer deferred: B5 has a backward, so
+    ``loss_fn`` refuses an RG-LRU model on ``"cuda"`` only as it refuses
+    every model without a card (``no CUDA device``, before any host work),
+    and on the CPU the loss differentiates through B5's autograd route."""
     cfg = get_config("recurrentgemma-2b").reduced()
     params = M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        M.loss_fn(params, cfg, {"tokens": _tokens(cfg, 8)}, device="cuda")
+    batch = {"tokens": _tokens(cfg, 8)}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            M.loss_fn(params, cfg, batch, device="cuda")
+    flat = [p.requires_grad_(True) for p in leaves(params)]
+    grads = torch.autograd.grad(M.loss_fn(params, cfg, batch, device="cpu"), flat)
+    by_name = {path: g for (path, _), g in zip(leaves_with_path(params), grads)}
+    lam = [g for path, g in by_name.items() if path[-1] == "lambda_raw"]
+    assert len(lam) == cfg.resolved_block_pattern.count("rglru")
+    assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in lam)

@@ -9,8 +9,10 @@ file imports no JAX, so it runs on a machine that has torch alone:
   and no B3 or B4 launch (training attends through ``sdpa``).
 * The same step at 2 layers in float32 against the CPU: loss within 1e-4
   relative, the grad norm and the new parameters within 1e-3.
-* B3, B4 and B5 refuse CUDA inputs that require grad, and ``loss_fn``
-  refuses an RG-LRU model on the card (ROADMAP A13b).
+* B3 and B4 refuse CUDA inputs that require grad; B5 gives its plain
+  version's gradient through its backward kernel, and a reduced RG-LRU
+  model trains one step on the card (remat: B5 twice a recurrent block,
+  its backward once).
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rglru_scan import ops as scan_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
@@ -81,6 +84,10 @@ def test_float32_step_matches_the_cpu(cuda_device):
 
 
 def test_kernels_refuse_grad_and_rglru_training_waits(cuda_device):
+    """B3 and B4 refuse CUDA inputs that require grad; B5 no longer waits
+    (ROADMAP A13b is done): under autograd it launches its kernel and its
+    backward kernel and gives the plain version's gradient, and ``loss_fn``
+    trains an RG-LRU model on the card through them."""
     q = torch.randn(1, 4, 2, 64, device="cuda", requires_grad=True)
     k = torch.randn(1, 4, 2, 64, device="cuda")
     with pytest.raises(RuntimeError, match="no backward"):
@@ -88,12 +95,26 @@ def test_kernels_refuse_grad_and_rglru_training_waits(cuda_device):
     lengths = torch.full((1,), 4, dtype=torch.int32, device="cuda")
     with pytest.raises(RuntimeError, match="no backward"):
         decode_ops.decode_attention(q[:, 0], k, k, lengths)
-    a = torch.rand(1, 4, 8, device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        scan_ops.rglru_scan(a, torch.rand(1, 4, 8, device="cuda"), torch.zeros(1, 8, device="cuda"))
     with torch.no_grad():  # serving: no grad mode, the kernel launches
         assert flash_ops.flash_attention(q, k, k, causal=True).shape == q.shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand(2, 37, 40, device="cuda", generator=gen).requires_grad_(True)
+    b = torch.randn(2, 37, 40, device="cuda", generator=gen).requires_grad_(True)
+    h0 = torch.randn(2, 40, device="cuda", generator=gen).requires_grad_(True)
+    g = torch.randn(2, 37, 40, device="cuda", generator=gen)
+    scan_ops.reset_launches()
+    got = torch.autograd.grad(scan_ops.rglru_scan(a, b, h0), (a, b, h0), g)
+    assert scan_ops.LAUNCHES == {"rglru_scan": 1, "rglru_scan_bwd": 1}
+    want = torch.autograd.grad(rglru_scan_ref(a, b, h0), (a, b, h0), g)
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x, w, atol=1e-5, rtol=1e-5)
     cfg = get_config("recurrentgemma-2b").reduced()
+    n_rec = cfg.resolved_block_pattern.count("rglru")
+    opt = adamw.AdamWConfig()
     params = M.init_params(cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        M.loss_fn(params, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.int64)}, device="cuda")
+    state = {"params": params, "opt": adamw.init_opt_state(params, opt)}
+    scan_ops.reset_launches()
+    _, metrics = make_train_step(cfg, opt, device="cuda", remat=True)(
+        state, {"tokens": torch.zeros(1, 12, dtype=torch.int64)})
+    assert math.isfinite(float(metrics["loss"])) and math.isfinite(float(metrics["grad_norm"]))
+    assert scan_ops.LAUNCHES == {"rglru_scan": 2 * n_rec, "rglru_scan_bwd": n_rec}
