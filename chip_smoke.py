@@ -2,8 +2,8 @@
 """Chip smoke of the PyTorch + CUDA port: builds the kernels, drives the
 paper's main path, the LM serving paths, the streaming runtime, multi-tenant
 scheduling, the paper's reproduction, MoE serving, xLSTM, the Whisper
-encoder-decoder, qwen2-vl's backbone, the LM-serving planner and LM
-training on one NVIDIA GPU,
+encoder-decoder, qwen2-vl's backbone, the LM-serving planner, LM
+training and the mesh route on one NVIDIA GPU,
 holds every kernel against its plain PyTorch version, and prints the
 kernels' numbers.
 
@@ -234,15 +234,31 @@ Phases (each raises on failure; nothing is caught):
    layers (both block kinds) on the card and on the CPU from the same
    parameters and batch, within phase 19's tolerances; (c)
    ``rglru_scan_bwd`` at (8, 512, 2560) float32 against its plain version
-   (within ``SCAN_TOL``), timed beside it with its bound.
+   (within ``SCAN_TOL``), timed beside it with its bound;
+21. the mesh route (``models.layers.MeshCtx``, ``launch.steps``' ``mesh=``,
+   the MoE expert-parallel routes, ``launch.dryrun``): (a) dry-run cells
+   over the production meshes (a fake group of 256 or 512 ranks, meta
+   DTensors: accounting figures, no card work): every shape of
+   qwen1.5-0.5b, granite-moe-1b-a400m and recurrentgemma-2b, and
+   qwen2-vl-72b's train_4k at all 80 layers on the 16x16 and 2x16x16
+   meshes; each cell's per-device arguments and peak, whether they fit 80
+   GB, the three roofline terms on H100 constants and the dominant one,
+   6 N D over the counted FLOPs, and the wall; (b) a one-rank NCCL group and
+   a 1 x 1 ("data", "model") mesh on the card: one train step of
+   qwen1.5-0.5b at full width and depth, of recurrentgemma-2b's first 3
+   layers (exactly 4 B5 and 2 ``rglru_scan_bwd`` launches, inside
+   ``local_map``) and of granite-moe-1b-a400m's first 2 layers (the
+   ``a2a`` route), each through ``make_train_step(mesh=...)`` on DTensors
+   and equal bit for bit to the mesh-less step from the same state and
+   batch; the group is destroyed after the phase.
 
 Every phase's wall is printed at the end. The reference's results for
 phases 3-5, 12, 14 and 18 are constants below; ``tests/test_torch_multitenant_golden.py``
 and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
 ``tests/test_torch_paper_*.py`` phase 14's and phase 18's.
 The last lines are the ``{"kernels": [...]}`` record (eight kernels:
-``rglru_scan_bwd`` counts its launches in phase 20, B5 in phases 8 and
-20; B1 counts its
+``rglru_scan_bwd`` counts its launches in phases 20 and 21, B5 in phases
+8, 20 and 21; B1 counts its
 launches in phases 3-4, 12, 14 and 18, B2 and cut_traffic in phases 3-4,
 12 and 14, policy_scan in phases 10 and 14, B3 and B4 in phases 8
 (qwen1.5-0.5b), 15 (granite-moe-1b-a400m), 16 (whisper-tiny), 17
@@ -2972,6 +2988,163 @@ def rglru_train_phase(torch, M, flash_ops, decode_ops, scan_ops, bwd_ref, wall, 
     return {k: launches[k] for k in ("rglru_scan", "rglru_scan_bwd")}, timing
 
 
+# Phase 21: the mesh route. (a) dry-run cells over the production meshes
+# (``launch.dryrun.run_cell``: a fake group of 256 or 512 ranks in this one
+# process, meta DTensors, no card work): every shape of three archs, and
+# qwen2-vl-72b's train_4k at all 80 layers on both meshes. (b) a one-rank
+# NCCL group and a 1 x 1 ("data", "model") mesh on the card: one train step
+# each of qwen1.5-0.5b (full width and depth), recurrentgemma-2b's first
+# MESH_RG_LAYERS layers and granite-moe-1b-a400m's first MESH_MOE_LAYERS
+# (through the ``a2a`` route), through ``make_train_step(mesh=...)`` on
+# DTensors, against the mesh-less step from the same state and batch: equal
+# bit for bit (deterministic algorithms on for both, as the embedding and
+# MoE gathers' backward otherwise add in no fixed order).
+MESH_DRYRUN_CELLS = tuple(
+    [(arch, shape, False) for arch in ("qwen1.5-0.5b", "granite-moe-1b-a400m",
+                                       "recurrentgemma-2b")
+     for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+    + [("qwen2-vl-72b", "train_4k", False), ("qwen2-vl-72b", "train_4k", True)])
+MESH_RG_LAYERS, MESH_MOE_LAYERS = 3, 2
+
+
+def _dtensor_full(tree):
+    from torch.distributed.tensor import DTensor
+
+    return _map_leaves(tree, lambda t: t.full_tensor() if isinstance(t, DTensor) else t)
+
+
+def mesh_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
+    """Phase 21 (see MESH_DRYRUN_CELLS). Returns B5's and its backward's
+    launches inside ``local_map`` in (b)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import partition
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.launch.steps import mesh_ctx
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "a process group exists before phase 21")
+    # (a) -----------------------------------------------------------------------
+    print("[21] the mesh route: (a) dry-run cells (accounting figures from a traced step on "
+          "meta DTensors over a fake group, per device; no card work; terms on H100 constants)")
+    for arch, shape, multi in MESH_DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        res = dryrun.run_cell(arch, shape, multi_pod=multi, print_analysis=False)
+        check(not dist.is_initialized(), f"run_cell left a process group ({arch} {shape})")
+        if "skipped" in res:
+            check(not get_config(arch).is_sub_quadratic and shape == "long_500k",
+                  f"{arch} {shape} skipped")
+            print(f"  {arch:<22} {shape:<12} skipped: {res['skipped'][:60]}")
+            continue
+        mem, t = res["memory"], res["terms_s"]
+        print(f"  {arch:<22} {shape:<12} {res['mesh']:<8} args "
+              f"{mem['argument_size_in_bytes'] / 1e9:.2f} GB + peak "
+              f"{mem['peak_live_bytes'] / 1e9:.2f} GB a device, fits 80 GB "
+              f"{'yes' if res['fits_80gb'] else 'no'}; compute {t['compute']:.4f} s, memory "
+              f"{t['memory']:.4f} s, collective {t['collective']:.4f} s -> {res['dominant']}; "
+              f"6ND/counted {res['useful_flops_ratio']:.3f}; collectives "
+              f"{res['collective_bytes_per_device'] / 1e9:.2f} GB a device; traced depths "
+              f"{res['traced_depths']}; wall {time.perf_counter() - t0:.1f} s")
+        check(all(math.isfinite(v) and v >= 0 for v in t.values())
+              and res["flops_per_device"] > 0, f"{arch} {shape}: terms {t}")
+    wall["mesh_dryrun_s"] = time.perf_counter() - t_phase
+
+    # (b) -----------------------------------------------------------------------
+    t0 = time.perf_counter()
+    qwen = get_config("qwen1.5-0.5b")
+    rg = get_config("recurrentgemma-2b")
+    rg = dataclasses.replace(rg, n_layers=MESH_RG_LAYERS,
+                             block_pattern=rg.resolved_block_pattern[:MESH_RG_LAYERS])
+    gr = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=MESH_MOE_LAYERS)
+    n_rec = rg.resolved_block_pattern.count("rglru")
+    cases = (("qwen1.5-0.5b, full width and depth", qwen, {}),
+             (f"recurrentgemma-2b, first {MESH_RG_LAYERS} layers", rg,
+              {"rglru_scan": 2 * n_rec, "rglru_scan_bwd": n_rec}),
+             (f"granite-moe-1b-a400m, first {MESH_MOE_LAYERS} layers", gr, {}))
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    b5 = {"rglru_scan": 0, "rglru_scan_bwd": 0}
+    torch.cuda.set_device(0)  # the rank's card, before the mesh's communicator
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            print(f"  (b) a one-rank NCCL group, a 1 x 1 (data, model) mesh on the card; "
+                  f"{smi}")
+            for label, cfg, want in cases:
+                opt = adamw.AdamWConfig(lr=TRAIN_LR)
+                params = M.init_params(cfg, seed=TRAIN_SEED, device="cuda")
+                batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                         SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                     seed=TRAIN_SEED).batch_at(0).items()}
+                ref, ref_m = make_train_step(cfg, opt, device="cuda", remat=True)(
+                    {"params": params, "opt": adamw.init_opt_state(params, opt)}, batch)
+                ref = _dtensor_full(ref)
+
+                def place(tree, specs):
+                    if isinstance(tree, dict):
+                        return {k: place(v, specs[k]) for k, v in tree.items()}
+                    if isinstance(tree, list):
+                        return [place(v, sp) for v, sp in zip(tree, specs)]
+                    return distribute_tensor(tree, specs.mesh, list(specs.placements))
+
+                pd = place(params, partition.shardings(partition.param_specs(params, mesh, cfg),
+                                                        mesh))
+                bd = place(batch, partition.shardings(partition.batch_specs(batch, mesh, cfg),
+                                                       mesh))
+                if cfg.is_moe:
+                    route = moe_lib.moe_route(mesh_ctx(mesh, cfg), cfg, TRAIN_B, TRAIN_S)
+                    check(route[0] == "a2a", f"{label}: MoE route {route}")
+                for ops in (flash_ops, decode_ops, scan_ops):
+                    ops.reset_launches()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                new, met = make_train_step(cfg, opt, device="cuda", remat=True, mesh=mesh)(
+                    {"params": pd, "opt": adamw.init_opt_state(pd, opt)}, bd)
+                new, met = _dtensor_full(new), _dtensor_full(met)
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - t1
+                launches = {k: v for ops in (flash_ops, decode_ops, scan_ops)
+                            for k, v in ops.LAUNCHES.items() if v}
+                check(launches == want, f"{label}: mesh step launched {launches}, not {want}")
+                for k in b5:
+                    b5[k] += launches.get(k, 0)
+                diffs = [(a != b).sum().item() for a, b in
+                         zip(_leaves(ref), _leaves(new))]
+                same = (sum(diffs) == 0 and all(torch.equal(ref_m[k], met[k])
+                                                 for k in ("loss", "grad_norm", "lr")))
+                check(same, f"{label}: the mesh step differs from the mesh-less one: loss "
+                      f"{float(met['loss'])} vs {float(ref_m['loss'])}, {sum(diffs)} elements "
+                      f"of {sum(t.numel() for t in _leaves(ref))} differ")
+                print(f"  {label}: loss {float(met['loss']):.6f}, grad norm "
+                      f"{float(met['grad_norm']):.4f}, every one of "
+                      f"{sum(t.numel() for t in _leaves(ref)):,} state elements equal to the "
+                      f"mesh-less step's bit for bit; launches {launches or 'none'}; mesh step "
+                      f"{step_s:.2f} s (first, with DTensor's dispatch)")
+                del params, pd, bd, ref, new, batch
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+            torch.use_deterministic_algorithms(det)
+    check(not dist.is_initialized(), "phase 21 left a process group")
+    wall["mesh_train_s"] = time.perf_counter() - t0
+    wall["phase_21_s"] = time.perf_counter() - t_phase
+    print(f"  phase 21 wall {wall['phase_21_s']:.1f} s (dry-run cells "
+          f"{wall['mesh_dryrun_s']:.1f} s)")
+    return b5
+
+
 def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
     """A redesigned kernel's launch, printed beside its time: the ceiling
     without FMA (every product and sum its own FP64 instruction, half the
@@ -3492,9 +3665,18 @@ def main() -> int:
             print(f"  rglru_scan: {rec['launches']} launches in phase 8, "
                   f"{rg_train['rglru_scan']} in phase 20 (training recurrentgemma-2b)")
             rec["launches"] += rg_train["rglru_scan"]
+    # [21] the mesh route: dry-run cells, then train steps on a 1 x 1 mesh ------------
+    mesh_b5 = mesh_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi)
+    for rec in records:
+        if rec["name"] == "rglru_scan":
+            print(f"  rglru_scan: {mesh_b5['rglru_scan']} launches in phase 21 (local_map)")
+            rec["launches"] += mesh_b5["rglru_scan"]
     records.append(_record("rglru_scan_bwd", kernel_src.format("rglru_scan"),
-                           "src/repro/models/rglru.py:95", rg_train["rglru_scan_bwd"],
+                           "src/repro/models/rglru.py:95",
+                           rg_train["rglru_scan_bwd"] + mesh_b5["rglru_scan_bwd"],
                            bwd_timing[0], bwd_timing))
+    print(f"  rglru_scan_bwd: {rg_train['rglru_scan_bwd']} launches in phase 20, "
+          f"{mesh_b5['rglru_scan_bwd']} in phase 21 (local_map)")
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

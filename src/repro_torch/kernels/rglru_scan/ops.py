@@ -6,7 +6,9 @@ b_t``, as ``repro.kernels.rglru_scan.ops.rglru_scan`` does. On CUDA
 tensors it launches the hand-written kernel (``csrc/rglru_scan.cu``, the
 port of ``repro/kernels/rglru_scan/kernel.py``'s Pallas kernel); on CPU
 tensors it runs the plain PyTorch version (``ref.py``). There is no
-fallback between the two: a launch that fails raises.
+fallback between the two: a launch that fails raises. On meta tensors (the
+dry-run's, shapes without storage) both directions only make their
+outputs' shapes; nothing is computed or counted.
 
 Under grad mode, where an input requires grad, the call goes through
 ``_Scan``, a ``torch.autograd.Function`` whose backward is a reverse scan:
@@ -61,8 +63,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
         raise ValueError("a and b must be contiguous")
     if b.device != a.device or h0.device != a.device:
         raise ValueError("a, b, h0 must lie on one device")
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rglru_scan runs on cpu or cuda tensors, not {a.device}")
+    if a.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"rglru_scan runs on cpu, cuda or meta tensors, not {a.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
         if a.dtype != torch.float32:
             raise TypeError(f"the rglru_scan backward takes float32 a and b, got {a.dtype}")
@@ -72,7 +74,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
 
 def _forward(a, b, h0):
     """The scan on a's device; h0 float32 and contiguous."""
-    if a.numel() == 0:
+    if a.numel() == 0 or a.device.type == "meta":
         return torch.empty_like(a)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
@@ -109,8 +111,10 @@ def rglru_scan_bwd(g: torch.Tensor, a: torch.Tensor, h: torch.Tensor, h0: torch.
     if a.device.type == "cpu":
         da, db, dh0 = rglru_scan_bwd_ref(g, a, h, h0)
         return da, db, dh0 if grad_h0 else None
+    if a.device.type == "meta":
+        return torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0) if grad_h0 else None
     if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan_bwd runs on cpu or cuda tensors, not {a.device}")
+        raise ValueError(f"rglru_scan_bwd runs on cpu, cuda or meta tensors, not {a.device}")
     g, a, h, h0 = (t.contiguous() for t in (g, a, h, h0))
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty_like(h0) if grad_h0 else None

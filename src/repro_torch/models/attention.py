@@ -43,6 +43,20 @@ reference's differentiable route instead of the kernels, which have no
 backward: attention without a cache, and cross-attention, through ``sdpa``
 (``sdpa_chunked`` from ``CHUNKED_MIN_SEQ`` queries on), as the reference's
 ``attention_block`` computes it under its default ``attention_impl="xla"``.
+
+Over a mesh (``ctx``, a ``layers.MeshCtx`` with a ``DeviceMesh``) the
+queries and the attention output are placed heads over TP, as the
+reference constrains them, and every branch takes that XLA route, serving
+included: the reference's mesh route never reaches its Pallas kernels.
+A cache is then written as the reference writes it (a whole-cache prompt
+replaces it, a longer one keeps its last slots rolled into ring order,
+anything shorter is written at ``pos``, or at ``pos % S_cache`` in a
+ring), in place, and ``sdpa`` attends over every slot with the validity
+mask and, in a ring, each slot's absolute position; from
+``CHUNKED_MIN_SEQ`` queries on ``sdpa_chunked`` attends over the fresh
+keys and values, as it does for a prompt longer than a ring at any length
+(where the reference, below 2048 tokens, attends over the ring it just
+cut: ROADMAP C-ref-6).
 """
 
 from __future__ import annotations
@@ -54,11 +68,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import dense, init_dense
+from repro_torch.models.layers import MeshCtx, dense, init_dense, per_shard
 
 __all__ = [
     "KVCache",
     "init_attention",
+    "attend",
     "attention_block",
     "init_kv_cache",
     "sdpa",
@@ -180,9 +195,10 @@ def sdpa_chunked(
         hi = Sk if not causal else min(Sk, q0 + qlen)
         lo = 0 if not window else max(0, q0 - window + 1)
         lo = (lo // k_chunk) * k_chunk
-        m = torch.full((B, Hkv, G, qlen), NEG_INF, device=q.device)
-        l = torch.zeros(B, Hkv, G, qlen, device=q.device)
-        acc = torch.zeros(B, Hkv, G, qlen, Dv, device=q.device)
+        # The running max, denominator and accumulator start at the first
+        # key chunk's (the same numbers as from -inf and zeros, and, over a
+        # mesh, placed as the scores are rather than replicated).
+        m = l = acc = None
         for k0 in range(lo, hi, k_chunk):
             kb, vb = k[:, k0:k0 + k_chunk], v[:, k0:k0 + k_chunk]
             s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb.float())
@@ -193,12 +209,15 @@ def sdpa_chunked(
             if window:
                 mask &= k_pos[None, :] > q_pos[:, None] - window
             s = torch.where(mask, s, neg_inf)
-            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_new = s.amax(dim=-1) if m is None else torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
             pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(q.dtype).float(), vb.float())
-            acc = acc * corr[..., None] + pv
+            if m is None:
+                l, acc = p.sum(dim=-1), pv
+            else:
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + pv
             m = m_new
         out = acc / l[..., None].clamp_min(1e-30)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, qlen, H, Dv).to(q.dtype))
@@ -219,6 +238,7 @@ def attention_block(
     cache: KVCache | None = None,
     cross_kv=None,
     train: bool = False,
+    ctx: MeshCtx = MeshCtx(),
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Full attention sub-layer: qkv proj -> rope -> (cache write) -> attention -> out.
 
@@ -226,18 +246,21 @@ def attention_block(
     With ``cross_kv`` = (k, v), each (B, Sk, n_kv_heads, head_dim), rope and
     the cache are ignored and the cache comes back as given. ``train``
     attends through ``sdpa`` rather than the kernels (module docstring); it
-    takes no cache.
+    takes no cache. ``ctx`` is the mesh route (module docstring).
     """
     B, Sq, _ = x.shape
-    q = dense(p["wq"], x).reshape(B, Sq, n_heads, head_dim)
+    mesh = ctx.mesh is not None
+    q = ctx.split_heads(dense(p["wq"], x), n_heads)
+    q = ctx.shard(q, ctx.data_axes, None, ctx.tp_axis, None)
     if cross_kv is not None:
-        if train:
-            out = _train_attention(q, *cross_kv, causal=False)
+        if train or mesh:
+            out = _train_attention(q, *cross_kv, causal=False, ctx=ctx)
         else:
             out = _cross_attention(q, *cross_kv)
+        out = ctx.shard(out, ctx.data_axes, None, ctx.tp_axis, None)
         return dense(p["wo"], out.reshape(B, Sq, n_heads * head_dim)), cache
-    k = dense(p["wk"], x).reshape(B, Sq, n_kv_heads, head_dim)
-    v = dense(p["wv"], x).reshape(B, Sq, n_kv_heads, head_dim)
+    k = ctx.split_heads(dense(p["wk"], x), n_kv_heads)
+    v = ctx.split_heads(dense(p["wv"], x), n_kv_heads)
 
     if positions is None:
         base = cache.pos if cache is not None else 0
@@ -246,8 +269,12 @@ def attention_block(
         q = rope_fn(q, positions)
         k = rope_fn(k, positions)
 
-    if train:
-        out = _train_attention(q, k, v, causal=causal, window=window, positions=positions)
+    if train or (mesh and cache is None):
+        out = _train_attention(q, k, v, causal=causal, window=window, positions=positions,
+                               ctx=ctx)
+    elif mesh:
+        out, cache = _mesh_cached_attention(q, k, v, cache, causal=causal, window=window,
+                                            positions=positions, ctx=ctx)
     elif cache is None:
         out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     elif window:
@@ -268,15 +295,86 @@ def attention_block(
             out = flash_ops.flash_attention(qc, cache.k[:, :pos + Sq], cache.v[:, :pos + Sq],
                                             causal=causal)
         out = out.to(q.dtype)
+    out = ctx.shard(out, ctx.data_axes, None, ctx.tp_axis, None)
     return dense(p["wo"], out.reshape(B, Sq, n_heads * head_dim)), cache
 
 
-def _train_attention(q, k, v, *, causal: bool, window: int = 0, positions=None):
+def _mesh_cached_attention(q, k, v, cache: KVCache, *, causal: bool, window: int, positions,
+                           ctx: MeshCtx):
+    """The reference's cached attention, as its mesh route computes it
+    (module docstring). Returns (out, cache)."""
+    Sq = q.shape[1]
+    s_cache, pos = cache.k.shape[1], cache.pos
+    kc, vc = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    if Sq >= s_cache:
+        # A prompt as long as the cache replaces it; a longer one (a ring)
+        # keeps its last s_cache positions, rolled so slot(P) = P % s_cache.
+        start = (pos + Sq - s_cache) % s_cache
+
+        def ring(t):
+            return torch.roll(t, start, dims=1)
+
+        cache.k.copy_(per_shard(ring, kc[:, Sq - s_cache:], dims=(1,)))
+        cache.v.copy_(per_shard(ring, vc[:, Sq - s_cache:], dims=(1,)))
+    else:
+        write = pos % s_cache if window else pos
+        if write + Sq > s_cache:
+            raise ValueError(f"KV cache full: {write} + {Sq} tokens > {s_cache} slots")
+        cache.k[:, write:write + Sq] = kc
+        cache.v[:, write:write + Sq] = vc
+    total = pos + Sq
+    cache = KVCache(k=cache.k, v=cache.v, pos=total)
+    slots = torch.arange(s_cache, device=positions.device)
+    kv_valid = slots < total
+    if Sq >= CHUNKED_MIN_SEQ:  # attention over the prompt's own keys and values
+        return attend(ctx, sdpa_chunked, q, k, v, causal=causal, window=window), cache
+    if Sq > s_cache:
+        # Below 2048 tokens the reference attends over the ring it just
+        # cut (ROADMAP C-ref-6); the prompt's own keys are the right ones.
+        return attend(ctx, sdpa, q, k, v, causal=causal, window=window,
+                      q_positions=positions), cache
+    if window and s_cache <= window:
+        # A ring: slot i holds the newest position congruent to i.
+        k_abs = slots + ((total - 1 - slots) // s_cache) * s_cache
+        out = attend(ctx, sdpa, q, cache.k, cache.v, causal=True, window=window,
+                     q_positions=positions, kv_valid=kv_valid, k_positions=k_abs)
+    else:
+        out = attend(ctx, sdpa, q, cache.k, cache.v, causal=causal, window=window,
+                     q_positions=positions, kv_valid=kv_valid)
+    return out, cache
+
+
+def attend(ctx: MeshCtx, fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` (``sdpa`` or ``sdpa_chunked``); over a mesh,
+    on each rank's (batch, head) shard through ``local_map``, heads over
+    TP as the reference constrains the queries: attention is independent
+    across both, so the shards need no collective, forward or backward.
+    Keys and values whose head count TP does not divide (GQA with fewer KV
+    heads than ranks) are repeated to the query heads first; masks and
+    positions in ``kw`` are plain tensors, the same on every rank."""
+    if ctx.mesh is None:
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor.experimental import local_map
+
+    H, Hkv = q.shape[2], k.shape[2]
+    tp = ctx.axis_size(ctx.tp_axis)
+    if Hkv % tp and H % tp == 0:
+        k, v = (ctx.as_dtensor(t).repeat_interleave(H // Hkv, dim=2) for t in (k, v))
+    spec = (ctx.data_axes, None, ctx.tp_axis, None)
+    pls = [list(ctx.placements(t.shape, spec)) for t in (q, k, v)]
+    run = local_map(lambda q_, k_, v_: fn(q_, k_, v_, **kw), out_placements=pls[0],
+                    in_placements=tuple(pls), device_mesh=ctx.mesh, redistribute_inputs=True)
+    return run(*(ctx.as_dtensor(t) for t in (q, k, v)))
+
+
+def _train_attention(q, k, v, *, causal: bool, window: int = 0, positions=None,
+                     ctx: MeshCtx = MeshCtx()):
     """The reference's differentiable attention over fresh keys and values:
-    ``sdpa`` below ``CHUNKED_MIN_SEQ`` queries, ``sdpa_chunked`` from there."""
+    ``sdpa`` below ``CHUNKED_MIN_SEQ`` queries, ``sdpa_chunked`` from there
+    (``attend``: per shard over a mesh)."""
     if q.shape[1] >= CHUNKED_MIN_SEQ:
-        return sdpa_chunked(q, k, v, causal=causal, window=window)
-    return sdpa(q, k, v, causal=causal, window=window, q_positions=positions)
+        return attend(ctx, sdpa_chunked, q, k, v, causal=causal, window=window)
+    return attend(ctx, sdpa, q, k, v, causal=causal, window=window, q_positions=positions)
 
 
 def _cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -31,9 +31,9 @@ import dataclasses
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.attention import NEG_INF, sdpa_chunked
+from repro_torch.models.attention import NEG_INF, attend, sdpa_chunked
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense, init_dense, rms_norm, rope
+from repro_torch.models.layers import MeshCtx, apply_rope, dense, init_dense, rms_norm, rope
 
 __all__ = ["MLACache", "init_mla", "init_mla_cache", "mla_block"]
 
@@ -86,8 +86,11 @@ def mla_block(
     *,
     positions: torch.Tensor | None = None,    # (Sq,) absolute positions
     cache: MLACache | None = None,
+    ctx: MeshCtx = MeshCtx(),
 ) -> tuple[torch.Tensor, MLACache | None]:
-    """Returns (output (B, Sq, d), updated cache); the cache is written in place."""
+    """Returns (output (B, Sq, d), updated cache); the cache is written in
+    place. ``ctx`` places the expanded heads and the output over a mesh, at
+    the reference's constraints."""
     B, Sq, _ = x.shape
     h = cfg.n_heads
     dn, dr, dv, L = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
@@ -127,7 +130,11 @@ def mla_block(
         k_full = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(B, Sq, h, dr)], dim=-1)
         v_full = dense(p["wv_b"], latent_all).reshape(B, Sq, h, dv)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
-        out = sdpa_chunked(q_full, k_full, v_full, causal=True)
+        # The expanded heads stay TP-sharded (the reference's constraints).
+        q_full, k_full, v_full = (ctx.shard(t, ctx.data_axes, None, ctx.tp_axis, None)
+                                  for t in (q_full, k_full, v_full))
+        out = attend(ctx, sdpa_chunked, q_full, k_full, v_full, causal=True)
+        out = ctx.shard(out, ctx.data_axes, None, ctx.tp_axis, None)
         return dense(p["wo"], out.reshape(B, Sq, h * dv)), cache
 
     # --- absorbed attention: score = (q_nope @ wk_b^T) . latent ---
@@ -146,7 +153,8 @@ def mla_block(
     probs = torch.softmax(scores, dim=-1)
 
     # values through the latent as well: out_h = probs . latent @ wv_b
-    ctx_lat = torch.einsum("bhqs,bsl->bqhl", probs, lat)
+    probs_lat = torch.einsum("bhqs,bsl->bqhl", probs, lat)
     wv_b = p["wv_b"]["w"].reshape(L, h, dv).float()
-    out = torch.einsum("bqhl,lhd->bqhd", ctx_lat, wv_b).to(x.dtype)
+    out = torch.einsum("bqhl,lhd->bqhd", probs_lat, wv_b).to(x.dtype)
+    out = ctx.shard(out, ctx.data_axes, None, ctx.tp_axis, None)
     return dense(p["wo"], out.reshape(B, Sq, h * dv)), cache

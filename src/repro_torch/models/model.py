@@ -54,6 +54,20 @@ under ``cfg.remat``; the port's config keeps no ``remat`` field, so the
 caller passes it). RG-LRU blocks train through B5 and its backward kernel.
 Serving drops the aux loss, as the reference's ``prefill`` and
 ``decode_step`` do.
+
+The mesh route. ``forward``, ``encode``, ``prefill``, ``decode_step`` and
+``loss_fn`` take ``ctx``, a ``layers.MeshCtx``; without one (or with no
+mesh in it) nothing changes. Over a ``DeviceMesh`` the parameters, batch
+and caches are DTensors, plain tensors made on the way (positions, masks,
+rotary tables) count as replicated (``implicit_replication``), and the
+reference's sharding constraints sit where its own do: the residual stream
+after the embedding, the encoder's input and every block
+(``shard_tokens``), the attention heads, the MLP and recurrent features
+(``shard_features``), the ZeRO-3 use-site gather (``ctx.gather_weights``),
+and the MoE block's expert-parallel routes (``models.moe``). Attention then
+takes the reference's XLA route everywhere, ``sdpa`` and ``sdpa_chunked``,
+serving included; B3 and B4 stay on the mesh-less path. B5 and its
+backward run on each rank's channel shard (``models.rglru``).
 """
 
 from __future__ import annotations
@@ -72,6 +86,7 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    MeshCtx,
     apply_rope,
     dense,
     embed_tokens,
@@ -80,6 +95,7 @@ from repro_torch.models.layers import (
     init_mlp,
     mlp,
     mrope,
+    per_shard,
     rms_norm,
     rope,
 )
@@ -264,32 +280,40 @@ def init_caches(cfg: ModelConfig, batch: int, s_cache: int, dtype: torch.dtype |
 # ---------------------------------------------------------------------------
 
 
+_NO_MESH = MeshCtx()
+
+
 def _cross_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                    encoder_out: torch.Tensor, train: bool = False) -> torch.Tensor:
+                    encoder_out: torch.Tensor, train: bool = False,
+                    ctx: MeshCtx = _NO_MESH) -> torch.Tensor:
     """Cross-attention over the encoder's output, its keys and values
     projected at every step, as the reference does."""
     h = rms_norm(p["cross_norm"], x, cfg.norm_eps)
-    B, Sk = encoder_out.shape[:2]
-    k = dense(p["cross"]["wk"], encoder_out).reshape(B, Sk, cfg.n_heads, cfg.resolved_head_dim)
-    v = dense(p["cross"]["wv"], encoder_out).reshape(B, Sk, cfg.n_heads, cfg.resolved_head_dim)
+    k = ctx.split_heads(dense(p["cross"]["wk"], encoder_out), cfg.n_heads)
+    v = ctx.split_heads(dense(p["cross"]["wv"], encoder_out), cfg.n_heads)
     y, _ = attn_lib.attention_block(p["cross"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_heads,
-                                    head_dim=cfg.resolved_head_dim, cross_kv=(k, v), train=train)
+                                    head_dim=cfg.resolved_head_dim, cross_kv=(k, v), train=train,
+                                    ctx=ctx)
     return x + y
 
 
 def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cache, *,
-                 rope_fn, positions, encoder_out=None, causal: bool = True, train: bool = False):
+                 rope_fn, positions, encoder_out=None, causal: bool = True, train: bool = False,
+                 ctx: MeshCtx = _NO_MESH):
     """One block. Returns (x, new cache, aux): aux is the MoE block's float32
     aux loss, None for a block without experts."""
+    if ctx.gather_weights:
+        p = ctx.gather_params(p)  # ZeRO-3 use-site weight gather (MeshCtx)
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
     if sig.kind in ("mlstm", "slstm"):
         block = xlstm_lib.mlstm_block if sig.kind == "mlstm" else xlstm_lib.slstm_block
-        y, new_cache = block(p["cell"], h, cfg, state=cache)
+        y, new_cache = block(p["cell"], h, cfg, state=cache, ctx=ctx)
         return x + y, new_cache, None
     if sig.kind == "rglru":
-        y, new_cache = rglru_lib.rglru_block(p["rec"], h, cfg, state=cache)
+        y, new_cache = rglru_lib.rglru_block(p["rec"], h, cfg, state=cache, ctx=ctx)
     elif cfg.use_mla:
-        y, new_cache = mla_lib.mla_block(p["attn"], h, cfg, positions=positions, cache=cache)
+        y, new_cache = mla_lib.mla_block(p["attn"], h, cfg, positions=positions, cache=cache,
+                                         ctx=ctx)
     else:
         y, new_cache = attn_lib.attention_block(
             p["attn"], h,
@@ -302,21 +326,25 @@ def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cac
             positions=positions,
             cache=cache,
             train=train,
+            ctx=ctx,
         )
-    x = x + y
+    # The residual stream placed as at the block's end: GSPMD carries that
+    # constraint back through the add, DTensor does not (a constraint the
+    # reference does not write; no-op without a mesh).
+    x = ctx.shard_tokens(x + y)
     if sig.cross:
-        x = _cross_sublayer(p, x, cfg, encoder_out, train=train)
+        x = _cross_sublayer(p, x, cfg, encoder_out, train=train, ctx=ctx)
     aux = None
     if sig.moe:
-        y, aux = moe_lib.moe_block(p["moe"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg)
+        y, aux = moe_lib.moe_block(p["moe"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg, ctx=ctx)
         x = x + y
     elif "mlp" in p:
-        x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps))
+        x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), ctx)
     return x, new_cache, aux
 
 
 def _run_segments(seg_params: list, segs, x: torch.Tensor, cfg: ModelConfig, caches, *,
-                  remat: bool = False, **kw):
+                  remat: bool = False, ctx: MeshCtx = _NO_MESH, **kw):
     """Every block of ``segs`` in order. Returns (x, new caches or None, the
     MoE blocks' aux losses in block order). With ``remat`` each repeat of a
     segment's pattern runs in ``torch.utils.checkpoint``, as the reference's
@@ -332,7 +360,11 @@ def _run_segments(seg_params: list, segs, x: torch.Tensor, cfg: ModelConfig, cac
                 aux_r = []
                 for pi, sig in enumerate(pattern):
                     cache = caches[si][pi][r] if caches is not None else None
-                    x, seg_out[pi][r], aux = _apply_block(layer[pi], sig, x, cfg, cache, **kw)
+                    x, seg_out[pi][r], aux = _apply_block(layer[pi], sig, x, cfg, cache,
+                                                          ctx=ctx, **kw)
+                    # Block boundary: under sequence parallelism this
+                    # re-shards the residual stream over the TP axis.
+                    x = ctx.shard_tokens(x)
                     aux_r += [aux] if aux is not None else []
                 return x, aux_r
 
@@ -354,21 +386,26 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def encode(params: dict, cfg: ModelConfig, embeds: torch.Tensor, *, train: bool = False,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False, ctx: MeshCtx | None = None) -> torch.Tensor:
     """The encoder of an encoder-decoder: frame embeddings (B, encoder_seq,
     d_model) plus sinusoidal positions, ``encoder_layers`` bidirectional
     attn blocks without rotary or cache, then the encoder's final norm.
-    ``train`` and ``remat`` are ``loss_fn``'s route (module docstring)."""
-    S = embeds.shape[1]
-    x = embeds + _sinusoidal(torch.arange(S, device=embeds.device), cfg.d_model).to(
-        embeds.dtype)[None]
-    x, _, _ = _run_segments(params["encoder"]["segments"], encoder_segments(cfg), x, cfg, None,
-                            rope_fn=None, positions=None, causal=False, train=train,
-                            remat=remat)
-    return rms_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+    ``train`` and ``remat`` are ``loss_fn``'s route, ``ctx`` the mesh
+    route (module docstring)."""
+    ctx = ctx or _NO_MESH
+    with ctx.scope():
+        S = embeds.shape[1]
+        x = embeds + _sinusoidal(torch.arange(S, device=embeds.device), cfg.d_model).to(
+            embeds.dtype)[None]
+        x = ctx.shard_tokens(x)
+        x, _, _ = _run_segments(params["encoder"]["segments"], encoder_segments(cfg), x, cfg,
+                                None, rope_fn=None, positions=None, causal=False, train=train,
+                                remat=remat, ctx=ctx)
+        return rms_norm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[torch.Tensor, Any]:
+def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None, *,
+            ctx: MeshCtx | None = None) -> tuple[torch.Tensor, Any]:
     """Trunk forward. Returns (hidden (B, S, d), new caches).
 
     ``batch["tokens"]`` is (B, S) on the parameters' device, or, with
@@ -376,22 +413,30 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, caches=None) -> tuple[t
     at ``batch["pos0"]``, else at the caches' ``pos``, else at 0, and M-RoPE
     takes ``batch["mrope_positions"]`` where given. An encoder-decoder also
     takes ``batch["encoder_out"]`` or, without it, ``batch["encoder_embeds"]``.
+    ``ctx`` is the mesh route (module docstring).
     """
-    h, caches, _auxes, _rope_fn = _trunk(params, cfg, batch, caches)
+    h, caches, _auxes, _rope_fn = _trunk(params, cfg, batch, caches, ctx=ctx or _NO_MESH)
     return h, caches
 
 
 def _trunk(params: dict, cfg: ModelConfig, batch: dict, caches=None, *, train: bool = False,
-           remat: bool = False):
+           remat: bool = False, ctx: MeshCtx = _NO_MESH):
     """``forward``'s body. Returns (hidden, new caches, the MoE blocks' aux
     losses, the rotary function of the blocks or None); ``train`` and
-    ``remat`` are ``loss_fn``'s route (module docstring)."""
+    ``remat`` are ``loss_fn``'s route, ``ctx`` the mesh route (module
+    docstring)."""
+    with ctx.scope():
+        return _trunk_body(params, cfg, batch, caches, train=train, remat=remat, ctx=ctx)
+
+
+def _trunk_body(params, cfg, batch, caches, *, train, remat, ctx):
     if cfg.embedding_inputs and "embeds" in batch:
         x = batch["embeds"]  # as given: the front end's scale, not sqrt(d_model)
     else:
         x = embed_tokens(params["embed"], batch["tokens"])
         # The scale rounded to the activation type first, as the JAX package does.
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    x = ctx.shard_tokens(x)
 
     pos0 = batch.get("pos0")
     if pos0 is None:
@@ -403,7 +448,8 @@ def _trunk(params: dict, cfg: ModelConfig, batch: dict, caches=None, *, train: b
     if cfg.is_encoder_decoder:
         encoder_out = batch.get("encoder_out")
         if encoder_out is None:
-            encoder_out = encode(params, cfg, batch["encoder_embeds"], train=train, remat=remat)
+            encoder_out = encode(params, cfg, batch["encoder_embeds"], train=train, remat=remat,
+                                 ctx=ctx)
         # Absolute sinusoidal positions, no rotary.
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)[None]
     else:
@@ -422,7 +468,8 @@ def _trunk(params: dict, cfg: ModelConfig, batch: dict, caches=None, *, train: b
 
     h, caches, auxes = _run_segments(params["segments"], segments_of(cfg), x, cfg, caches,
                                      rope_fn=rope_fn, positions=positions,
-                                     encoder_out=encoder_out, train=train, remat=remat)
+                                     encoder_out=encoder_out, train=train, remat=remat,
+                                     ctx=ctx)
     return h, caches, auxes, rope_fn
 
 
@@ -437,30 +484,37 @@ def _first_cache_pos(caches) -> int:
     return 0
 
 
-def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor, ctx: MeshCtx = _NO_MESH
+            ) -> torch.Tensor:
     """(B, S, padded_vocab) logits; padding columns masked to -1e30 so they
-    never win an argmax."""
+    never win an argmax. Over a mesh they are left as computed: serving
+    cuts them off and the loss masks them on its shards
+    (``_xent_sharded``)."""
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     if cfg.tie_embeddings or "lm_head" not in params:
         logits = h @ params["embed"]["table"].T
     else:
         logits = h @ params["lm_head"]["w"]
-    if cfg.padded_vocab != cfg.vocab_size:
+    if cfg.padded_vocab != cfg.vocab_size and ctx.mesh is None:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
 
 
 def _chunked_xent(params: dict, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor, remat: bool = False) -> torch.Tensor:
+                  mask: torch.Tensor, remat: bool = False,
+                  ctx: MeshCtx = _NO_MESH) -> torch.Tensor:
     """Mean next-token cross entropy over the unmasked positions, without
     (B, S, V) logits: chunks of ``_LOSS_SEQ_CHUNK`` positions, each its
     float32 ``logsumexp`` minus the gold logit, sums and counts in float32
     (a gather of the gold logit where the reference contracts a one-hot:
     the same number). Each chunk in ``torch.utils.checkpoint`` under
-    ``remat``, as the reference's in ``jax.checkpoint``."""
+    ``remat``, as the reference's in ``jax.checkpoint``. Over a mesh
+    (``ctx``) each chunk runs ``_xent_sharded``."""
 
     def piece(hc, yc, mc):
-        logits = _logits(params, cfg, hc).float()
+        logits = _logits(params, cfg, hc, ctx).float()
+        if ctx.mesh is not None:
+            return _xent_sharded(ctx, logits, yc, mc, cfg.vocab_size)
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, yc[..., None].long())[..., 0]
         return ((lse - gold) * mc).sum(), mc.sum()
@@ -477,8 +531,55 @@ def _chunked_xent(params: dict, cfg: ModelConfig, h: torch.Tensor, labels: torch
     return total / torch.clamp(count, min=1.0)
 
 
+def _xent_sharded(ctx: MeshCtx, logits, labels, mask, vocab: int):
+    """One loss chunk over a mesh: (sum of masked token losses, mask sum),
+    each a DTensor. On each rank's (batch, vocabulary) shard of the logits,
+    through ``local_map``: the max over the vocabulary all-reduced (no
+    gradient), the shard's sum of exponentials and its gold logit (the
+    reference's one-hot contraction, over the shard's slice of the
+    vocabulary) all-reduced over TP, as GSPMD reduces over a sharded
+    vocabulary where DTensor's own logsumexp would gather it; padding
+    columns (from ``vocab`` on) are masked to -1e30 there. Where TP does
+    not shard the vocabulary, each rank computes the mesh-less chunk on
+    its batch shard. The sums come out partial over the data axes."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist import collectives as coll
+
+    mesh, tp = ctx.mesh, (ctx.tp_axis,)
+    lg_pl = list(ctx.placements(logits.shape, (ctx.data_axes, None, ctx.tp_axis)))
+    tok_pl = list(ctx.placements(labels.shape, (ctx.data_axes, None)))
+    sum_pl = [Partial() if a in ctx.data_axes else Replicate() for a in mesh.mesh_dim_names]
+    sharded = (ctx.axis_size(tp) > 1
+               and lg_pl[mesh.mesh_dim_names.index(ctx.tp_axis)] != Replicate())
+    v0 = mesh.get_local_rank(ctx.tp_axis) * (logits.shape[-1] // ctx.axis_size(tp)) \
+        if sharded else 0
+
+    def body(lg, y, mc):
+        if vocab < v0 + lg.shape[-1]:
+            lg = lg.clone()
+            lg[..., max(vocab - v0, 0):] = -1e30
+        if not sharded:  # the vocabulary whole on every rank: the mesh-less numbers
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = lg.gather(-1, y[..., None].long())[..., 0]
+            return ((lse - gold) * mc).sum(), mc.sum()
+        m = coll.pmax(lg.amax(dim=-1), mesh, tp)
+        se = coll.psum(torch.exp(lg - m[..., None]).sum(dim=-1), mesh, tp)
+        local = (y >= v0) & (y < v0 + lg.shape[-1])
+        hot = torch.nn.functional.one_hot(torch.where(local, y.long() - v0, 0), lg.shape[-1])
+        gold = coll.psum(torch.einsum("bsv,bsv->bs", lg, (hot * local[..., None]).to(lg.dtype)),
+                         mesh, tp)
+        lse = torch.log(se) + m
+        return ((lse - gold) * mc).sum(), mc.sum()
+
+    run = local_map(body, out_placements=(sum_pl, sum_pl), in_placements=(lg_pl, tok_pl, tok_pl),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(ctx.as_dtensor(logits), ctx.as_dtensor(labels), ctx.as_dtensor(mask))
+
+
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, device: str | torch.device = "cuda",
-            *, remat: bool = False) -> torch.Tensor:
+            *, remat: bool = False, ctx: MeshCtx | None = None) -> torch.Tensor:
     """Next-token LM loss (+ MoE aux + MTP head where configured): a float32
     scalar to differentiate with respect to ``params``.
 
@@ -487,42 +588,56 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, device: str | torch.dev
     labels), and the mask ``batch["mask"]``, else ones with the last column
     zero. ``remat`` recomputes every repeat and loss chunk in the backward
     pass. RG-LRU blocks differentiate through B5 and its hand-written
-    backward (``kernels.rglru_scan.ops``).
+    backward (``kernels.rglru_scan.ops``). ``ctx`` is the mesh route
+    (module docstring).
     """
     tokens, labels = batch.get("tokens"), batch.get("labels")
     if labels is None and tokens is None:
         raise ValueError("embedding-input models need explicit labels")
     batch = _on_device(params, batch, device)
+    ctx = ctx or _NO_MESH
+    with ctx.scope():
+        return _loss_body(params, cfg, batch, labels, remat, ctx)
+
+
+def _loss_body(params, cfg, batch, labels, remat, ctx):
     table = params["embed"]["table"]
     tokens = batch.get("tokens")
-    h, _, auxes, rope_fn = _trunk(params, cfg, batch, train=True, remat=remat)
+    h, _, auxes, rope_fn = _trunk(params, cfg, batch, train=True, remat=remat, ctx=ctx)
     if labels is None:
-        labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+        labels = _shifted(tokens, 1)
     labels = torch.as_tensor(labels, device=table.device)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=table.device)
         mask[:, -1] = 0.0
     loss = _chunked_xent(params, cfg, h, labels, torch.as_tensor(mask, device=table.device),
-                         remat)
+                         remat, ctx=ctx)
 
     if cfg.mtp_depth and "mtp" in params and not cfg.embedding_inputs:
         # Predict token t+2 from [h_t ; emb(token_{t+1})].
         p = params["mtp"]
-        emb_next = embed_tokens(params["embed"], torch.nn.functional.pad(tokens[:, 1:], (0, 1)))
+        emb_next = ctx.shard_tokens(  # over a mesh: the lookup's partial sum reduced
+            embed_tokens(params["embed"], _shifted(tokens, 1)))
         hh = torch.cat([rms_norm(p["norm_h"], h, cfg.norm_eps),
                         rms_norm(p["norm_e"], emb_next, cfg.norm_eps)], dim=-1)
         hh = dense(p["proj"], hh)
         hh, _, _ = _apply_block(p["block"], Signature(kind="attn", moe=False), hh, cfg, None,
                                 rope_fn=rope_fn, positions=torch.arange(hh.shape[1],
                                                                         device=hh.device),
-                                train=True)
-        labels2 = torch.nn.functional.pad(tokens[:, 2:], (0, 2))
+                                train=True, ctx=ctx)
+        labels2 = _shifted(tokens, 2)
         mask2 = torch.ones(labels2.shape, dtype=torch.float32, device=table.device)
         mask2[:, -2:] = 0.0
-        loss = loss + 0.3 * _chunked_xent(params, cfg, hh, labels2, mask2, remat)
+        loss = loss + 0.3 * _chunked_xent(params, cfg, hh, labels2, mask2, remat, ctx=ctx)
 
     return loss + 0.01 * sum(auxes)
+
+
+def _shifted(tokens: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, S) tokens moved n positions left, zeros after the end (on each
+    batch shard over a mesh: some DTensor releases mis-plan the pad)."""
+    return per_shard(lambda t: torch.nn.functional.pad(t[:, n:], (0, n)), tokens, dims=(1,))
 
 
 def _on_device(params: dict, batch: dict, device) -> dict:
@@ -541,22 +656,25 @@ def _on_device(params: dict, batch: dict, device) -> dict:
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, caches,
-            device: str | torch.device = "cuda"):
+            device: str | torch.device = "cuda", *, ctx: MeshCtx | None = None):
     """Run the full prompt through the model, filling caches.
 
-    Returns (last-token logits (B, vocab_size), caches).
+    Returns (last-token logits (B, vocab_size), caches). ``ctx`` is the
+    mesh route (module docstring).
     """
     batch = _on_device(params, batch, device)
-    h, caches = forward(params, cfg, batch, caches=caches)
-    logits = _logits(params, cfg, h[:, -1:])
-    return logits[:, 0, :cfg.vocab_size], caches
+    ctx = ctx or _NO_MESH
+    h, caches = forward(params, cfg, batch, caches=caches, ctx=ctx)
+    with ctx.scope():
+        logits = _logits(params, cfg, h[:, -1:], ctx)
+        return logits[:, 0, :cfg.vocab_size], caches
 
 
 def decode_step(params: dict, cfg: ModelConfig, batch: dict, caches,
-                device: str | torch.device = "cuda"):
+                device: str | torch.device = "cuda", *, ctx: MeshCtx | None = None):
     """One-token decode. batch["tokens"]: (B, 1) (and, under M-RoPE, the
     step's ``mrope_positions`` (3, B, 1)). Returns (logits (B, vocab_size), caches).
 
     The same computation as ``prefill`` over one token: the attention and
     mLSTM blocks take their decode branch from the token count."""
-    return prefill(params, cfg, batch, caches, device=device)
+    return prefill(params, cfg, batch, caches, device=device, ctx=ctx)

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense, init_dense
+from repro_torch.models.layers import MeshCtx, dense, per_shard, init_dense
 
 __all__ = ["RGLRUState", "init_rglru_block", "rglru_block", "init_rglru_state"]
 
@@ -94,16 +94,17 @@ def rglru_block(
     x: torch.Tensor,               # (B, S, d)
     cfg: ModelConfig,
     state: RGLRUState | None = None,
+    ctx: MeshCtx = MeshCtx(),
 ) -> tuple[torch.Tensor, RGLRUState | None]:
     B, S, _ = x.shape
     gate = F.gelu(dense(p["w_gate"], x), approximate="tanh")  # jax.nn.gelu's default
-    raw = dense(p["w_in"], x)
+    raw = ctx.shard_features(dense(p["w_in"], x))
     u = _causal_conv(p, raw, state.conv if state is not None else None)
 
     uf = u.float()
     r = torch.sigmoid(dense(p["wa"], u).float())
     i = torch.sigmoid(dense(p["wx"], u).float())
-    log_a = -_DECAY_C * F.softplus(p["lambda_raw"].float()) * r       # (B, S, W) f32
+    log_a = -_DECAY_C * per_shard(F.softplus, p["lambda_raw"].float()) * r       # (B, S, W) f32
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) * (i * uf)
 
@@ -113,8 +114,10 @@ def rglru_block(
         h0 = torch.zeros(B, u.shape[-1], dtype=torch.float32, device=x.device)
     if S == 1:  # decode: one elementwise step
         h = (a[:, 0] * h0 + b[:, 0])[:, None]
-    else:
+    elif ctx.mesh is None:
         h = scan_ops.rglru_scan(a, b, h0)
+    else:
+        h = _scan_local(ctx, a, b, h0)
     new_state = None
     if state is not None:
         # Keep the last cw-1 raw inputs for the next decode step. Both new
@@ -123,5 +126,22 @@ def rglru_block(
         cw1 = p["conv_w"].shape[0] - 1
         new_state = RGLRUState(h=h[:, -1].clone(), conv=tail[:, tail.shape[1] - cw1:].clone())
 
-    y = h.to(x.dtype) * gate
+    y = ctx.shard_features(h.to(x.dtype) * gate)
     return dense(p["w_out"], y), new_state
+
+
+def _scan_local(ctx: MeshCtx, a, b, h0):
+    """The scan over a mesh: each rank runs B5 (and, under autograd, its
+    backward) on its own (batch, channel) shard through ``local_map``; the
+    recurrence is per channel, so no collective. ``a`` and ``b`` come
+    placed as ``shard_features`` placed ``u``; h0 follows them."""
+    from torch.distributed.tensor.experimental import local_map
+
+    a, b = ctx.as_dtensor(a), ctx.as_dtensor(b)
+    # local_map takes one output's placements as a list
+    pl = list(ctx.placements(a.shape, (ctx.data_axes, None, ctx.tp_axis)))
+    pl0 = list(ctx.placements(h0.shape, (ctx.data_axes, ctx.tp_axis)))
+    scan = local_map(lambda a_, b_, h_: scan_ops.rglru_scan(a_.contiguous(), b_.contiguous(), h_),
+                     out_placements=pl, in_placements=(pl, pl, pl0),
+                     device_mesh=ctx.mesh, redistribute_inputs=True)
+    return scan(a, b, ctx.as_dtensor(h0))

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense, init_dense, rms_norm
+from repro_torch.models.layers import MeshCtx, dense, per_shard, init_dense, rms_norm
 
 __all__ = [
     "MLSTMState",
@@ -165,33 +165,56 @@ def _mlstm_decode(q, k, v, log_i, log_f, state: MLSTMState):
     return (num / den[..., None])[:, :, None, :], MLSTMState(C=C, n=n, m=m_new)
 
 
+def _mlstm_local(ctx: MeshCtx, cell, q, k, v, log_i, log_f, st: MLSTMState):
+    """The mLSTM recurrence (``cell``) over a mesh: on each rank's batch
+    shard through ``local_map``, every head whole (xLSTM's 4 heads do not
+    split over a TP axis of 16). No parameter enters it, so no gradient is
+    pending across ranks."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def pl(t):
+        return list(ctx.placements(t.shape, (ctx.data_axes,) + (None,) * (t.ndim - 1)))
+
+    args = (q, k, v, log_i, log_f, st.C, st.n, st.m)
+
+    def body(q, k, v, log_i, log_f, C, n, m):
+        h, out = cell(q, k, v, log_i, log_f, MLSTMState(C=C, n=n, m=m))
+        return h, out.C, out.n, out.m
+
+    run = local_map(body, out_placements=(pl(q), pl(st.C), pl(st.n), pl(st.m)),
+                    in_placements=tuple(pl(t) for t in args), device_mesh=ctx.mesh,
+                    redistribute_inputs=True)
+    h, C, n, m = run(*(ctx.as_dtensor(t) for t in args))
+    return h, MLSTMState(C=C, n=n, m=m)
+
+
 def mlstm_block(
     p: dict,
     x: torch.Tensor,                 # (B, S, d)
     cfg: ModelConfig,
     state: MLSTMState | None = None,
+    ctx: MeshCtx = MeshCtx(),
 ) -> tuple[torch.Tensor, MLSTMState | None]:
     B, S, _ = x.shape
     H = cfg.n_heads
-    up = dense(p["w_up"], x)
+    up = ctx.shard_features(dense(p["w_up"], x))
     gate = F.gelu(dense(p["w_gate"], x), approximate="tanh")  # jax.nn.gelu's default
-    du = up.shape[-1]
-    D = du // H
 
-    q, k, v = (dense(p[w], up).reshape(B, S, H, D).transpose(1, 2).float()
+    q, k, v = (ctx.split_heads(dense(p[w], up), H).transpose(1, 2).float()
                for w in ("wq", "wk", "wv"))
     gates = dense(p["w_if"], up).float()                       # (B, S, 2H)
     log_i = gates[..., :H].transpose(1, 2)                      # (B, H, S)
-    log_f = F.logsigmoid(gates[..., H:]).transpose(1, 2)
+    log_f = per_shard(F.logsigmoid, gates[..., H:]).transpose(1, 2)
     st = state if state is not None else init_mlstm_state(B, cfg, device=x.device)
 
-    if S == 1:
-        h, new_state = _mlstm_decode(q, k, v, log_i, log_f, st)
+    cell = _mlstm_decode if S == 1 else _mlstm_chunk_parallel
+    if ctx.mesh is None:
+        h, new_state = cell(q, k, v, log_i, log_f, st)
     else:
-        h, new_state = _mlstm_chunk_parallel(q, k, v, log_i, log_f, st)
+        h, new_state = _mlstm_local(ctx, cell, q, k, v, log_i, log_f, st)
 
-    h = h.transpose(1, 2).reshape(B, S, du).to(x.dtype)
-    h = rms_norm(p["out_norm"], h, cfg.norm_eps) * gate
+    h = ctx.merge_heads(h.transpose(1, 2)).to(x.dtype)
+    h = ctx.shard_features(rms_norm(p["out_norm"], h, cfg.norm_eps) * gate)
     return dense(p["w_down"], h), (new_state if state is not None else None)
 
 
@@ -234,7 +257,19 @@ def _slstm_scan(zx, ix, fx, ox, rw, st: SLSTMState):
     Returns (h (B, S, d), state after the last step)."""
     c, n, h, m = st.c, st.n, st.h, st.m
     # Elementwise in the input alone, so computed for every step at once.
-    log_f, o = F.logsigmoid(fx), torch.sigmoid(ox)
+    log_f, o = per_shard(F.logsigmoid, fx), torch.sigmoid(ox)
+    if zx.device.type == "meta":
+        # Shapes only (the dry-run, where a meta operation costs a Python
+        # call): every step's product and update at once, the operations
+        # the loop runs S times on (B, d) run once on (B, S, d); the
+        # previous output stands in for h_{t-1}, whose values meta lacks.
+        prev = torch.cat([h[:, None], zx[:, :-1]], dim=1)
+        zt = torch.tanh(zx + prev @ rw)
+        m_all = torch.maximum(log_f + m[:, None], ix)
+        i_p, f_p = torch.exp(ix - m_all), torch.exp(log_f + m[:, None] - m_all)
+        c_all, n_all = f_p * c[:, None] + i_p * zt, f_p * n[:, None] + i_p
+        hs = o * c_all / n_all.clamp_min(1.0)
+        return hs, SLSTMState(c=c_all[:, -1], n=n_all[:, -1], h=hs[:, -1], m=m_all[:, -1])
     hs = []
     for t in range(zx.shape[1]):
         zt = torch.tanh(zx[:, t] + h @ rw)
@@ -249,15 +284,49 @@ def _slstm_scan(zx, ix, fx, ox, rw, st: SLSTMState):
     return torch.stack(hs, dim=1), SLSTMState(c=c, n=n, h=h, m=m)
 
 
+def _slstm_scan_local(ctx: MeshCtx, zx, ix, fx, ox, rw, st: SLSTMState):
+    """``_slstm_scan`` over a mesh: the time loop on each rank's batch
+    shard through ``local_map``, the gates' features and the recurrent
+    matrix whole on every rank (the recurrence mixes every feature each
+    step); the loop then dispatches local operations, not DTensor ones."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    gate_pl = list(ctx.placements(zx.shape, (ctx.data_axes, None, None)))
+    state_pl = list(ctx.placements(st.c.shape, (ctx.data_axes, None)))
+    rep_pl = list(ctx.placements(rw.shape, (None, None)))
+
+    def body(zx, ix, fx, ox, rw, c, n, h, m):
+        hs, out = _slstm_scan(zx, ix, fx, ox, rw, SLSTMState(c=c, n=n, h=h, m=m))
+        return hs, out.c, out.n, out.h, out.m
+
+    # The recurrent matrix's gradient is each rank's sum over its own batch
+    # shard: pending over the data axes.
+    rw_grad = [Partial() if a in ctx.data_axes else Replicate()
+               for a in ctx.mesh.mesh_dim_names]
+    in_pl = (gate_pl,) * 4 + (rep_pl,) + (state_pl,) * 4
+    run = local_map(body, out_placements=(gate_pl,) + (state_pl,) * 4, in_placements=in_pl,
+                    in_grad_placements=in_pl[:4] + (rw_grad,) + in_pl[5:],
+                    device_mesh=ctx.mesh, redistribute_inputs=True)
+    hs, c, n, h, m = run(*(ctx.as_dtensor(t) for t in (zx, ix, fx, ox, rw, st.c, st.n, st.h,
+                                                         st.m)))
+    return hs, SLSTMState(c=c, n=n, h=h, m=m)
+
+
 def slstm_block(
     p: dict,
     x: torch.Tensor,                 # (B, S, d)
     cfg: ModelConfig,
     state: SLSTMState | None = None,
+    ctx: MeshCtx = MeshCtx(),
 ) -> tuple[torch.Tensor, SLSTMState | None]:
     B = x.shape[0]
     zx, ix, fx, ox = (dense(p[w], x).float() for w in ("w_z", "w_i", "w_f", "w_o"))
     rw = p["r_z"]["w"].float()
     st = state if state is not None else init_slstm_state(B, cfg, device=x.device)
-    hs, new_state = _slstm_scan(zx, ix, fx, ox, rw, st)
-    return dense(p["w_out"], hs.to(x.dtype)), (new_state if state is not None else None)
+    if ctx.mesh is None:
+        hs, new_state = _slstm_scan(zx, ix, fx, ox, rw, st)
+    else:
+        hs, new_state = _slstm_scan_local(ctx, zx, ix, fx, ox, rw, st)
+    out = ctx.shard_tokens(hs.to(x.dtype))
+    return dense(p["w_out"], out), (new_state if state is not None else None)

@@ -48,9 +48,10 @@ def init_opt_state(params: Any, cfg: AdamWConfig) -> dict:
     """Zero moments in ``cfg.state_dtype`` on each parameter's device, step 0."""
     dt = _DTYPES[cfg.state_dtype]
     first = leaves(params)[0]
+    # zeros_like: a DTensor parameter's moments keep its placements
     return {
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params),
+        "m": tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
+        "v": tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
         "step": torch.zeros((), dtype=torch.int32, device=first.device),
     }
 

@@ -16,10 +16,10 @@ Port of ``benchmarks/run.py``; prints ``name,us_per_call,derived`` CSV rows.
          runtime
   netaware network-aware vs distance-blind placement on rack-structured
          clusters
+  roofline dry-run roofline aggregation (``launch.dryrun``'s artifacts)
   planner LM-serving pipeline-stage planning over a mixed GPU fleet
 
-The reference's ``roofline`` benchmark (dry-run roofline aggregation of
-compiled TPU programs) waits for ROADMAP A15. With ``--json-dir`` the
+With ``--json-dir`` the
 benchmarks that write a ``BENCH_*.json`` in the reference write it there,
 under the same name.
 
@@ -40,6 +40,7 @@ from repro_torch.paper import (
     netaware,
     planner,
     prediction,
+    roofline,
     refine_speed,
     runtime,
     sched_speed,
@@ -60,6 +61,7 @@ BENCHMARKS = (
     (runtime, "BENCH_runtime.json"),
     (multitenant, "BENCH_multitenant.json"),
     (netaware, "BENCH_netaware.json"),
+    (roofline, None),
     (planner, None),
 )
 

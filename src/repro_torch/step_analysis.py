@@ -18,7 +18,16 @@ once and counts the aten operations it dispatches:
   count, and nothing is fused.
 
 It runs on CPU, CUDA or meta tensors (on meta tensors nothing is computed
-or allocated). The port's hand-written kernels are opaque to it: their
+or allocated).
+
+``analyze_local`` is the per-device count of a step over DTensors (the
+mesh route): ``FlopCounterMode`` counts a DTensor product at its global
+size, so this counter lets every DTensor operation desugar first (its
+handler declines DTensor arguments) and counts what one rank runs: each
+product on its local operand shapes (``FlopCounterMode``'s formulas), each
+collective on its local shard, each result's bytes. It also follows the
+bytes of live tensors: every result's storage is counted from its creation
+until its last tensor dies, and the peak is reported. The port's hand-written kernels are opaque to it: their
 wrappers launch them through ``ctypes``, outside the dispatcher, as Pallas
 custom calls are opaque to ``analyze_hlo``. On CPU tensors the wrappers run
 their plain versions, which are counted.
@@ -33,7 +42,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
-__all__ = ["StepCosts", "analyze_step"]
+__all__ = ["StepCosts", "analyze_local", "analyze_step"]
 
 # Collective operations by name (``<namespace>.<op>``) and their kind.
 _COLLECTIVES = {
@@ -44,6 +53,7 @@ _COLLECTIVES = {
     "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
     "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
     "_c10d_functional.all_to_all_single": "all-to-all",
+    "_c10d_functional_autograd.all_to_all_single": "all-to-all",
     "c10d.allgather_": "all-gather",
     "c10d._allgather_base_": "all-gather",
     "c10d.allreduce_": "all-reduce",
@@ -121,3 +131,99 @@ def analyze_step(fn, *args, **kwargs) -> StepCosts:
         fn(*args, **kwargs)
     costs.matmul_flops = float(flops.get_total_flops())
     return costs
+
+
+class _LocalCounter(_Counter):
+    """``_Counter`` on what one rank runs (module docstring)."""
+
+    def __init__(self, costs: StepCosts, site=None):
+        super().__init__(costs)
+        from torch.utils.flop_counter import flop_registry
+
+        self.registry = flop_registry
+        self.site = site
+        self.live = {}      # storage key -> [bytes, live tensors]
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self.backward_start_bytes = None  # live bytes when the first backward operation ran
+        self.sites = {}     # (site, kind) -> [bytes, calls]
+
+    def _track(self, out) -> None:
+        import weakref
+
+        if isinstance(out, (list, tuple)):
+            for x in out:
+                self._track(x)
+            return
+        if not isinstance(out, torch.Tensor):
+            return
+        st = out.untyped_storage()
+        key = st._cdata
+        entry = self.live.get(key)
+        if entry is None:
+            entry = self.live[key] = [st.nbytes(), 0]
+            self.live_bytes += entry[0]
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        entry[1] += 1
+        weakref.finalize(out, self._release, key)
+
+    def _release(self, key) -> None:
+        entry = self.live.get(key)
+        if entry is None:
+            return
+        entry[1] -= 1
+        if entry[1] == 0:
+            self.live_bytes -= entry[0]
+            del self.live[key]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor desugars into local operations first
+        if any(issubclass(t, FakeTensor) for t in types):
+            # DTensor's sharding propagation runs an operation on fake
+            # tensors of the global shapes for their metadata: no rank's work
+            return func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        if self.backward_start_bytes is None and torch._C._current_autograd_node() is not None:
+            self.backward_start_bytes = self.live_bytes
+        packet = func._overloadpacket
+        if packet not in self.registry:
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        before = self.costs.collective_bytes
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if packet in self.registry:
+            self.costs.matmul_flops += float(self.registry[packet](*args, **kwargs, out_val=out))
+        if self.site is not None and self.costs.collective_bytes > before:
+            key = (self.site(), _COLLECTIVES[_op_name(func)])
+            entry = self.sites.setdefault(key, [0.0, 0])
+            entry[0] += self.costs.collective_bytes - before
+            entry[1] += 1
+        if _op_name(func) not in _SKIP:
+            self._track(out)
+        return out
+
+
+def analyze_local(fn, *args, site=None, **kwargs):
+    """Run ``fn(*args, **kwargs)`` once and count, per device, what it
+    dispatched. Returns (``StepCosts``, peak live bytes of the tensors the
+    call made, {(site, kind): [bytes, calls]} of its collectives, the live
+    bytes held when the backward pass began, or at the end without one:
+    the activations a step keeps for its backward).
+
+    ``site()``, where given, names the call site of each collective (the
+    caller's frame walk); without it the third result is empty."""
+    import gc
+
+    gc.collect()  # the tensors of earlier work go first, not during the count
+    costs = StepCosts()
+    mode = _LocalCounter(costs, site)
+    with mode:
+        fn(*args, **kwargs)
+    held = mode.live_bytes if mode.backward_start_bytes is None else mode.backward_start_bytes
+    return costs, mode.peak_bytes, mode.sites, held

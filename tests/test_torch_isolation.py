@@ -70,7 +70,10 @@ def test_importing_the_port_loads_no_jax():
         " repro_torch.sched.elastic, repro_torch._tree, repro_torch.optim.adamw,"
         " repro_torch.optim.compression, repro_torch.data.pipeline,"
         " repro_torch.checkpoint.store, repro_torch.runtime.trainer, repro_torch.train_lm,"
-        " repro_torch.step_analysis, repro_torch.dist.partition, repro_torch.launch.mesh;"
+        " repro_torch.step_analysis, repro_torch.dist.partition, repro_torch.launch.mesh,"
+        " repro_torch.dist.collectives, repro_torch.launch.dryrun,"
+        " repro_torch.launch.rank_collectives, repro_torch.paper.roofline,"
+        " repro_torch.paper.make_tables;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')];"
         "sys.exit(1 if bad else 0)"
     )
