@@ -22,9 +22,9 @@ Phases (each raises on failure; nothing is caught):
    its widest tiles and past shared memory (98 contracted components at
    m = 180, 18 at m = 1000), and with ids outside [0, m) (identical
    feasibility mask and argmax, max abs error 0); the scorer at its
-   ``max_machines`` limit (B1 with shared and per-row maps, B2 with memory
-   and network), and one machine past it, refused by a ValueError before
-   any launch;
+   one-block layout's widest m, ``max_machines`` (B1 with shared and
+   per-row maps, B2 with memory and network), and one machine past it, in
+   its machine-tiled layout, each equal to its plain version;
 3. main path at full width: ``schedule`` on ``paper_cluster((20, 70, 90))``
    (the reference golden), ``refine`` on the card (equal to the CPU path
    and to the reference's result), ``simulate`` / ``simulate_batch``;
@@ -250,13 +250,32 @@ Phases (each raises on failure; nothing is caught):
    ``local_map``) and of granite-moe-1b-a400m's first 2 layers (the
    ``a2a`` route), each through ``make_train_step(mesh=...)`` on DTensors
    and equal bit for bit to the mesh-less step from the same state and
-   batch; the group is destroyed after the phase.
+   batch; the group is destroyed after the phase;
+22. wide clusters (``WIDE_COUNTS``: the paper's three types at 91 x 20/70/90,
+   16 380 machines, past every scheduler kernel's one-block layout):
+   ``max_stable_rate_batch`` at 16 384 x 478 (one B1 launch, machine-tiled),
+   a ``refine(max_rounds=1, allow_add=False)`` of a 4-task placement with
+   memory (exactly 4 B2 launches, machine-tiled; one move) and
+   ``evaluate_policies_batch`` of
+   a 6 240-task topology, 3 traces x 16 placements x 24 windows (one
+   ``policy_scan`` launch, the pairs' state in its global scratch), each
+   equal to ``device="cpu"``; B1/B2 at 16 380 machines and where the last
+   tile holds one machine, cut_traffic at 14 501 and 16 380 (w tiles),
+   policy_scan at 6 240 tasks, 16 380 machines, 65 536 traces and past
+   65 535 groups of traces, each equal to its plain version; then B1 (16 384
+   x 478), B2 (4 096 x 478, memory and network), cut_traffic (128 rows of
+   the 6 240-task placement; its bound counts the products over each row's
+   non-zero columns of X, ``cut_work``) and policy_scan (the sweep, then 6 x
+   256 pairs, whose resident blocks' slabs pass the L2) timed on the wide
+   cluster beside their plain versions and bounds.
 
 Every phase's wall is printed at the end. The reference's results for
 phases 3-5, 12, 14 and 18 are constants below; ``tests/test_torch_multitenant_golden.py``
 and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
 ``tests/test_torch_paper_*.py`` phase 14's and phase 18's.
-The last lines are the ``{"kernels": [...]}`` record (eight kernels:
+The last lines are the ``{"kernels": [...]}`` record (eight kernels; B1, B2,
+cut_traffic and policy_scan carry phase 22's shapes and times under
+``wide_cluster``, and B1, B2 and policy_scan its launches;
 ``rglru_scan_bwd`` counts its launches in phases 20 and 21, B5 in phases
 8, 20 and 21; B1 counts its
 launches in phases 3-4, 12, 14 and 18, B2 and cut_traffic in phases 3-4,
@@ -587,6 +606,26 @@ def cut_tensors(torch, np, device, args, dist):
     t = lambda x, dt: torch.from_numpy(np.ascontiguousarray(x, dtype=dt)).to(device)  # noqa: E731
     return (t(tm, np.int32), t(comp, np.int32), t(uir, np.float64), t(alpha, np.float64),
             t(cir, np.float64)), t(dist, np.float64)
+
+
+def cut_work(np, tm, comp, edges, m):
+    """What cut_traffic's rows need, from this run's data: (operations,
+    bytes of ``distance`` read). A contracted row of X (one a source and one
+    a destination component of the edges) is non-zero only on the machines
+    that hold its component's tasks in that row, and each of them needs m
+    products and m sums against its column of ``distance``; then 4 m a row
+    and edge, and 3 a task for the masses. Only those machines' columns are
+    read, each once."""
+    B, T = tm.shape
+    comp = np.broadcast_to(comp, (B, T))
+    rows = np.broadcast_to(np.arange(B, dtype=np.int64)[:, None], (B, T))
+    valid = (tm >= 0) & (tm < m)
+    nnz, used = 0, np.zeros(m, dtype=bool)
+    for c in sorted({a for a, _ in edges}) + sorted({b for _, b in edges}):
+        on = valid & (comp == c)
+        nnz += np.unique(rows[on] * m + tm[on]).size
+        used[tm[on]] = True
+    return 2 * nnz * m + 4 * B * len(edges) * m + 3 * B * T, int(used.sum()) * m * 8
 
 
 def md5_of(np, *arrays) -> str:
@@ -1217,14 +1256,14 @@ def time_cut_traffic(torch, np, P, cut_ops, etg, cluster, rng, launches, max_err
                            spin_cycles=0)
     plain_ms = time_cuda(lambda: cut_traffic_ref(*g_args, edges, g_dist, pen), reps=5)
     k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
-    flops = 2 * B * k2 * m * m + 4 * B * len(edges) * m + 3 * B * T  # products and sums
-    n_bytes = sum(x.numel() * x.element_size() for x in (*g_args, g_dist)) + B * m * 8
+    flops, dist_bytes = cut_work(np, batch, comp, edges, m)
+    n_bytes = sum(x.numel() * x.element_size() for x in g_args) + dist_bytes + B * m * 8
     bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
     print(f"  cut_traffic B={B} T={T} m={m} ({len(edges)} edges, {k2} contracted rows a row): "
           f"{ms:.4f} ms ({wrapper_ms:.4f} ms with the wrapper's host time), bound "
-          f"{bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.3f} GFLOP, "
-          f"{n_bytes / 1e6:.2f} MB; {100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.3f} ms; "
-          f"no single PyTorch call computes it, so library_ms is null")
+          f"{bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.3f} GFLOP and {n_bytes / 1e6:.2f} MB "
+          f"that the rows' non-zero columns need; {100 * bound[0] / ms:.1f}% of it), plain "
+          f"{plain_ms:.3f} ms; no single PyTorch call computes it, so library_ms is null")
     plan = cut_kernel.launch_plan(B, T, k2, m)
     print(f"    {plan['rows']} rows a block, {plan['threads']} threads, {plan['smem_bytes']} shared "
           f"bytes, {plan['tile_columns']}-column distance tiles, {plan['tile_stages']} in flight; "
@@ -3145,6 +3184,323 @@ def mesh_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
     return b5
 
 
+# Phase 22: the paper's three machine types at 91 times 20/70/90 machines,
+# past every kernel's one-block layout; a 6 240-task topology (the
+# multi-tenant x4 fleet's task count) for the policy sweep; the refine's
+# small placement on the last machines of type 1 and the first of type 2.
+WIDE_COUNTS = (20 * 91, 70 * 91, 90 * 91)
+WIDE_SWEEP_INSTANCES = (40, 2000, 2100, 2100)
+WIDE_REFINE_INSTANCES, WIDE_REFINE_START = (1, 1, 1, 1), 8188
+WIDE_REFINE_B2_LAUNCHES = 4
+# The repo's usual policy sweep (6 traces x 256 placements), timed on the
+# wide cluster: more resident blocks' slabs than the L2 holds.
+WIDE_FULL_SWEEP = (6, 256)
+
+
+def scan_problem(torch, np, device, seed, B, P_, W, counts, m):
+    """Random ``policy_scan`` operands of a linear topology with ``counts``
+    tasks a component on m machines (every 13th task on an id outside [0,
+    m); machine 0 fails half way; spout tasks offered 4 to 32 tuples a
+    second against 2 to 6 CPU points a machine)."""
+    from repro_torch.kernels.policy_scan import ops as scan_ops
+
+    rng = np.random.default_rng(seed)
+    offsets = tuple(int(x) for x in np.concatenate([[0], np.cumsum(counts)]))
+    n, T = len(counts), offsets[-1]
+    topo = scan_ops.ScanTopology(offsets=offsets, alpha=(1.0, 1.2, 0.9, 1.1)[:n],
+                                 sources=(True,) + (False,) * (n - 1),
+                                 parents=((),) + tuple((c - 1,) for c in range(1, n)))
+    tm = rng.integers(0, m, size=(P_, T))
+    tm[:, ::13] = m + 1
+    caps = rng.uniform(2.0, 6.0, size=(B, W, m))
+    caps[:, W // 2:, 0] = 0.0
+    host = (rng.uniform(1.0, 8.0, size=(B, W)) * 4.0 * counts[0], caps, tm.astype(np.int32),
+            rng.uniform(0.5, 2.0, size=(P_, T)), rng.uniform(0.0, 0.3, size=(P_, T)),
+            np.zeros((B, W, 0)))
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in host), topo
+
+
+def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
+    """Phase 22: the entry points on a 16 380-machine cluster, card against
+    CPU; the kernels past their one-block layouts against their plain
+    versions; timings. Returns {kernel: (launches, timing record)}."""
+    import repro_torch.runtime_stream as RS
+    from repro_torch.kernels.cut_traffic import kernel as cut_kernel
+    from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
+    from repro_torch.kernels.policy_scan import kernel as scan_kernel
+    from repro_torch.kernels.policy_scan.ref import policy_scan_ref
+    from repro_torch.kernels.sched_scoring.ref import sched_scoring_ref
+    from repro_torch.launch.timing import time_cuda
+    from repro_torch.runtime_stream.eval_torch import scan_operands
+
+    t_phase = time.perf_counter()
+    wide = P.paper_cluster(WIDE_COUNTS)
+    m = wide.n_machines
+    wide_mem = P.Cluster(machine_types=wide.machine_types, capacity=wide.capacity,
+                         profile=wide.profile.with_mem(np.array([0.5, 1.0, 1.5, 2.0])),
+                         mem_capacity=np.full(m, 8.0))
+    print(f"[22] wide clusters: paper_cluster({WIDE_COUNTS}), {m} machines")
+    rng = np.random.default_rng(22)
+    launches = {}
+
+    # (a) max_stable_rate_batch at 16 384 x 478: B1, machine-tiled.
+    T = base_etg.total_tasks
+    batch = rng.integers(0, m, size=(16_384, T))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rates_gpu, thpt_gpu = P.max_stable_rate_batch(base_etg, wide, batch, device="cuda")
+    wall["wide_sweep_s"] = time.perf_counter() - t0
+    launches["sched_scoring"] = ops.LAUNCHES["sched_scoring"]
+    t0 = time.perf_counter()
+    rates_cpu, thpt_cpu = P.max_stable_rate_batch(base_etg, wide, batch, device="cpu")
+    wall["wide_sweep_cpu_s"] = time.perf_counter() - t0
+    check(launches["sched_scoring"] == 1, "the wide sweep did not launch B1 once")
+    check(np.array_equal(rates_gpu, rates_cpu) and np.array_equal(thpt_gpu, thpt_cpu),
+          "max_stable_rate_batch on the wide cluster: the card differs from the CPU")
+    tw, tc = ops.machine_tiles(m, False, False, False)
+    print(f"  max_stable_rate_batch {batch.shape[0]} x {T} on {m} machines (B1, {tc} tiles of "
+          f"{tw}): 1 launch, equal to device='cpu'; {wall['wide_sweep_s']:.3f} s host to host "
+          f"(cpu {wall['wide_sweep_cpu_s']:.3f} s); R* {rates_gpu.min():.4f}-{rates_gpu.max():.4f}")
+
+    # (b) refine of a small placement, memory on: B2, machine-tiled.
+    tiny = P.round_robin_schedule(P.linear_topology(), wide_mem,
+                                  np.array(WIDE_REFINE_INSTANCES), start=WIDE_REFINE_START)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ref_gpu = P.refine(tiny, wide_mem, max_rounds=1, allow_add=False, device="cuda")
+    torch.cuda.synchronize()
+    wall["wide_refine_s"] = time.perf_counter() - t0
+    launches["sched_scoring_resources"] = ops.LAUNCHES["sched_scoring_resources"]
+    t0 = time.perf_counter()
+    ref_cpu = P.refine(tiny, wide_mem, max_rounds=1, allow_add=False, device="cpu")
+    wall["wide_refine_cpu_s"] = time.perf_counter() - t0
+    check(launches["sched_scoring_resources"] == WIDE_REFINE_B2_LAUNCHES
+          and ops.LAUNCHES["sched_scoring"] == 0,
+          f"the wide refine's launches {dict(ops.LAUNCHES)}: {WIDE_REFINE_B2_LAUNCHES} B2 "
+          f"expected, and B2 alone")
+    check(ref_gpu.moves == ref_cpu.moves and ref_gpu.throughput == ref_cpu.throughput
+          and np.array_equal(ref_gpu.etg.task_machine(), ref_cpu.etg.task_machine()),
+          "refine on the wide cluster: the card differs from the CPU")
+    check(len(ref_gpu.moves) == 1, f"the wide refine made no move ({ref_gpu.moves})")
+    print(f"  refine(max_rounds=1, allow_add=False) of {tiny.total_tasks} tasks on {m} machines "
+          f"with memory: moves {ref_gpu.moves}, throughput {ref_gpu.throughput!r}, "
+          f"{launches['sched_scoring_resources']} B2 launches, equal to device='cpu' "
+          f"({wall['wide_refine_s']:.3f} s; cpu {wall['wide_refine_cpu_s']:.3f} s)")
+
+    # (c) evaluate_policies_batch of a 6 240-task topology: policy_scan with
+    # the pairs' state in its global scratch.
+    sweep_etg = P.round_robin_schedule(P.linear_topology(), wide,
+                                       np.array(WIDE_SWEEP_INSTANCES))
+    Ts = sweep_etg.total_tasks
+    rate, _ = P.max_stable_rate(sweep_etg, wide)
+    W = 24
+    traces = [RS.ramp_trace(0.3 * rate, 1.6 * rate, n_windows=W).compile(wide, seed=1),
+              RS.failure_trace(0.9 * rate, machine=0, n_windows=W).compile(wide, seed=2),
+              RS.burst_trace(0.7 * rate, n_windows=W).compile(wide, seed=3)]
+    policies = np.tile(sweep_etg.task_machine(), (16, 1))
+    for p in range(1, 16):
+        policies[p, rng.integers(0, Ts, 3)] = rng.integers(0, m, 3)
+    cfg = RS.RuntimeConfig(max_queue=120.0)
+    scan_ops.reset_launches()
+    t0 = time.perf_counter()
+    sweep = RS.evaluate_policies_batch(sweep_etg, wide, traces, policies, config=cfg,
+                                       device="cuda")
+    wall["wide_policy_sweep_s"] = time.perf_counter() - t0
+    launches["policy_scan"] = scan_ops.LAUNCHES["policy_scan"]
+    t0 = time.perf_counter()
+    sweep_cpu = RS.evaluate_policies_batch(sweep_etg, wide, traces, policies, config=cfg,
+                                           device="cpu")
+    wall["wide_policy_sweep_cpu_s"] = time.perf_counter() - t0
+    check(launches["policy_scan"] == 1, "the wide sweep did not launch policy_scan once")
+    for field in ("throughput", "admitted", "dropped", "queue_total", "throttle",
+                  "machine_util_mean", "sustained"):
+        check(np.array_equal(getattr(sweep, field), getattr(sweep_cpu, field)),
+              f"evaluate_policies_batch on the wide cluster: {field} differs from the CPU")
+    n_parents = 3
+    check(scan_ops.state_in_global(Ts, m, 4, 0, n_parents), "the wide sweep fits one block")
+    print(f"  evaluate_policies_batch {len(traces)} traces x {policies.shape[0]} placements x "
+          f"{W} windows, {Ts} tasks on {m} machines (the pairs' state in the global scratch): "
+          f"1 launch, equal to device='cpu' ({wall['wide_policy_sweep_s']:.3f} s; cpu "
+          f"{wall['wide_policy_sweep_cpu_s']:.3f} s); sustained "
+          f"{float(sweep.sustained.min()):.4f}-{float(sweep.sustained.max()):.4f}")
+
+    # (d) the kernels past their one-block layouts against their plain versions.
+    for label, kw in (("B1, shared maps", dict(n=4)),
+                      ("B1, per-row maps", dict(n=4, per_row=True)),
+                      ("B2, memory + network", dict(n=4, memory=True, network=True)),
+                      ("B2, memory + network, per-row maps",
+                       dict(n=4, per_row=True, memory=True, network=True))):
+        use_mem, per_row = kw.get("memory", False), kw.get("per_row", False)
+        width, _ = ops.machine_tiles(m, use_mem, per_row, per_row)
+        limit = ops.max_machines(use_mem, per_row, per_row)
+        for m_case in (m, (limit // width + 1) * width + 1):
+            args, extras = scoring_problem(np, 2200 + m_case % 97, 64, 478, m_case, **kw)
+            compare_kernel(torch, np, ops, args, extras)
+            print(f"  {label} m={m_case} ({ops.machine_tiles(m_case, use_mem, per_row, per_row)[1]}"
+                  f" tiles of {width}): equal to its plain version")
+    for topology, m_case, B in (("diamond", 14_501, 3), ("linear", m, 2)):
+        args, edges, _ = cut_problem(np, P, 2210 + B, topology, B, 6, "per_row")
+        tm = rng.integers(0, m_case, size=args[0].shape)
+        tm[:, 1] = m_case - 1
+        g_args, _ = cut_tensors(torch, np, "cuda", (tm, *args[1:]), np.zeros((1, 1)))
+        racks = torch.arange(m_case, device="cuda") % 6
+        g_dist = torch.where(racks[:, None] == racks[None, :], 1.0, 2.0).to(torch.float64)
+        g_dist.fill_diagonal_(0.0)
+        got = cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05)
+        want = cut_traffic_ref(*g_args, edges, g_dist, 0.05)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"cut_traffic at m={m_case} differs from its plain version")
+        k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
+        plan = cut_kernel.launch_plan(B, tm.shape[1], k2, m_case)
+        print(f"  cut_traffic {topology} m={m_case} B={B}: layout {plan['layout']}, distance tiles "
+              f"of {plan['w_tile']} machines by {plan['tile_columns']} columns; equal to its "
+              f"plain version on the card")
+        del g_dist, racks
+    for label, (B, P_, W_, counts, m_case) in (
+            ("6 240 tasks on 180 machines", (3, 5, 12, (40, 2000, 2100, 2100), 180)),
+            (f"40 tasks on {m} machines", (2, 3, 10, (10, 10, 10, 10), m)),
+            ("65 536 traces", (65_536, 1, 2, (1, 1, 1, 1), 3)),
+            ("past 65 535 groups of 6 traces", (6 * 65_535 + 7, 2, 2, (1, 1, 1, 1), 3))):
+        gpu, topo = scan_problem(torch, np, "cuda", sum(counts), B, P_, W_, counts, m_case)
+        cfg_k = scan_ops.ScanConfig(max_queue=60.0)
+        got = scan_ops.policy_scan(*gpu, topo, cfg_k)
+        again = scan_ops.policy_scan(*gpu, topo, cfg_k)
+        torch.cuda.synchronize()
+        plain = scan_ops.policy_scan(*(x.cpu() for x in gpu), topo, cfg_k)
+        for name, g, a, w in zip(got._fields, got, again, plain):
+            check(torch.equal(g, a) and torch.equal(g.cpu(), w),
+                  f"policy_scan ({label}): {name} differs from its plain version or its rerun")
+        print(f"  policy_scan {label} (B={B} P={P_} W={W_}): equal to its plain version on the "
+              f"CPU, rerun bit-identical")
+
+    # (e) timings (CUDA events, cold L2, median of 15; plain versions of 3-5).
+    print("  timings past the one-block layouts (CUDA events, cold L2, median)")
+    timings = {}
+    state = P.ScheduleState.from_etg(base_etg, wide)
+    comp = np.repeat(np.arange(base_etg.utg.n_components), base_etg.n_instances)
+    uir = (state.cir_unit / base_etg.n_instances)[comp]
+    e_cm, met_cm = state.e_cm, state.met_cm
+    for key, B, extras in (
+        ("sched_scoring", 16_384, {}),
+        ("sched_scoring_resources", 4_096,
+         dict(net_var=rng.uniform(0.0, 0.2, size=(4_096, m)),
+              mem_c=np.array([0.5, 1.0, 1.5, 2.0]), mem_capacity=np.full(m, 8.0))),
+    ):
+        host = (batch[:B], comp, uir, e_cm, met_cm, wide.capacity)
+        if extras:
+            compare_kernel(torch, np, ops, host, extras)  # at the timed shape
+        g_args, g_kw = to_tensors(torch, np, "cuda", host, extras)
+        ms = time_cuda(lambda: ops.sched_scoring(*g_args, **g_kw))
+        plain_ms = time_cuda(lambda: sched_scoring_ref(*g_args, **g_kw), reps=5)
+        n_bytes = sum(x.numel() * x.element_size() for x in (*g_args, *g_kw.values())) + B * 8
+        flops = B * T * 3 + B * m * 4
+        bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+        width, count = ops.machine_tiles(m, bool(extras), False, False)
+        timings[key] = dict(shape=f"B={B} T={T} m={m}, {count} tiles of {width} machines",
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                            library_ms=None)
+        print(f"  {key} B={B} T={T} m={m} ({count} tiles of {width}): {ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / ms:.1f}% of it), plain "
+              f"{plain_ms:.3f} ms; library_ms null")
+        del g_args, g_kw
+    # cut_traffic on rows of the 6 240-task placement, one task moved a row:
+    # thousands of non-zero columns of X a row.
+    B, base_tm = 128, sweep_etg.task_machine()
+    Tc, utg = base_tm.size, sweep_etg.utg
+    tm = np.tile(base_tm, (B, 1))
+    tm[np.arange(B), rng.integers(0, Tc, B)] = rng.integers(0, m, B)
+    comp_c = sweep_etg.task_component()
+    cir = P.component_rates(utg, 1.0)
+    g_args, g_dist = cut_tensors(
+        torch, np, "cuda", (tm, comp_c, (cir / sweep_etg.n_instances)[comp_c],
+                            np.asarray(utg.alpha, dtype=np.float64), cir),
+        P.rack_distance_matrix(np.arange(m) % 6, 1.0, 2.0))
+    edges = utg.edges
+    got = cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05)
+    want = cut_traffic_ref(*g_args, edges, g_dist, 0.05)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "cut_traffic at the timed wide shape differs")
+    ms = time_cuda(lambda: cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05))
+    plain_ms = time_cuda(lambda: cut_traffic_ref(*g_args, edges, g_dist, 0.05), reps=3)
+    k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
+    flops, dist_bytes = cut_work(np, tm, comp_c, edges, m)
+    n_bytes = sum(x.numel() * x.element_size() for x in g_args) + dist_bytes + B * m * 8
+    bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    plan = cut_kernel.launch_plan(B, Tc, k2, m)
+    timings["cut_traffic"] = dict(shape=f"B={B} T={Tc} m={m} K2={k2}, w tiles of "
+                                  f"{plan['w_tile']}", ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+    print(f"  cut_traffic B={B} T={Tc} m={m} ({k2} contracted rows a row, {dist_bytes // (8 * m)} "
+          f"machines hold tasks): {ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({flops / 1e9:.1f} GFLOP and {n_bytes / 1e6:.1f} MB that the rows' non-zero columns "
+          f"need; {100 * bound[0] / ms:.2f}% of it), plain {plain_ms:.3f} ms; library_ms null")
+    print(f"    layout {plan['layout']}, {plan['threads']} threads, {plan['smem_bytes']} shared "
+          f"bytes, {plan['w_tile']}-machine by {plan['tile_columns']}-column distance tiles, "
+          f"{plan['tile_stages']} in flight; products by zero included, it does "
+          f"{2 * B * k2 * m * m / 1e9:.1f} GFLOP; " + _launch_text(
+              torch, flops, plan["blocks"], plan["blocks_per_sm"], plan["registers"],
+              plan["local_bytes"]))
+    del g_dist, g_args, got, want
+    operands, topo, scfg = scan_operands(sweep_etg, wide, traces, policies, cfg,
+                                         torch.device("cuda"))
+    ms = time_cuda(lambda: scan_ops.policy_scan(*operands, topo, scfg))
+    plain_ms = time_cuda(lambda: policy_scan_ref(*operands, topo, scfg), reps=3)
+    out = scan_ops.policy_scan(*operands, topo, scfg)
+    Bt, Pt = len(traces), policies.shape[0]
+    flops = Bt * Pt * W * (23 * Ts + 5 * m + 2 * topo.n_shares)
+    n_bytes = sum(x.numel() * x.element_size() for x in (*operands, *out))
+    bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    smem = scan_ops.global_smem_bytes(Ts, m, 4, 0, n_parents)
+    occ = scan_kernel.occupancy(Bt, Pt, 0, smem)
+    timings["policy_scan"] = dict(shape=f"B={Bt} P={Pt} W={W} T={Ts} m={m}, state in the "
+                                  f"global scratch", ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                  bound_by=bound[1], library_ms=None)
+    print(f"  policy_scan B={Bt} P={Pt} W={W} T={Ts} m={m}: {ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"by {bound[1]} ({100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.3f} ms; "
+          f"library_ms null")
+    print(f"    one pair a block at a time, {occ['threads']} threads, {smem} shared bytes, "
+          f"{scan_ops.slab_bytes(Ts, m, 4, 0, n_parents)} bytes of slab a block; "
+          + _launch_text(torch, flops, occ["blocks"], occ["blocks_per_sm"], occ["registers"],
+                         occ["local_bytes"]))
+    # The repo's usual sweep size: more pairs than resident blocks, and
+    # their slabs together past the 50 MB L2. Its first 3 x 16 pairs are the
+    # sweep above, which they must equal.
+    n_tr, n_pl = WIDE_FULL_SWEEP
+    full_traces = traces + [
+        RS.ramp_trace(0.3 * rate, 1.6 * rate, n_windows=W).compile(wide, seed=4),
+        RS.failure_trace(0.9 * rate, machine=1, n_windows=W).compile(wide, seed=5),
+        RS.burst_trace(0.7 * rate, n_windows=W).compile(wide, seed=6)]
+    full_policies = np.tile(sweep_etg.task_machine(), (n_pl, 1))
+    full_policies[:Pt] = policies
+    for p in range(Pt, n_pl):
+        full_policies[p, rng.integers(0, Ts, 3)] = rng.integers(0, m, 3)
+    f_operands, _, _ = scan_operands(sweep_etg, wide, full_traces, full_policies, cfg,
+                                     torch.device("cuda"))
+    full = scan_ops.policy_scan(*f_operands, topo, scfg)
+    for name, f, o in zip(out._fields, full, out):
+        check(torch.equal(f[:Bt, :Pt], o), f"policy_scan {n_tr} x {n_pl}: {name} of its first "
+              f"{Bt} x {Pt} pairs differs from the {Bt} x {Pt} sweep")
+    full_ms = time_cuda(lambda: scan_ops.policy_scan(*f_operands, topo, scfg))
+    flops = n_tr * n_pl * W * (23 * Ts + 5 * m + 2 * topo.n_shares)
+    n_bytes = sum(x.numel() * x.element_size() for x in (*f_operands, *full))
+    bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    occ = scan_kernel.occupancy(n_tr, n_pl, 0, smem)
+    slabs = occ["blocks"] * scan_ops.slab_bytes(Ts, m, 4, 0, n_parents)
+    timings["policy_scan"]["full_sweep"] = dict(
+        shape=f"B={n_tr} P={n_pl} W={W} T={Ts} m={m}", ms=full_ms, bound_ms=bound[0],
+        bound_by=bound[1], blocks=occ["blocks"], slab_bytes=slabs)
+    print(f"  policy_scan B={n_tr} P={n_pl} W={W} T={Ts} m={m}: {full_ms:.4f} ms "
+          f"({full_ms / (n_tr * n_pl):.4f} ms a pair against {ms / (Bt * Pt):.4f} at {Bt} x {Pt}), "
+          f"bound {bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / full_ms:.2f}% of it); "
+          f"{occ['blocks']} resident blocks ({occ['blocks_per_sm']} a SM), their slabs "
+          f"{slabs / 1e6:.1f} MB against the 50 MB L2; first {Bt} x {Pt} pairs equal to the sweep "
+          f"above")
+    del f_operands, full
+    wall["phase_22_s"] = time.perf_counter() - t_phase
+    print(f"  phase 22: {wall['phase_22_s']:.1f} s")
+    return {k: (launches.get(k, 0), timings[k]) for k in timings}
+
+
 def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
     """A redesigned kernel's launch, printed beside its time: the ceiling
     without FMA (every product and sum its own FP64 instruction, half the
@@ -3281,30 +3637,23 @@ def main() -> int:
     check(empty.shape == (0, 180) and empty_b.shape == (0,)
           and (ops.LAUNCHES, cut_ops.LAUNCHES) == before, "B=0 must return empty, no launch")
     print("  B = 0 -> empty result, no launch")
-    # The scorer's limit on m (ROADMAP C-port-4): at ``max_machines`` of the
-    # operands' layout B1 and B2 launch and equal their plain versions; one
-    # machine more raises a ValueError naming the limit, before any launch.
+    # The scorer's two layouts (ROADMAP C-port-4): at ``max_machines`` of the
+    # operands' layout B1 and B2 launch their one-block layout, one machine
+    # more their machine-tiled layout (``machine_tiles``); each equals its
+    # plain version.
     for label, kw in (("B1, shared maps", dict(n=4)),
                       ("B1, per-row maps", dict(n=4, per_row=True)),
                       ("B2, memory + network", dict(n=4, memory=True, network=True))):
-        limit = ops.max_machines(kw.get("memory", False), kw.get("per_row", False),
-                                 kw.get("per_row", False))
-        args, extras = scoring_problem(np, 7, 8, 37, limit, **kw)
-        err, _ = compare_kernel(torch, np, ops, args, extras)
-        key = "sched_scoring_resources" if extras else "sched_scoring"
-        max_err[key] = max(max_err[key], err)
-        args, extras = scoring_problem(np, 7, 8, 37, limit + 1, **kw)
-        g_args, g_kw = to_tensors(torch, np, "cuda", args, extras)
-        before = dict(ops.LAUNCHES)
-        try:
-            ops.sched_scoring(*g_args, **g_kw)
-            refused = ""
-        except ValueError as e:  # the refusal under test, not a fallback
-            refused = str(e)
-        check(f"at most {limit} machines" in refused and ops.LAUNCHES == before,
-              f"{label}: m = {limit + 1} was not refused before a launch ({refused!r})")
-        print(f"  {label}: m = {limit} launches and equals its plain version; m = {limit + 1} "
-              f"-> ValueError before any launch ({refused.split(' (')[0]})")
+        use_mem, per_row = kw.get("memory", False), kw.get("per_row", False)
+        limit = ops.max_machines(use_mem, per_row, per_row)
+        for m in (limit, limit + 1):
+            args, extras = scoring_problem(np, 7, 8, 37, m, **kw)
+            err, _ = compare_kernel(torch, np, ops, args, extras)
+            key = "sched_scoring_resources" if extras else "sched_scoring"
+            max_err[key] = max(max_err[key], err)
+        width, count = ops.machine_tiles(limit + 1, use_mem, per_row, per_row)
+        print(f"  {label}: m = {limit} (one block a row) and m = {limit + 1} ({count} tiles of "
+              f"{width} machines) launch and equal their plain versions")
 
     # [3] main path at full width ------------------------------------------
     print("[3] main path: schedule -> refine -> simulate, paper_cluster((20, 70, 90))")
@@ -3677,6 +4026,16 @@ def main() -> int:
                            bwd_timing[0], bwd_timing))
     print(f"  rglru_scan_bwd: {rg_train['rglru_scan_bwd']} launches in phase 20, "
           f"{mesh_b5['rglru_scan_bwd']} in phase 21 (local_map)")
+    # [22] wide clusters: the scheduler's kernels past their one-block layouts --------
+    from repro_torch.kernels.policy_scan import ops as policy_ops
+
+    wide = wide_phase(torch, np, P, ops, cut_ops, policy_ops, sched.etg, wall)
+    for rec in records:
+        if rec["name"] in wide:
+            launches, timing = wide[rec["name"]]
+            rec["wide_cluster"] = {"launches": launches, **timing}
+            print(f"  {rec['name']}: {launches} launches in phase 22 (wide clusters)")
+            rec["launches"] += launches
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

@@ -46,7 +46,12 @@
 // X^T and Y^T (m K2 doubles each) do not fit a block's shared memory (many
 // contracted components on many machines), they live in a global scratch
 // instead, one pair a resident block, and the blocks loop over the rows;
-// the order of every sum is the same. The file builds with -fmad=false and
+// the order of every sum is the same. Past the m whose two one-column tiles
+// of `distance` (all m rows w) fit a block (ops.MAX_MACHINES), the tiles
+// also split along w (kTiled): step 3 walks tiles of W_T machines w, each
+// by the same ring of KT-column tiles, with X^T and Y^T in the global
+// scratch as in kGlobal; each Y[slot][w] still sums v in increasing order
+// (ops.distance_tiles mirrors W_T). The file builds with -fmad=false and
 // spells every product and sum with round-to-nearest intrinsics, so the
 // result is the plain version's, bit for bit.
 
@@ -62,6 +67,10 @@ constexpr int MQ = 6;        // rows of X a thread's micro-tile (K2 at the linea
 constexpr int MW = 4;        // machines a thread's micro-tile
 constexpr int WQ = 2;        // a warp's micro-tiles: WQ along X's rows
 constexpr int WW = 32 / WQ;  // by WW along the machines
+// kTiled: machines w of a distance tile, nine warp tiles wide (one round of
+// NT_MAX threads at up to 12 contracted rows), so that three 8-column tiles
+// in flight take 111 KB and two blocks share an SM.
+constexpr int W_TILE = (NT_MAX / 32) * MW * WW;
 
 struct Args {
   const int32_t* tm;         // (B, T) machine id per task
@@ -78,6 +87,7 @@ struct Args {
   double penalty;
   int64_t B, T, comp_stride, uir_stride;
   int n, m, mp, ld, k2, qp, n_edges, rows;
+  int wt;        // machines w of a distance tile: mp, or W_TILE (kTiled)
   int kt_log2;   // columns v of `distance` a tile: 1 << kt_log2
   int stages;    // tiles in flight: 3, or 2 at the largest m
   int y_offset;  // where Y^T starts in the region (0: over the tiles)
@@ -98,8 +108,8 @@ struct Staged {
 // steps 4-5 (Y^T [mp][qp]). Where X^T and Y^T sit: Y^T over the region
 // (kOverlap), Y^T past it, when step 3 takes more than one round of items
 // (kYApart), or both in the global scratch, the region alone in shared
-// memory (kGlobal).
-enum Layout { kOverlap, kYApart, kGlobal };
+// memory (kGlobal), and there with the tiles split along w too (kTiled).
+enum Layout { kOverlap, kYApart, kGlobal, kTiled };
 
 size_t smem_bytes(const Args& a, int rows, int threads, int kt, Layout layout, int stages) {
   const int qp = (rows * a.k2 + MQ - 1) / MQ * MQ;
@@ -107,7 +117,7 @@ size_t smem_bytes(const Args& a, int rows, int threads, int kt, Layout layout, i
   const size_t tiles = sizeof(double) * stages * kt * a.ld;
   const size_t region = masses > tiles ? masses : tiles;
   const size_t xy = sizeof(double) * static_cast<size_t>(a.mp) * qp;  // X^T or Y^T
-  if (layout == kGlobal) return region;
+  if (layout == kGlobal || layout == kTiled) return region;
   if (layout == kYApart) return xy + region + xy;
   return xy + (region > xy ? region : xy);
 }
@@ -131,19 +141,23 @@ __global__ void __launch_bounds__(NT_MAX) cut_traffic_kernel(Args a) {
   double* D = region;  // [stages][kt][ld]
   double* YT = XY_GLOBAL ? XT + static_cast<size_t>(mp) * qp : region + a.y_offset;  // [mp][qp]
 
-  const int n_qt = qp / MQ, n_ww = mp / (MW * WW);
+  const int n_qt = qp / MQ, n_ww = a.wt / (MW * WW);
   const int n_tiles = (n_qt + WQ - 1) / WQ * n_ww;  // warp tiles of WQ x WW micro-tiles
   const int n_warps = nt >> 5;
   const int KT = 1 << a.kt_log2;
   const int n_kt = (m + KT - 1) / KT;
-  // Tile t of distance, transposed: D[v][w] = distance[w][t KT + v], by
-  // 8-byte async copies (coalesced reads of KT consecutive v a row w).
-  auto load_tile = [&](int t) {
+  // Tile t of distance over the machines [wb, wb + wt), transposed:
+  // D[v][w - wb] = distance[w][t KT + v], by 8-byte async copies (coalesced
+  // reads of KT consecutive v a row w).
+  auto load_tile = [&](int t, int wb) {
     const int v0 = t * KT, kc = m - v0 < KT ? m - v0 : KT;
+    const int wn = m - wb < a.wt ? m - wb : a.wt;
     double* Dt = D + (t % a.stages) * KT * ld;
-    for (int i = tid; i < m * KT; i += nt) {
+    for (int i = tid; i < wn * KT; i += nt) {
       const int w = i >> a.kt_log2, v = i & (KT - 1);
-      if (v < kc) cp_async<8>(Dt + v * ld + w, a.distance + static_cast<int64_t>(w) * m + v0 + v);
+      if (v < kc) {
+        cp_async<8>(Dt + v * ld + w, a.distance + static_cast<int64_t>(wb + w) * m + v0 + v);
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -219,12 +233,14 @@ __global__ void __launch_bounds__(NT_MAX) cut_traffic_kernel(Args a) {
     // 1); a warp takes a tile of WQ x WW of them, 4 WW machines wide, so a
     // warp's loads of a column v read WQ runs of MQ doubles of X^T and two
     // runs of 2 WW consecutive machines of the distance tile. Round i0 gives warp k
-    // the warp tile i0 + k (one round unless X is very large).
+    // the warp tile i0 + k (one round unless X is very large). The machines
+    // come wt at a time: all mp of them at once but in kTiled.
+    for (int wb = 0; wb < mp; wb += a.wt)
     for (int i0 = 0; i0 < n_tiles; i0 += n_warps) {
       const int tile = i0 + warp;
       const int qt = tile / n_ww * WQ + lane / WW;
       const bool own = tile < n_tiles && qt < n_qt;
-      const int q0 = qt * MQ, w0 = tile % n_ww * MW * WW + 2 * (lane % WW);
+      const int q0 = qt * MQ, wl = tile % n_ww * MW * WW + 2 * (lane % WW), w0 = wb + wl;
       double acc[MQ][MW];
 #pragma unroll
       for (int k = 0; k < MQ; ++k)
@@ -233,7 +249,7 @@ __global__ void __launch_bounds__(NT_MAX) cut_traffic_kernel(Args a) {
       __syncthreads();  // masses written; the region's staging / last round's tiles consumed
       // A ring of `stages` tiles: tiles t + 1 .. t + stages - 2 load while
       // tile t is used.
-      for (int t = 0; t + 1 < a.stages && t < n_kt; ++t) load_tile(t);
+      for (int t = 0; t + 1 < a.stages && t < n_kt; ++t) load_tile(t, wb);
       for (int t = 0; t < n_kt; ++t) {
         if (a.stages == 3 && t + 1 < n_kt) {
           asm volatile("cp.async.wait_group 1;\n" ::);
@@ -243,7 +259,7 @@ __global__ void __launch_bounds__(NT_MAX) cut_traffic_kernel(Args a) {
         // Tile t landed for all; tile t - 1 consumed, so its buffer takes
         // tile t + stages - 1.
         __syncthreads();
-        if (t + a.stages - 1 < n_kt) load_tile(t + a.stages - 1);
+        if (t + a.stages - 1 < n_kt) load_tile(t + a.stages - 1, wb);
         const int v0 = t * KT, kc = m - v0 < KT ? m - v0 : KT;
         const double* Dt = D + (t % a.stages) * KT * ld;
         if (!own) continue;
@@ -255,8 +271,8 @@ __global__ void __launch_bounds__(NT_MAX) cut_traffic_kernel(Args a) {
           const double2 x45 = *reinterpret_cast<const double2*>(xv + q0 + 4);
           // machines past m read slots no copy filled; their sums land in
           // Y^T's padding, never read
-          const double2 d01 = *reinterpret_cast<const double2*>(dv + w0);
-          const double2 d23 = *reinterpret_cast<const double2*>(dv + w0 + 2 * WW);
+          const double2 d01 = *reinterpret_cast<const double2*>(dv + wl);
+          const double2 d23 = *reinterpret_cast<const double2*>(dv + wl + 2 * WW);
           const double x[MQ] = {x01.x, x01.y, x23.x, x23.y, x45.x, x45.y};
           const double d[MW] = {d01.x, d01.y, d23.x, d23.y};
 #pragma unroll
@@ -313,11 +329,15 @@ struct Plan {
 // narrower tiles where the shared memory needs them. Where X^T and Y^T do
 // not fit even so, they go to a global scratch (one row a block, the
 // blocks resident at once looping over the rows), and shared memory holds
-// the staging and the tiles, down to one column. Fills a's derived fields.
+// the staging and the tiles, down to one column. Past two one-column tiles
+// of all m machines (m > ops.MAX_MACHINES), the tiles split along w too:
+// W_TILE machines by 8 columns, three in flight (kTiled). Fills a's
+// derived fields.
 cudaError_t plan_launch(Args& a, int device, Plan& pl) {
   constexpr size_t kBlockMax = 227 * 1024;
   a.mp = (a.m + MW * WW - 1) / (MW * WW) * (MW * WW);  // whole warp tiles of machines
   a.ld = a.mp + 2;                                    // tile rows 2 (mod 4) doubles apart
+  a.wt = a.mp;
   const int k2 = a.k2;
   auto items = [&](int r) {  // lanes of the warp tiles
     const int n_qt = (r * k2 + MQ - 1) / MQ;
@@ -335,10 +355,18 @@ cudaError_t plan_launch(Args& a, int device, Plan& pl) {
     rows = 1;
     kt = KT_MAX;
     while (kt > 1 && smem_bytes(a, 1, NT_MAX, kt, kGlobal, stages) > kBlockMax) kt /= 2;
-    // At the largest m (ops.MAX_MACHINES) one-column tiles fit only two at
-    // a time, with unpadded rows.
+    // Up to the largest m of the one-block tiles (ops.MAX_MACHINES)
+    // one-column tiles fit only two at a time, with unpadded rows.
     if (smem_bytes(a, 1, NT_MAX, kt, kGlobal, stages) > kBlockMax) stages = 2;
     if (smem_bytes(a, 1, NT_MAX, kt, kGlobal, stages) > kBlockMax) a.ld = a.mp;
+    if (smem_bytes(a, 1, NT_MAX, kt, kGlobal, stages) > kBlockMax) {
+      layout = kTiled;
+      kt = KT_MAX;
+      stages = 3;
+      a.wt = W_TILE;
+      a.mp = (a.m + W_TILE - 1) / W_TILE * W_TILE;  // whole w tiles
+      a.ld = W_TILE + 2;
+    }
   }
   const int nt = layout == kOverlap ? items(rows) : NT_MAX;
   a.rows = rows;
@@ -351,13 +379,11 @@ cudaError_t plan_launch(Args& a, int device, Plan& pl) {
   pl.kt = kt;
   pl.layout = layout;
   pl.smem = smem_bytes(a, rows, nt, kt, layout, stages);
-  // Two one-column tiles of `distance` past a block's shared memory: m > 14 528
-  // (ops.MAX_MACHINES is 14 500).
-  if (pl.smem > kBlockMax) return cudaErrorInvalidValue;
+  if (pl.smem > kBlockMax) return cudaErrorInvalidValue;  // no layout above does this
   const size_t xy = sizeof(double) * a.mp * a.qp;
   a.y_offset = layout == kYApart ? static_cast<int>((pl.smem - 2 * xy) / sizeof(double)) : 0;
   void (*kernel)(Args) =
-      layout == kGlobal ? cut_traffic_kernel<true> : cut_traffic_kernel<false>;
+      layout >= kGlobal ? cut_traffic_kernel<true> : cut_traffic_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(pl.smem));
   int sms = 0;
@@ -368,17 +394,18 @@ cudaError_t plan_launch(Args& a, int device, Plan& pl) {
   if (err != cudaSuccess) return err;
   pl.blocks = (a.B + rows - 1) / rows;
   const int64_t resident = static_cast<int64_t>(sms) * (pl.per_sm > 0 ? pl.per_sm : 1);
-  if (layout == kGlobal && pl.blocks > resident) pl.blocks = resident;
+  if (layout >= kGlobal && pl.blocks > resident) pl.blocks = resident;
   return cudaSuccess;
 }
 
 }  // namespace
 
 // The launch that cut_traffic_launch makes for B rows of T tasks, k2 slots
-// and m machines, into out[0..9]: rows a block, threads a block, shared
-// bytes a block, layout (0 shared, 1 Y^T apart, 2 global scratch), columns
-// a distance tile, tiles in flight, blocks, resident blocks a SM, and the
-// registers and local (spilled) bytes a thread. Returns a cudaError_t
+// and m machines, into out[0..10]: rows a block, threads a block, shared
+// bytes a block, layout (0 shared, 1 Y^T apart, 2 global scratch, 3 global
+// scratch and tiles split along w), columns a distance tile, tiles in
+// flight, blocks, resident blocks a SM, the registers and local (spilled)
+// bytes a thread, and machines w a distance tile. Returns a cudaError_t
 // code: 0 on success.
 extern "C" int cut_traffic_plan(int device, long long B, long long T, int k2, int m,
                                 long long* out) {
@@ -395,13 +422,13 @@ extern "C" int cut_traffic_plan(int device, long long B, long long T, int k2, in
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(
-      &attr, pl.layout == kGlobal ? cut_traffic_kernel<true> : cut_traffic_kernel<false>);
+      &attr, pl.layout >= kGlobal ? cut_traffic_kernel<true> : cut_traffic_kernel<false>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vals[10] = {pl.rows, pl.threads, static_cast<long long>(pl.smem),
+  const long long vals[11] = {pl.rows, pl.threads, static_cast<long long>(pl.smem),
                               static_cast<long long>(pl.layout), pl.kt, a.stages, pl.blocks,
                               pl.per_sm, attr.numRegs,
-                              static_cast<long long>(attr.localSizeBytes)};
-  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+                              static_cast<long long>(attr.localSizeBytes), a.wt};
+  for (int i = 0; i < 11; ++i) out[i] = vals[i];
   return 0;
 }
 
@@ -444,7 +471,7 @@ extern "C" int cut_traffic_launch(
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   a.scratch = nullptr;
-  if (pl.layout == kGlobal) {
+  if (pl.layout >= kGlobal) {
     void* scratch = nullptr;
     err = cudaMallocAsync(&scratch, static_cast<size_t>(pl.blocks) * 2 * sizeof(double) * a.mp *
                                         a.qp, s);
@@ -452,7 +479,7 @@ extern "C" int cut_traffic_launch(
     a.scratch = static_cast<double*>(scratch);
   }
   void (*kernel)(Args) =
-      pl.layout == kGlobal ? cut_traffic_kernel<true> : cut_traffic_kernel<false>;
+      pl.layout >= kGlobal ? cut_traffic_kernel<true> : cut_traffic_kernel<false>;
   kernel<<<dim3(static_cast<unsigned>(pl.blocks)), pl.threads, pl.smem, s>>>(a);
   err = cudaGetLastError();
   if (a.scratch != nullptr) {

@@ -41,16 +41,18 @@ def load_library() -> ctypes.CDLL:
 
 
 _PLAN = ("rows", "threads", "smem_bytes", "layout", "tile_columns", "tile_stages", "blocks",
-         "blocks_per_sm", "registers", "local_bytes")
+         "blocks_per_sm", "registers", "local_bytes", "w_tile")
 
 
 def launch_plan(B: int, T: int, k2: int, m: int, device: int = 0) -> dict:
     """The launch ``cut_traffic_launch`` makes for B rows of T tasks, k2
     contracted slots and m machines: rows and threads a block, shared bytes,
     layout (0 X^T and Y^T in shared memory, 1 Y^T apart, 2 both in a global
-    scratch), columns of a distance tile, tiles in flight, blocks, resident
-    blocks a SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and
-    registers and local (spilled) bytes a thread."""
+    scratch, 3 that with the distance tiles split along w), columns of a
+    distance tile, tiles in flight, blocks, resident blocks a SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and local
+    (spilled) bytes a thread, and machines w a distance tile (W_T: all m,
+    padded, but in layout 3)."""
     lib = load_library()
     fn = lib.cut_traffic_plan
     fn.argtypes = [_I32, _I64, _I64, _I32, _I32, ctypes.POINTER(_I64)]

@@ -15,13 +15,18 @@ import torch
 from repro_torch.kernels.cut_traffic.ref import NET_CHUNK_ELEMS, cut_traffic_ref
 from repro_torch.kernels.sched_scoring.ops import _check
 
-__all__ = ["LAUNCHES", "MAX_MACHINES", "cut_traffic", "edge_slots", "reset_launches"]
+__all__ = ["LAUNCHES", "MAX_MACHINES", "W_TILE", "cut_traffic", "distance_tiles", "edge_slots",
+           "reset_launches"]
 
-# The kernel's limit on m: two one-column tiles of ``distance`` (2 x 8 m
-# bytes, padded) must fit one block's 227 KB of shared memory. Any number
-# of contracted components runs (past shared memory, the masses and their
-# contraction go to a global scratch).
-MAX_MACHINES = 14_500
+# The largest m whose distance tiles span all m machines: two one-column
+# tiles (2 x 8 bytes a machine, m padded to 64) in one block's 227 KB of
+# shared memory. Past it the kernel splits the tiles along the machines w
+# too, W_TILE at a time (nine warp tiles of 64 machines: three 8-column
+# tiles in flight take 111 KB, so two blocks share an SM). Any m and any
+# number of contracted components run (past shared memory, the masses and
+# their contraction go to a global scratch).
+MAX_MACHINES = 227 * 1024 // (2 * 8) // 64 * 64
+W_TILE = 9 * 64
 
 # Kernel launches since the last reset. Only a launch of the CUDA kernel
 # counts; the CPU path and B == 0 launch nothing.
@@ -46,6 +51,16 @@ def edge_slots(edges: Sequence[tuple[int, int]], n: int) -> tuple[list, list, li
     for i, b in enumerate(dsts):
         recv_slot[b] = len(srcs) + i
     return send_slot, recv_slot, [(send_slot[a], recv_slot[b]) for a, b in edges]
+
+
+def distance_tiles(m: int) -> tuple[int, int]:
+    """(machines w a distance tile, tiles along w) of the kernel's step 3 at
+    m machines: all of them in one, padded to 64, up to ``MAX_MACHINES``;
+    else ``W_TILE`` at a time (``plan_launch``'s ``wt`` in
+    ``csrc/cut_traffic.cu``)."""
+    if m <= MAX_MACHINES:
+        return -(-m // 64) * 64, 1
+    return W_TILE, -(-m // W_TILE)
 
 
 _SLOTS: dict[tuple, tuple[torch.Tensor, ...]] = {}
@@ -87,8 +102,8 @@ def cut_traffic(
       alpha / cir_unit: (n,) float64 output ratio and unit-rate input of
         each component.
       edges: the topology's (a, b) component pairs, in order.
-      distance: (m, m) float64 machine distances; on a card m is at most
-        ``MAX_MACHINES``.
+      distance: (m, m) float64 machine distances; any m (on a card, past
+        ``MAX_MACHINES`` the kernel tiles them along w: ``distance_tiles``).
       net_penalty: CPU points per unit of cut flow and distance.
       chunk_elems: row-chunk cap of the plain version (CPU only; results
         never depend on it).
@@ -117,9 +132,6 @@ def cut_traffic(
                                net_penalty, chunk_elems)
     if dev.type != "cuda":
         raise ValueError(f"cut_traffic runs on cpu or cuda tensors, not {dev}")
-    if m > MAX_MACHINES:
-        raise ValueError(f"the cut_traffic kernel takes at most {MAX_MACHINES} machines (two "
-                         f"columns of distance in one block's shared memory), got {m}")
     return _launch(task_machine, comp, unit_ir, alpha, cir_unit, edges, distance, net_penalty)
 
 

@@ -73,7 +73,18 @@
 // named barriers a window join the three roles (the workers arrive at one
 // and wait at the other). Packing the chains of G pairs into one warp
 // keeps the FP64 pipe for the phases (a lone lane's add costs a whole
-// warp's issue).
+// warp's issue). The grid's y and z axes walk the groups of G traces, so
+// any number of traces runs.
+//
+// Where one pair's state does not fit a block (ops.smem_bytes with one
+// pair past ops.SMEM_LIMIT: thousands of tasks or machines), a second
+// instance (GLOBAL) keeps it in a global scratch instead, one slab a
+// resident block (the pattern of cut_traffic's kGlobal), and the resident
+// blocks walk the (trace, placement) pairs, one at a time. The placement's
+// arrays are read in place (e, met, the order and the machine boundaries)
+// or kept in the slab (the machines' fixed loads and each task's machine);
+// shared memory holds alpha and the packed topology alone. The roles,
+// barriers and the order of every sum are the same.
 
 #include <cuda_runtime.h>
 
@@ -137,7 +148,8 @@ __device__ __forceinline__ double ordered_sum(const double* x, int count) {
 // admitted rate; then int32: each task's machine (m where none) and the
 // placement's task order (T each), the machines' boundaries (m + 2) and the
 // packed topology (3 n + 2 + E + 4 K). ops.smem_bytes counts the same bytes,
-// and the launcher refuses a count that is not `bytes`.
+// and the launcher refuses a count that is not `bytes` (or, for the GLOBAL
+// instance, `global_bytes`: ops.global_smem_bytes).
 struct Layout {
   int T, m, n, kc, pair;  // kc: max(K, 1); pair: doubles a pair
   __host__ __device__ Layout(int T_, int m_, int n_, int K)
@@ -147,6 +159,16 @@ struct Layout {
     const long long doubles = 2LL * T + m + n + static_cast<long long>(G) * pair;
     const long long ints = 2LL * T + (m + 2) + (3LL * n + 2 + E + 4LL * K);
     return 8 * doubles + 4 * ints;
+  }
+  // Shared bytes of a GLOBAL block: alpha and the packed topology.
+  __host__ long long global_bytes(int E, int K) const {
+    return 8LL * n + 4 * (3LL * n + 2 + E + 4LL * K);
+  }
+  // Doubles of a GLOBAL block's slab: a pair's state, the machines' fixed
+  // loads and each task's machine; a multiple of two.
+  __host__ long long slab_doubles() const {
+    const long long d = pair + m + (T + 1LL) / 2;
+    return (d + 1) / 2 * 2;
   }
 };
 
@@ -168,6 +190,9 @@ struct PairState {
   }
 };
 
+// GLOBAL: one pair a block at a time, its state in `slab` (slab_doubles a
+// block), the placement's arrays read in place.
+template <bool GLOBAL>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 policy_scan_kernel(const double* __restrict__ rates, const double* __restrict__ capacity,
                    const double* __restrict__ e, const double* __restrict__ met,
@@ -177,40 +202,58 @@ policy_scan_kernel(const double* __restrict__ rates, const double* __restrict__ 
                    double* __restrict__ out_thpt, double* __restrict__ out_adm,
                    double* __restrict__ out_drop, double* __restrict__ out_qtot,
                    double* __restrict__ out_thr, double* __restrict__ out_util, int B, int P,
-                   int T, int m, int n, int E, int K, int W, int S, int G, Consts c) {
-  const int p = blockIdx.x;
-  const int b0 = blockIdx.y * G;
-  const int g_here = B - b0 < G ? B - b0 : G;  // pairs of this block
+                   int T, int m, int n, int E, int K, int W, int S, int G, Consts c,
+                   double* __restrict__ slab, long long slab_doubles) {
+  extern __shared__ double smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Layout L(T, m, n, K);
+
+  // Placement p and its traces b0 .. b0 + G - 1 (those below B).
+  auto run = [&](const int p, const int b0) {
+  const int g_here = B - b0 < G ? B - b0 : G;  // pairs of this block
   const int n_work = G * WPP;                  // worker warps
   const int workers = n_work * 32;
   const int chain_warp = n_work, totals_warp = n_work + 1;
 
-  const Layout L(T, m, n, K);
-  extern __shared__ double smem[];
-  double* e_s = smem;
-  double* met_s = e_s + T;
-  double* met_w = met_s + T;
-  double* alpha_s = met_w + m;
-  double* pairs = alpha_s + n;
-  int* tm_s = reinterpret_cast<int*>(pairs + static_cast<size_t>(G) * L.pair);
-  int* ord = tm_s + T;
-  int* seg = ord + T;
-  int* topo_s = seg + m + 2;
+  const size_t pt = static_cast<size_t>(p) * T;
+  const int* mstart_p = mstart + static_cast<size_t>(p) * (m + 2);
+  double *e_s, *met_s, *met_w, *alpha_s, *pairs;
+  int *tm_s, *ord, *seg, *topo_s;
+  if (!GLOBAL) {
+    e_s = smem;
+    met_s = e_s + T;
+    met_w = met_s + T;
+    alpha_s = met_w + m;
+    pairs = alpha_s + n;
+    tm_s = reinterpret_cast<int*>(pairs + static_cast<size_t>(G) * L.pair);
+    ord = tm_s + T;
+    seg = ord + T;
+    topo_s = seg + m + 2;
+  } else {
+    alpha_s = smem;
+    topo_s = reinterpret_cast<int*>(alpha_s + n);
+    pairs = slab + static_cast<size_t>(blockIdx.x) * slab_doubles;
+    met_w = pairs + L.pair;
+    tm_s = reinterpret_cast<int*>(met_w + m);
+    e_s = const_cast<double*>(e + pt);  // read in place, never written
+    met_s = const_cast<double*>(met + pt);
+    ord = const_cast<int*>(order + pt);
+    seg = const_cast<int*>(mstart_p);
+  }
   const int* off = topo_s;
   const int* is_source = off + n + 1;
   const int* parent_ptr = is_source + n;
   const int* parent_idx = parent_ptr + n + 1;
   const int* key = parent_idx + E;  // K x (parent, lo, hi, share column)
 
-  const size_t pt = static_cast<size_t>(p) * T;
-  const int* mstart_p = mstart + static_cast<size_t>(p) * (m + 2);
-  for (int i = tid; i < T; i += blockDim.x) {
-    e_s[i] = e[pt + i];
-    met_s[i] = met[pt + i];
-    ord[i] = order[pt + i];
+  if (!GLOBAL) {
+    for (int i = tid; i < T; i += blockDim.x) {
+      e_s[i] = e[pt + i];
+      met_s[i] = met[pt + i];
+      ord[i] = order[pt + i];
+    }
+    for (int w = tid; w < m + 2; w += blockDim.x) seg[w] = mstart_p[w];
   }
-  for (int w = tid; w < m + 2; w += blockDim.x) seg[w] = mstart_p[w];
   for (int i = tid; i < 3 * n + 2 + E + 4 * K; i += blockDim.x) topo_s[i] = topo[i];
   for (int i = tid; i < n; i += blockDim.x) alpha_s[i] = alpha[i];
   for (int g = 0; g < G; ++g) {
@@ -337,10 +380,15 @@ policy_scan_kernel(const double* __restrict__ rates, const double* __restrict__ 
   for (int t = 0; t < W; ++t) {
     bar_sync<kGo>(workers + 64);  // window t's arrivals ready, window t - 1's totals read
     if (mine) {
-      // The window's capacities, by cp.async while phase B runs.
+      // The window's capacities, by cp.async while phase B runs (GLOBAL:
+      // loads into the slab).
       const double* cap = capacity + (bw + t) * m;
-      for (int w = w0; w < m; w += wstep) cp_async8(st.cap + w, cap + w);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      if (GLOBAL) {
+        for (int w = w0; w < m; w += wstep) st.cap[w] = cap[w];
+      } else {
+        for (int w = w0; w < m; w += wstep) cp_async8(st.cap + w, cap + w);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
       // B. Arrivals, backlog, drops.
       const double* sh = shares + (bw + t) * S;
       for (int i = w0; i < T; i += wstep) {
@@ -354,7 +402,7 @@ policy_scan_kernel(const double* __restrict__ rates, const double* __restrict__ 
         st.back[i] = sub(x, o);
         st.over[i] = o;
       }
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      if (!GLOBAL) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
     bar_sync<kWork>(workers);
     if (mine) {
@@ -404,43 +452,86 @@ policy_scan_kernel(const double* __restrict__ rates, const double* __restrict__ 
     const size_t ou = (static_cast<size_t>(b0 + g) * P + p) * m;
     for (int w = w0; w < m; w += wstep) out_util[ou + w] = st.util[w] / static_cast<double>(W);
   }
+  };
+
+  if (!GLOBAL) {
+    // Group blockIdx.y + gridDim.y blockIdx.z of G traces: the y axis
+    // holds at most 65 535 groups.
+    const long long grp = blockIdx.y + static_cast<long long>(gridDim.y) * blockIdx.z;
+    if (grp * G < B) run(blockIdx.x, static_cast<int>(grp * G));
+    return;
+  }
+  for (long long item = blockIdx.x; item < static_cast<long long>(B) * P; item += gridDim.x) {
+    __syncthreads();  // the last pair's state, alpha and the topology read
+    run(static_cast<int>(item % P), static_cast<int>(item / P));
+  }
+}
+
+// The resident blocks of the GLOBAL instance: `sms` times its occupancy,
+// at most the pairs. Fills per_sm.
+cudaError_t global_blocks(int device, long long pairs, long long smem_bytes, int& per_sm,
+                          long long& blocks) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, policy_scan_kernel<true>,
+                                                        (WPP + 2) * 32,
+                                                        static_cast<size_t>(smem_bytes));
+  }
+  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  blocks = pairs < resident ? pairs : resident;
+  return err;
+}
+
+template <bool GLOBAL>
+cudaError_t set_smem(long long smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(policy_scan_kernel<GLOBAL>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem_bytes));
 }
 
 }  // namespace
 
-// The launch for B traces x P placements with G pairs a block and
-// `smem_bytes` of shared memory, into out[0..4]: threads a block, resident
-// blocks a SM, registers and local (spilled) bytes a thread, and blocks.
-// Returns a cudaError_t code: 0 on success.
+// The launch for B traces x P placements with G pairs a block (0: the
+// GLOBAL instance) and `smem_bytes` of shared memory, into out[0..4]:
+// threads a block, resident blocks a SM, registers and local (spilled)
+// bytes a thread, and blocks. Returns a cudaError_t code: 0 on success.
 extern "C" int policy_scan_occupancy(int device, long long B, long long P, int G,
                                      long long smem_bytes, long long* out) {
+  const bool global = G == 0;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess && smem_bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(policy_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_bytes));
-  }
-  const int threads = (G * WPP + 2) * 32;
+  if (err == cudaSuccess) err = global ? set_smem<true>(smem_bytes) : set_smem<false>(smem_bytes);
+  const int threads = ((global ? 1 : G) * WPP + 2) * 32;
   int per_sm = 0;
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, policy_scan_kernel, threads,
-                                                        static_cast<size_t>(smem_bytes));
+  long long blocks = 0;
+  if (err == cudaSuccess && global) err = global_blocks(device, B * P, smem_bytes, per_sm, blocks);
+  if (err == cudaSuccess && !global) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, policy_scan_kernel<false>,
+                                                        threads, static_cast<size_t>(smem_bytes));
+    blocks = P * ((B + G - 1) / G);
   }
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, policy_scan_kernel);
+  if (err == cudaSuccess) {
+    err = global ? cudaFuncGetAttributes(&attr, policy_scan_kernel<true>)
+                 : cudaFuncGetAttributes(&attr, policy_scan_kernel<false>);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = threads;
   out[1] = per_sm;
   out[2] = attr.numRegs;
   out[3] = static_cast<long long>(attr.localSizeBytes);
-  out[4] = P * ((B + G - 1) / G);
+  out[4] = blocks;
   return 0;
 }
 
 // Launches the kernel on `stream` (no synchronisation): blocks of G pairs
 // (one placement, G traces) with `smem_bytes` of shared memory, which the
-// wrapper counts for the layout above (ops.smem_bytes). Returns a
-// cudaError_t code: 0 on success, cudaErrorInvalidValue where `smem_bytes`
-// is not the layout's size. Empty inputs launch nothing.
+// wrapper counts for the layout above (ops.smem_bytes); or, with G = 0, the
+// GLOBAL instance, whose `smem_bytes` the wrapper counts as
+// ops.global_smem_bytes. Returns a cudaError_t code: 0 on success,
+// cudaErrorInvalidValue where `smem_bytes` is not the layout's size. Empty
+// inputs launch nothing.
 extern "C" int policy_scan_launch(int device, const void* rates, const void* capacity,
                                   const void* e, const void* met, const void* order,
                                   const void* mstart, const void* comp, const void* alpha,
@@ -451,33 +542,55 @@ extern "C" int policy_scan_launch(int device, const void* rates, const void* cap
                                   double bp_low, double down, double up, double tmin,
                                   long long smem_bytes, void* stream) {
   if (B <= 0 || P <= 0 || W <= 0 || T <= 0) return 0;
-  if (G < 1 || G > PAIRS_MAX || (B + G - 1) / G > 65535 || P > 0x7fffffffLL ||
-      smem_bytes != Layout(T, m, n, K).bytes(G, E, K)) {
+  const Layout L(T, m, n, K);
+  const bool global = G == 0;
+  if (G < 0 || G > PAIRS_MAX || B > 0x7fffffffLL || P > 0x7fffffffLL ||
+      smem_bytes != (global ? L.global_bytes(E, K) : L.bytes(G, E, K))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = global ? set_smem<true>(smem_bytes) : set_smem<false>(smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem_bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(policy_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   // 1 / dt where it is exact (dt a power of two, its reciprocal normal):
   // then x * (1 / dt) is x / dt, bit for bit; 0 where it is not.
   int exp2 = 0;
   const double mant = frexp(dt, &exp2);
   const double rdt = (dt > 0.0 && mant == 0.5 && exp2 > -1021 && exp2 < 1023) ? 1.0 / dt : 0.0;
   const Consts c{dt, rdt, max_queue, bp_high, bp_low, down, up, tmin};
-  const dim3 grid(static_cast<unsigned>(P), static_cast<unsigned>((B + G - 1) / G));
-  policy_scan_kernel<<<grid, (G * WPP + 2) * 32, static_cast<size_t>(smem_bytes),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(rates), static_cast<const double*>(capacity),
-      static_cast<const double*>(e), static_cast<const double*>(met),
-      static_cast<const int*>(order), static_cast<const int*>(mstart),
-      static_cast<const int*>(comp), static_cast<const double*>(alpha),
-      static_cast<const int*>(topo), static_cast<const double*>(shares),
-      static_cast<double*>(thpt), static_cast<double*>(adm), static_cast<double*>(drop),
-      static_cast<double*>(qtot), static_cast<double*>(thr), static_cast<double*>(util),
-      static_cast<int>(B), static_cast<int>(P), T, m, n, E, K, W, S, G, c);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto launch = [&](auto kernel, dim3 grid, int threads, double* slab,
+                          long long slab_doubles) {
+    kernel<<<grid, threads, static_cast<size_t>(smem_bytes), s>>>(
+        static_cast<const double*>(rates), static_cast<const double*>(capacity),
+        static_cast<const double*>(e), static_cast<const double*>(met),
+        static_cast<const int*>(order), static_cast<const int*>(mstart),
+        static_cast<const int*>(comp), static_cast<const double*>(alpha),
+        static_cast<const int*>(topo), static_cast<const double*>(shares),
+        static_cast<double*>(thpt), static_cast<double*>(adm), static_cast<double*>(drop),
+        static_cast<double*>(qtot), static_cast<double*>(thr), static_cast<double*>(util),
+        static_cast<int>(B), static_cast<int>(P), T, m, n, E, K, W, S, global ? 1 : G, c, slab,
+        slab_doubles);
+    return cudaGetLastError();
+  };
+  if (!global) {
+    // The groups of G traces on the y axis, 65 535 at a time, and the z axis.
+    const long long groups = (B + G - 1) / G;
+    const long long gy = groups < 65535 ? groups : 65535;
+    const dim3 grid(static_cast<unsigned>(P), static_cast<unsigned>(gy),
+                    static_cast<unsigned>((groups + gy - 1) / gy));
+    return static_cast<int>(launch(policy_scan_kernel<false>, grid, (G * WPP + 2) * 32, nullptr,
+                                   0));
+  }
+  int per_sm = 0;
+  long long blocks = 0;
+  err = global_blocks(device, B * P, smem_bytes, per_sm, blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long slab_doubles = L.slab_doubles();
+  void* slab = nullptr;
+  err = cudaMallocAsync(&slab, static_cast<size_t>(blocks) * slab_doubles * sizeof(double), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch(policy_scan_kernel<true>, dim3(static_cast<unsigned>(blocks)), (WPP + 2) * 32,
+               static_cast<double*>(slab), slab_doubles);
+  const cudaError_t freed = cudaFreeAsync(slab, s);  // after the kernel, in stream order
+  return static_cast<int>(err != cudaSuccess ? err : freed);
 }

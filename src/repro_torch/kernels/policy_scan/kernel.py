@@ -32,7 +32,7 @@ _ARGTYPES = [
     _P, _P, _P, _P, _P, _P,     # throughput, admitted, dropped, queue_total, throttle, util
     _I64, _I64,                 # B, P
     _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # T, m, n, E, K, W, S
-    _I32,                       # pairs a block
+    _I32,                       # pairs a block (0: the global-state instance)
     _F64, _F64, _F64, _F64, _F64, _F64, _F64,  # dt, max_queue, bp_high, bp_low, down, up, min
     _I64,                       # shared-memory bytes of a block
     _P,                         # stream
@@ -46,9 +46,11 @@ def load_library() -> ctypes.CDLL:
 
 def occupancy(B: int, P: int, pairs: int, smem_bytes: int, device: int = 0) -> dict:
     """The launch for B traces x P placements with ``pairs`` pairs a block
-    and ``smem_bytes`` of shared memory: threads a block, resident blocks a
-    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
-    local (spilled) bytes a thread, and blocks."""
+    (0: the global-state instance, one pair a block at a time) and
+    ``smem_bytes`` of shared memory: threads a block, resident blocks a SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and local
+    (spilled) bytes a thread, and blocks (of the global-state instance: the
+    resident ones, which walk the pairs)."""
     lib = load_library()
     fn = lib.policy_scan_occupancy
     fn.argtypes = [_I32, _I64, _I64, _I32, _I64, ctypes.POINTER(_I64)]

@@ -24,15 +24,20 @@ __all__ = [
     "ScanConfig",
     "ScanOutput",
     "ScanTopology",
+    "global_smem_bytes",
     "policy_scan",
     "pairs_a_block",
     "reset_launches",
+    "slab_bytes",
     "smem_bytes",
+    "state_in_global",
 ]
 
-# Shared memory one block may use on Hopper: the kernel keeps its pairs'
-# whole state there (one pair at the least), so T and m are bounded by it
-# (``smem_bytes``).
+# Shared memory one block may use on Hopper. The kernel keeps its pairs'
+# whole state there where one pair's fits (``smem_bytes``); past that, its
+# second instance keeps a pair's state in a global scratch, one slab a
+# resident block (``state_in_global``, ``global_smem_bytes``,
+# ``slab_bytes``), so any T and m run.
 SMEM_LIMIT = 232_448
 
 # Pairs (one placement, several traces) a block of the kernel takes, at
@@ -67,6 +72,33 @@ def smem_bytes(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
     pair = 3 * T + 3 * m + 1 + 2 * n + max(K, 1) + WARPS_A_PAIR + 2
     ints = 2 * T + (m + 2) + (3 * n + 2 + n_parents + 4 * K)
     return 8 * (2 * T + m + n + pairs * pair) + 4 * ints
+
+
+def state_in_global(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
+                    n_parents: int = 0) -> bool:
+    """Whether the kernel keeps a pair's state in its global scratch: one
+    pair's block (``smem_bytes`` with ``pairs=1``) past ``SMEM_LIMIT``."""
+    return smem_bytes(n_tasks, n_machines, n_components, n_keyed, 1, n_parents) > SMEM_LIMIT
+
+
+def global_smem_bytes(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
+                      n_parents: int = 0) -> int:
+    """Shared-memory bytes of a block of the global-state instance (``Layout::
+    global_bytes`` in ``csrc/policy_scan.cu``): alpha and the packed topology
+    (the placement's arrays are read in place or kept in the slab)."""
+    n, K = n_components, n_keyed
+    return 8 * n + 4 * (3 * n + 2 + n_parents + 4 * K)
+
+
+def slab_bytes(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
+               n_parents: int = 0) -> int:
+    """Global bytes of one resident block's slab in the global-state
+    instance (``Layout::slab_doubles``): one pair's state (the per-pair
+    doubles of ``smem_bytes``), the machines' fixed loads and each task's
+    machine; padded to 16 bytes."""
+    T, m, n, K = n_tasks, n_machines, n_components, n_keyed
+    doubles = 3 * T + 3 * m + 1 + 2 * n + max(K, 1) + WARPS_A_PAIR + 2 + m + (T + 1) // 2
+    return 8 * (-(-doubles // 2) * 2)
 
 
 def pairs_a_block(B: int, n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
@@ -104,6 +136,10 @@ def policy_scan(
       topo / cfg: the topology's static structure and the loop constants.
 
     Returns the (B, P, W) metrics and the (B, P, m) window-mean utilization.
+    Any T, m and B run on both devices: on the card, past one pair's
+    ``smem_bytes`` a pair's state goes to a global scratch
+    (``state_in_global``), and the traces past the grid's 65 535 groups go
+    to its third axis.
     """
     dev = rates.device
     if rates.ndim != 2 or capacity.ndim != 3 or task_machine.ndim != 2:
@@ -123,15 +159,6 @@ def policy_scan(
         empty = torch.zeros((B, P, W), dtype=torch.float64, device=dev)
         return ScanOutput(empty, empty.clone(), empty.clone(), empty.clone(), empty.clone(),
                           torch.zeros((B, P, m), dtype=torch.float64, device=dev))
-    # One limit on both devices, so a sweep the CPU runs also runs on a card.
-    n_parents = sum(len(ps) for ps in topo.parents)
-    need = smem_bytes(T, m, topo.n_components, len(topo.keyed), 1, n_parents)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"the policy_scan kernel keeps a (trace, placement) pair's state in one block's "
-            f"shared memory: {T} tasks on {m} machines need {need} bytes, over {SMEM_LIMIT}")
-    if B > 65_535:
-        raise ValueError(f"the policy_scan kernel takes at most 65535 traces, got {B}")
     if dev.type == "cpu":
         return policy_scan_ref(rates, capacity, task_machine, e, met, shares, topo, cfg)
     if dev.type != "cuda":
@@ -187,7 +214,11 @@ def _launch(rates, capacity, tm, e, met, shares, topo, cfg):
     util = torch.empty((B, P, m), dtype=torch.float64, device=dev)
     n_edges = sum(len(ps) for ps in topo.parents)
     n, K = topo.n_components, len(topo.keyed)
-    G = pairs_a_block(B, T, m, n, K, n_edges)
+    if state_in_global(T, m, n, K, n_edges):  # G = 0: the global-state instance
+        G, smem = 0, global_smem_bytes(T, m, n, K, n_edges)
+    else:
+        G = pairs_a_block(B, T, m, n, K, n_edges)
+        smem = smem_bytes(T, m, n, K, G, n_edges)
     err = lib.policy_scan_launch(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         rates.data_ptr(), capacity.data_ptr(), e.data_ptr(), met.data_ptr(), order.data_ptr(),
@@ -196,8 +227,7 @@ def _launch(rates, capacity, tm, e, met, shares, topo, cfg):
         B, P, T, m, n, n_edges, K, W, topo.n_shares, G,
         float(cfg.window_s), float(cfg.max_queue), float(cfg.bp_high), float(cfg.bp_low),
         float(cfg.throttle_down), float(cfg.throttle_up), float(cfg.throttle_min),
-        smem_bytes(T, m, n, K, G, n_edges),
-        torch.cuda.current_stream(dev).cuda_stream,
+        smem, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"policy_scan kernel launch failed with CUDA error {err}")

@@ -42,6 +42,16 @@
 // builds with -fmad=false): the results are bit-identical to the plain
 // version, to the reference's sequential np.add.at, and to reruns. PERF.md
 // lists the designs timed on the card and dropped.
+//
+// Past the m whose accumulators fit one block (ops.max_machines), a second
+// instance (TILED) splits the machines into tiles of `tile_w` (sized so
+// that eight one-warp blocks share an SM: ops.machine_tiles). A warp takes
+// one (row, machine tile) pair: it streams the row's tasks as above and
+// adds only those whose machine lies in its tile, in the same rounds, so
+// each machine still adds its tasks in task order. It writes the tile's
+// partial min of head / var and its "infeasible" flag to a scratch; a
+// second kernel takes a row's partials in tile order. Min and or are exact
+// in any order, so both instances give the same bits.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -67,10 +77,14 @@ struct Args {
   const double* mem_c;     // (n,) memory per instance, or null
   const double* mem_cap;   // (m,) or (B, m) memory capacity
   double* out;             // (B,) rates
+  double* part_rate;       // (B, n_tiles) a tile's partial min (TILED), or null
+  int* part_bad;           // (B, n_tiles) a tile's "infeasible" flag (TILED), or null
   int64_t B, T;
   int64_t comp_stride, uir_stride, cap_stride, mem_cap_stride;
   int m;
-  int warp_bytes;          // shared memory of one row (warp)
+  int tile_w;              // machines a tile (m in the one-block layout)
+  int64_t n_tiles;         // machine tiles a row (1 in the one-block layout)
+  int warp_bytes;          // shared memory of one (row, tile) warp
 };
 
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
@@ -139,25 +153,42 @@ int warp_smem(int m, bool use_mem, bool row_comp, bool row_uir) {
                    TS_D * static_cast<int>(sizeof(double)) * row_uir);
 }
 
-template <bool RES>
+// The tiled instance's width: the most machines, a multiple of 32, whose
+// warp takes at most kTileWarpBytes, so that eight one-warp blocks (each
+// reserving 1 KB) share an SM's 228 KB (ops.machine_tiles mirrors it).
+constexpr int kTileWarpBytes = 27 * 1024;
+
+int tile_width(bool use_mem, bool row_comp, bool row_uir) {
+  int w = 32;
+  while (warp_smem(w + 32, use_mem, row_comp, row_uir) <= kTileWarpBytes) w += 32;
+  return w;
+}
+
+// TILED: the warp takes machines [w0, w0 + mw) of its row (a tile), with
+// accumulators for tile_w machines; else all m machines of its row.
+template <bool RES, bool TILED>
 __global__ void sched_scoring_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (b >= a.B) return;  // warps work alone: no block-wide barrier below
+  const int64_t pair = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (pair >= (TILED ? a.B * a.n_tiles : a.B)) return;  // warps work alone: no block barrier
+  const int64_t b = TILED ? pair / a.n_tiles : pair;
   const int m = a.m;
+  const int L = TILED ? a.tile_w : m;  // accumulators a warp
+  const int w0 = TILED ? static_cast<int>(pair - b * a.n_tiles) * a.tile_w : 0;
+  const int mw = TILED ? (m - w0 < L ? m - w0 : L) : m;  // machines of this warp
   const bool use_mem = RES && a.mem_c != nullptr;
   const bool row_comp = a.comp_stride != 0, row_uir = a.uir_stride != 0;
 
   double* s_var = reinterpret_cast<double*>(smem + static_cast<size_t>(warp) * a.warp_bytes);
-  double* s_met = s_var + m;
-  double* s_mem = s_met + m;
-  int* s_tag = reinterpret_cast<int*>(s_var + (use_mem ? 3 : 2) * m);
-  double* s_uir = s_var + acc_doubles(m, use_mem);
+  double* s_met = s_var + L;
+  double* s_mem = s_met + L;
+  int* s_tag = reinterpret_cast<int*>(s_var + (use_mem ? 3 : 2) * L);
+  double* s_uir = s_var + acc_doubles(L, use_mem);
   int32_t* s_tm = reinterpret_cast<int32_t*>(s_uir + (row_uir ? NSTAGE * TS_D : 0));
   int32_t* s_comp = s_tm + NSTAGE * TS_I;
-  for (int i = lane; i < (use_mem ? 3 : 2) * m; i += 32) s_var[i] = 0.0;
-  for (int w = lane; w < m; w += 32) s_tag[w] = 32;
+  for (int i = lane; i < (use_mem ? 3 : 2) * L; i += 32) s_var[i] = 0.0;
+  for (int w = lane; w < L; w += 32) s_tag[w] = 32;
 
   // The row's tiles of TT tasks, copied NSTAGE - 1 tiles ahead.
   const int64_t n_tiles = (a.T + TT - 1) / TT;
@@ -187,15 +218,18 @@ __global__ void sched_scoring_kernel(Args a) {
     const int count = static_cast<int>(a.T - t0 < TT ? a.T - t0 : TT);
     for (int j0 = 0; j0 < count; j0 += 32) {
       // Lane l takes task j0 + l: its gathers and product, independent of
-      // the other lanes'. Ids outside [0, m) match no machine (w = -1).
+      // the other lanes'. Ids outside [0, m) match no machine, and those
+      // outside the warp's machines are not its own (w = -1); w is the
+      // machine's place among the warp's accumulators.
       const int j = j0 + lane;
-      int w = j < count ? tm_t[j] : -1;
-      if (static_cast<unsigned>(w) >= static_cast<unsigned>(m)) w = -1;
+      const unsigned u =
+          j < count ? static_cast<unsigned>(tm_t[j]) - static_cast<unsigned>(w0) : ~0u;
+      const int w = u < static_cast<unsigned>(mw) ? static_cast<int>(u) : -1;
       double ev = 0.0, met = 0.0, mem = 0.0;
       if (w >= 0) {
         const int c = row_comp ? comp_t[j] : __ldg(a.comp + t0 + j);
         const double u = row_uir ? uir_t[j] : __ldg(a.unit_ir + t0 + j);
-        const int64_t cw = static_cast<int64_t>(c) * m + w;
+        const int64_t cw = static_cast<int64_t>(c) * m + (w0 + w);
         ev = __dmul_rn(__ldg(a.e_cm + cw), u);
         met = __ldg(a.met_cm + cw);
         if (use_mem) mem = __ldg(a.mem_c + c);
@@ -225,14 +259,14 @@ __global__ void sched_scoring_kernel(Args a) {
   }
   cp_async_wait<0>();
 
-  // Lane l finalizes machines w = l (mod 32); the partials combine by
-  // shuffles (min and or are exact in any order).
+  // Lane l finalizes the warp's machines w = l (mod 32); the partials
+  // combine by shuffles (min and or are exact in any order).
   bool infeasible = false;
   double rate = CUDART_INF;
-  const double* cap = a.cap + b * a.cap_stride;
-  const double* net = (RES && a.net != nullptr) ? a.net + b * m : nullptr;
-  const double* mem_cap = use_mem ? a.mem_cap + b * a.mem_cap_stride : nullptr;
-  for (int w = lane; w < m; w += 32) {
+  const double* cap = a.cap + b * a.cap_stride + w0;
+  const double* net = (RES && a.net != nullptr) ? a.net + b * m + w0 : nullptr;
+  const double* mem_cap = use_mem ? a.mem_cap + b * a.mem_cap_stride + w0 : nullptr;
+  for (int w = lane; w < mw; w += 32) {
     double var = s_var[w];
     // (B, m) rows are read once: streaming loads, which leave L1 to the tables
     if (RES && net != nullptr) var = __dadd_rn(var, __ldcs(net + w));
@@ -249,36 +283,88 @@ __global__ void sched_scoring_kernel(Args a) {
     rate = fmin(rate, __shfl_xor_sync(0xffffffffu, rate, off));
   }
   infeasible = __any_sync(0xffffffffu, infeasible);
-  if (lane == 0) a.out[b] = infeasible ? 0.0 : fmax(rate, 0.0);
+  if (lane == 0) {
+    if (TILED) {
+      a.part_rate[pair] = rate;
+      a.part_bad[pair] = infeasible;
+    } else {
+      a.out[b] = infeasible ? 0.0 : fmax(rate, 0.0);
+    }
+  }
 }
 
+// The tiled instance's second pass: row b's tile partials, in tile order.
+__global__ void combine_tiles_kernel(Args a) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= a.B) return;
+  double rate = CUDART_INF;
+  bool infeasible = false;
+  for (int64_t k = b * a.n_tiles; k < (b + 1) * a.n_tiles; ++k) {
+    rate = fmin(rate, a.part_rate[k]);
+    infeasible |= a.part_bad[k] != 0;
+  }
+  a.out[b] = infeasible ? 0.0 : fmax(rate, 0.0);
+}
+
+// The one-block layout (tile_w == m) where a row's accumulators fit a
+// block, else the tiled one at tile_width's width (and only then: the
+// wrapper's tile_w must be the layout's, as ops.machine_tiles gives it).
 template <bool RES>
 int launch(Args a, bool use_mem, cudaStream_t s) {
   constexpr int kBlockMax = 227 * 1024;
-  a.warp_bytes = warp_smem(a.m, use_mem, a.comp_stride != 0, a.uir_stride != 0);
-  int rows = kRows;
-  while (rows > 1 && rows * a.warp_bytes > kBlockMax) rows /= 2;
-  if (rows * a.warp_bytes > kBlockMax) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = rows * a.warp_bytes;
-  cudaError_t err = cudaFuncSetAttribute(sched_scoring_kernel<RES>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const bool row_comp = a.comp_stride != 0, row_uir = a.uir_stride != 0;
+  const bool tiled = warp_smem(a.m, use_mem, row_comp, row_uir) > kBlockMax;
+  if (a.tile_w != (tiled ? tile_width(use_mem, row_comp, row_uir) : a.m)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!tiled) {
+    a.warp_bytes = warp_smem(a.m, use_mem, row_comp, row_uir);
+    int rows = kRows;
+    while (rows > 1 && rows * a.warp_bytes > kBlockMax) rows /= 2;
+    const int smem = rows * a.warp_bytes;
+    cudaError_t err = cudaFuncSetAttribute(sched_scoring_kernel<RES, false>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>((a.B + rows - 1) / rows));
+    sched_scoring_kernel<RES, false><<<grid, 32 * rows, smem, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // One warp a block: eight blocks share an SM.
+  a.n_tiles = (a.m + a.tile_w - 1) / a.tile_w;
+  a.warp_bytes = warp_smem(a.tile_w, use_mem, row_comp, row_uir);
+  const int64_t pairs = a.B * a.n_tiles;
+  if (pairs > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(sched_scoring_kernel<RES, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         a.warp_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((a.B + rows - 1) / rows));
-  sched_scoring_kernel<RES><<<grid, 32 * rows, smem, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  void* scratch = nullptr;
+  err = cudaMallocAsync(&scratch, static_cast<size_t>(pairs) * (sizeof(double) + sizeof(int)), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.part_rate = static_cast<double*>(scratch);
+  a.part_bad = reinterpret_cast<int*>(a.part_rate + pairs);
+  sched_scoring_kernel<RES, true><<<static_cast<unsigned>(pairs), 32, a.warp_bytes, s>>>(a);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    combine_tiles_kernel<<<static_cast<unsigned>((a.B + 255) / 256), 256, 0, s>>>(a);
+    err = cudaGetLastError();
+  }
+  const cudaError_t freed = cudaFreeAsync(scratch, s);  // after both kernels, in stream order
+  return static_cast<int>(err != cudaSuccess ? err : freed);
 }
 
 }  // namespace
 
-// Launches the scorer on `stream` (no synchronisation). Returns a
-// cudaError_t code: 0 on success.
+// Launches the scorer on `stream` (no synchronisation), `tile_w` machines
+// a tile (m for the one-block layout). Returns a cudaError_t code: 0 on
+// success, cudaErrorInvalidValue where `tile_w` is not the layout's.
 extern "C" int sched_scoring_launch(
     int device, const void* tm, const void* comp, long long comp_stride,
     const void* unit_ir, long long uir_stride, const void* e_cm,
     const void* met_cm, const void* cap, long long cap_stride,
     const void* net, const void* mem_c, const void* mem_cap,
     long long mem_cap_stride, void* out, long long B, long long T, int m,
-    int resources, void* stream) {
+    int tile_w, int resources, void* stream) {
   if (B <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -300,6 +386,10 @@ extern "C" int sched_scoring_launch(
   a.cap_stride = cap_stride;
   a.mem_cap_stride = mem_cap_stride;
   a.m = m;
+  a.tile_w = tile_w;
+  a.n_tiles = 1;
+  a.part_rate = nullptr;
+  a.part_bad = nullptr;
   a.warp_bytes = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool use_mem = resources && mem_c != nullptr;

@@ -32,6 +32,7 @@ _ARGTYPES = [
     _P, _P, _P, _I64,     # net, mem_c, mem_cap, mem_cap_stride
     _P,                   # out
     _I64, _I64, _I32,     # B, T, m
+    _I32,                 # tile_w: machines a tile (m: the one-block layout)
     _I32, _P,             # resources, stream
 ]
 

@@ -13,14 +13,18 @@ import torch
 
 from repro_torch.kernels.sched_scoring.ref import sched_scoring_ref
 
-__all__ = ["LAUNCHES", "max_machines", "reset_launches", "sched_scoring"]
+__all__ = ["LAUNCHES", "machine_tiles", "max_machines", "reset_launches", "sched_scoring"]
 
 # One block's shared memory on Hopper. The kernel keeps a row's m
 # accumulators (CPU load, fixed load and, with a memory term, memory; 8 bytes
 # each, and a 4-byte tag a machine) beside its staged task tiles, one row a
 # block at the most: ``acc_doubles`` and ``warp_smem`` in
-# ``csrc/sched_scoring.cu``, mirrored below with its tile constants.
+# ``csrc/sched_scoring.cu``, mirrored below with its tile constants. Past
+# that m the kernel splits the machines into tiles whose warp takes at most
+# ``TILE_WARP_BYTES``, so that eight one-warp blocks (each reserving 1 KB)
+# share an SM's 228 KB (``tile_width`` there, ``machine_tiles`` here).
 BLOCK_SMEM_BYTES = 227 * 1024
+TILE_WARP_BYTES = 27 * 1024
 _TT, _NSTAGE = 128, 2
 _TS_I, _TS_D = _TT + 8, _TT + 4
 
@@ -42,7 +46,8 @@ def warp_smem(m: int, use_mem: bool, row_comp: bool, row_uir: bool) -> int:
 
 
 def max_machines(use_mem: bool, row_comp: bool, row_uir: bool) -> int:
-    """The largest m the kernel takes: one row's shared memory within a block's.
+    """The largest m of the one-block layout: one row's shared memory within
+    a block's. A larger m takes the machine-tiled layout (``machine_tiles``).
 
     ``use_mem``: a memory term; ``row_comp`` / ``row_uir``: (B, T) component
     and unit-rate maps in place of (T,) ones.
@@ -53,6 +58,19 @@ def max_machines(use_mem: bool, row_comp: bool, row_uir: bool) -> int:
     while warp_smem(m, use_mem, row_comp, row_uir) > BLOCK_SMEM_BYTES:
         m -= 1
     return m
+
+
+def machine_tiles(m: int, use_mem: bool, row_comp: bool, row_uir: bool) -> tuple[int, int]:
+    """(machines a tile, tiles a row) of the kernel's launch at m machines:
+    (m, 1) up to ``max_machines`` (the one-block layout), else the most
+    machines, a multiple of 32, whose warp takes at most ``TILE_WARP_BYTES``,
+    and as many tiles as cover m (the last one may be narrower)."""
+    if m <= max_machines(use_mem, row_comp, row_uir):
+        return m, 1
+    width = 32
+    while warp_smem(width + 32, use_mem, row_comp, row_uir) <= TILE_WARP_BYTES:
+        width += 32
+    return width, -(-m // width)
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shapes: tuple, device) -> None:
@@ -92,10 +110,10 @@ def sched_scoring(
         (m,) or (B, m) memory capacity — a hard feasibility mask.
 
     Any resource operand selects the resource variant of the kernel (a
-    memory term needs both ``mem_c`` and ``mem_capacity``). On the card m is
-    at most ``max_machines`` of the operands' layout, and a larger m raises
-    a ``ValueError`` that names the limit before any launch; the plain
-    version on the CPU scores any m.
+    memory term needs both ``mem_c`` and ``mem_capacity``). Any m runs on
+    both devices: on the card, past ``max_machines`` of the operands' layout,
+    the kernel takes the machine-tiled layout (``machine_tiles``), with the
+    same bits.
     """
     dev = task_machine.device
     if task_machine.ndim != 2:
@@ -130,22 +148,20 @@ def sched_scoring(
 def _launch(tm, comp, unit_ir, e_cm, met_cm, capacity, net_var, mem_c, mem_capacity):
     from repro_torch.kernels.sched_scoring.kernel import load_library
 
-    B, T = tm.shape
-    m = e_cm.shape[1]
-    limit = max_machines(mem_c is not None, comp.ndim == 2, unit_ir.ndim == 2)
-    if m > limit:
-        raise ValueError(f"the sched_scoring kernel takes at most {limit} machines with these "
-                         f"operands (one row's accumulators and tiles in one block's "
-                         f"{BLOCK_SMEM_BYTES} bytes of shared memory), got {m}")
-    lib = load_library()
-    resources = net_var is not None or mem_c is not None
-    out = torch.empty(B, dtype=torch.float64, device=tm.device)
-
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     def row_stride(x):
         return 0 if x is None or x.ndim == 1 else x.shape[1]
+
+    B, T = tm.shape
+    m = e_cm.shape[1]
+    # The kernel reads a (B, T) map by its row stride (T; 0 for a shared one).
+    tile_w, _ = machine_tiles(m, mem_c is not None, row_stride(comp) != 0,
+                              row_stride(unit_ir) != 0)
+    lib = load_library()
+    resources = net_var is not None or mem_c is not None
+    out = torch.empty(B, dtype=torch.float64, device=tm.device)
 
     err = lib.sched_scoring_launch(
         tm.device.index if tm.device.index is not None else torch.cuda.current_device(),
@@ -154,7 +170,7 @@ def _launch(tm, comp, unit_ir, e_cm, met_cm, capacity, net_var, mem_c, mem_capac
         e_cm.data_ptr(), met_cm.data_ptr(),
         capacity.data_ptr(), row_stride(capacity),
         ptr(net_var), ptr(mem_c), ptr(mem_capacity), row_stride(mem_capacity),
-        out.data_ptr(), B, T, m, int(resources),
+        out.data_ptr(), B, T, m, tile_w, int(resources),
         torch.cuda.current_stream(tm.device).cuda_stream,
     )
     if err != 0:

@@ -187,6 +187,18 @@ def test_wrapper_rejects_bad_operands():
         ops.cut_traffic(tm, comp[:-1], uir, alpha, cir, edges, dist)
 
 
+# Step 3's distance tiles span all m machines (padded to 64) up to
+# MAX_MACHINES = 232 448 // 16 // 64 * 64 = 14 528, where two one-column
+# tiles fill a block; past it, W_TILE = 9 x 64 = 576 machines at a time.
+@pytest.mark.parametrize("m, tiles", [
+    (1, (64, 1)), (180, (192, 1)), (14_500, (14_528, 1)), (14_528, (14_528, 1)),
+    (14_529, (576, 26)), (16_380, (576, 29)), (17_280, (576, 30)),
+])
+def test_distance_tiles_by_hand(m, tiles):
+    assert ops.MAX_MACHINES == 14_528 and ops.W_TILE == 576
+    assert ops.distance_tiles(m) == tiles
+
+
 def test_edge_slots_order_sources_then_sinks():
     send, recv, pairs = ops.edge_slots(((0, 2), (1, 2), (2, 3), (2, 4)), 5)
     assert send == [0, 1, 2, -1, -1]
@@ -248,33 +260,78 @@ def test_cuda_kernel_matches_plain_version_at_block_edges(cuda_device, topology,
     assert torch.equal(got.cpu(), plain)
 
 
+def _wide_on_card(seed, topology, B, m, device, outside=False):
+    """A small topology's rows on m machines (six racks), on the card: its
+    operands, edges and distances."""
+    tm, comp, uir, alpha, cir, edges, small = _problem(seed, topology, B, 6, "per_row")
+    rng = np.random.default_rng(seed)
+    tm = rng.integers(0, m, size=tm.shape)
+    tm[:, 1] = m - 1  # the last w tile's machines
+    if outside:
+        tm[:, ::5] = rng.choice([-1, m, m + 2], size=tm[:, ::5].shape)
+    g_args = [a.to(device) for a in _tensors(tm, comp, uir, alpha, cir, edges, small)[:5]]
+    racks = torch.arange(m, device=device) % 6
+    dist = torch.where(racks[:, None] == racks[None, :], 1.0, 2.0).to(torch.float64)
+    dist.fill_diagonal_(0.0)
+    return g_args, edges, dist
+
+
+def _held_on_card(g_args, edges, dist):
+    """The kernel against the plain version on the card (its sums have no
+    atomics, so it is exact there), one launch, rerun bit-identical."""
+    from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
+
+    before = ops.LAUNCHES["cut_traffic"]
+    got = ops.cut_traffic(*g_args, edges, dist, 0.05)
+    again = ops.cut_traffic(*g_args, edges, dist, 0.05)
+    want = cut_traffic_ref(*g_args, edges, dist, 0.05)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cut_traffic"] == before + 2
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_at_the_largest_machine_count(cuda_device):
     """m = MAX_MACHINES: X^T and Y^T in the global scratch, one-column
-    distance tiles, two in flight, unpadded rows; against the plain
-    version on the card (its sums have no atomics, so it is exact there)."""
+    distance tiles of all m machines, two in flight, unpadded rows."""
     from repro_torch.kernels.cut_traffic.kernel import launch_plan
-    from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
 
     m = ops.MAX_MACHINES
-    tm, comp, uir, alpha, cir, edges, small = _problem(13, "linear", 2, 6, "per_row")
-    tm = np.random.default_rng(13).integers(0, m, size=tm.shape)
-    g_args = [a.to(cuda_device) for a in _tensors(tm, comp, uir, alpha, cir, edges, small)[:5]]
-    racks = torch.arange(m, device=cuda_device) % 6
-    dist = torch.where(racks[:, None] == racks[None, :], 1.0, 2.0).to(torch.float64)
-    dist.fill_diagonal_(0.0)
-    got = ops.cut_traffic(*g_args, edges, dist, 0.05)
-    want = cut_traffic_ref(*g_args, edges, dist, 0.05)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    plan = launch_plan(2, tm.shape[1], 6, m)
+    g_args, edges, dist = _wide_on_card(13, "linear", 2, m, cuda_device)
+    _held_on_card(g_args, edges, dist)
+    plan = launch_plan(2, g_args[0].shape[1], 6, m)
     assert (plan["layout"], plan["tile_columns"], plan["tile_stages"]) == (2, 1, 2)
+    assert plan["w_tile"] == m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology, m, B, outside", [
+    ("diamond", 14_501, 3, False),   # past the old refusal: still the one-block tiles
+    ("linear", 16_380, 2, True),     # 20/70/90 x 91: w tiles, ids outside [0, m)
+    ("wide_fanout", 16_380, 1, False),  # 18 contracted rows: two rounds of warp tiles
+])
+def test_cuda_kernel_past_the_one_block_tiles(cuda_device, topology, m, B, outside):
+    """Past the m whose distance tiles span all machines, the tiles split
+    along w (layout 3, ``distance_tiles``); each output still sums v in
+    increasing order: equal to the plain version."""
+    from repro_torch.kernels.cut_traffic.kernel import launch_plan
+
+    g_args, edges, dist = _wide_on_card(17, topology, B, m, cuda_device, outside)
+    _held_on_card(g_args, edges, dist)
+    k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
+    plan = launch_plan(B, g_args[0].shape[1], k2, m)
+    assert plan["w_tile"] == ops.distance_tiles(m)[0]
+    assert plan["layout"] == (3 if m > ops.MAX_MACHINES else 2)
 
 
 @pytest.mark.cuda
 def test_wrapper_rejects_more_machines_than_the_kernel_holds(cuda_device):
-    args = _tensors(*_problem(2, "star", 2, 4, "shared"))
+    """One machine past MAX_MACHINES the kernel takes its w tiles (there is
+    no limit left to reject): equal to the plain version."""
+    from repro_torch.kernels.cut_traffic.kernel import launch_plan
+
     m = ops.MAX_MACHINES + 1
-    big = torch.empty((m, m), dtype=torch.float64, device=cuda_device)
-    with pytest.raises(ValueError, match=f"at most {ops.MAX_MACHINES} machines"):
-        ops.cut_traffic(*(a.to(cuda_device) for a in args[:5]), args[5], big)
+    g_args, edges, dist = _wide_on_card(2, "star", 2, m, cuda_device)
+    _held_on_card(g_args, edges, dist)
+    plan = launch_plan(2, g_args[0].shape[1], 6, m)
+    assert (plan["layout"], plan["w_tile"]) == (3, ops.W_TILE)

@@ -247,17 +247,55 @@ def test_wrapper_checks_operands_and_width():
                         dataclasses.replace(topo, offsets=topo.offsets[:-1] + (99,)), cfg)
     with pytest.raises(ValueError):
         ops.ScanTopology(offsets=(0, 2), alpha=(1.0,), sources=(True,), parents=((3,),))
-    # The paper's large scenario fits one block; a width past shared memory
-    # is refused with the limit named.
+    # The paper's large scenario fits one block; past one pair's shared
+    # memory the kernel keeps a pair's state in a global scratch, and the
+    # plain sweep runs a width that used to be refused (no capacity: nothing
+    # serves).
     assert ops.smem_bytes(478, 180, 4, 0) < ops.SMEM_LIMIT
     assert ops.smem_bytes(537, 180, 4, 1) < ops.SMEM_LIMIT
     assert ops.smem_bytes(6400, 180, 4, 0) > ops.SMEM_LIMIT
+    assert not ops.state_in_global(478, 180, 4, 0) and ops.state_in_global(6400, 180, 4, 0)
     wide = torch.zeros((1, 8, 10_000), dtype=torch.float64)
-    with pytest.raises(ValueError, match=str(ops.SMEM_LIMIT)):
-        ops.policy_scan(rates[:1], wide, tm, e, met, shares[:1], topo, cfg)
+    out = ops.policy_scan(rates[:1], wide, tm, e, met, shares[:1], topo, cfg)
+    assert out.throughput.shape == (1, 2, 8) and out.machine_util_mean.shape == (1, 2, 10_000)
+    assert not out.throughput.any() and bool(out.dropped.ge(0.0).all())
     # Empty sweeps return empty results.
     out = ops.policy_scan(rates, caps, tm[:0], e[:0], met[:0], shares, topo, cfg)
     assert out.throughput.shape == (2, 0, 8) and out.machine_util_mean.shape == (2, 0, 5)
+
+
+@pytest.mark.parametrize("n_instances, types", [
+    ((2, 1666, 1666, 1666), (20, 70, 90)),     # 5 000 tasks on 180 machines
+    ((2, 12, 13, 13), (800, 3200, 4000)),      # 40 tasks on 8 000 machines
+])
+def test_cpu_sweep_past_one_blocks_state_matches_reference(n_instances, types):
+    """Sweeps whose (trace, placement) state does not fit one block (the
+    kernel's global-state instance on a card): the plain version against
+    the reference's executor per pair, within 1e-9, over a few windows."""
+    cluster = R.paper_cluster(types)
+    utg = R.linear_topology()
+    etg = R.round_robin_schedule(utg, cluster, np.asarray(n_instances))
+    T, m = etg.total_tasks, cluster.n_machines
+    assert ops.state_in_global(T, m, 4, 0, 3)
+    rng = np.random.default_rng(T)
+    moved = etg.task_machine().copy()
+    moved[rng.integers(0, T, 3)] = rng.integers(0, m, 3)
+    policies = np.stack([etg.task_machine(), moved, rng.integers(0, m, T)])
+    rate, _ = R.max_stable_rate(etg, cluster)
+    traces = [RS.ramp_trace(0.5 * rate, 1.6 * rate, n_windows=5).compile(cluster, seed=1),
+              RS.failure_trace(0.9 * rate, machine=1, n_windows=5).compile(cluster, seed=2)]
+    cfg = RS.RuntimeConfig(max_queue=40.0)
+    want = RS.evaluate_policies_batch(etg, cluster, traces, policies, config=cfg,
+                                      backend="numpy")
+    p_etg, p_cluster, p_traces = _port(etg, cluster, traces)
+    got = PS.evaluate_policies_batch(p_etg, p_cluster, p_traces, policies,
+                                     config=PS.RuntimeConfig(**dataclasses.asdict(cfg)),
+                                     device="cpu")
+    for field in FIELDS:
+        x, y = getattr(got, field), getattr(want, field)
+        assert x.shape == y.shape, field
+        np.testing.assert_allclose(x, y, rtol=1e-9, atol=1e-9, err_msg=field)
+    assert float(want.dropped.max()) > 0.0  # the queues fill
 
 
 def test_runtime_setup_constants_give_the_sweep_and_traces():

@@ -151,6 +151,61 @@ def test_pairs_a_block_fit_shared_memory():
     assert ops.pairs_a_block(6, 6000, 180, 4, 0, 3) == 1
 
 
+# Past one pair's shared memory (4 702 tasks on 180 machines, 5 813
+# machines at 478 tasks, by ``smem_bytes``) the kernel keeps a pair's state
+# in a global slab a resident block. By hand, for the linear topology's 4
+# components, 3 shuffle parents, no keyed edge: a block's shared memory
+# holds alpha and the topology (8 n + 4 x 17 = 100 bytes); a slab is a
+# pair's 3 T + 3 m + 15 doubles, the machines' fixed loads (m) and each
+# task's machine (T / 2 doubles), padded to 16 bytes.
+def test_global_state_sizing_by_hand():
+    assert not ops.state_in_global(4702, 180, 4, 0, 3) and ops.state_in_global(4703, 180, 4, 0, 3)
+    assert not ops.state_in_global(478, 5813, 4, 0, 3) and ops.state_in_global(478, 5814, 4, 0, 3)
+    assert ops.state_in_global(6240, 180, 4, 0, 3) and ops.state_in_global(40, 16380, 4, 0, 3)
+    for T, m in ((6240, 180), (40, 16380), (20000, 180)):
+        assert ops.global_smem_bytes(T, m, 4, 0, 3) == 100
+    assert ops.slab_bytes(6240, 180, 4, 0, 3) == 8 * 22_576
+    assert ops.slab_bytes(40, 16380, 4, 0, 3) == 8 * 65_676
+    assert ops.slab_bytes(20000, 180, 4, 0, 3) == 8 * 70_736
+    for T, m in ((6240, 180), (40, 16380), (20000, 180)):
+        assert ops.slab_bytes(T, m, 4, 0, 3) % 16 == 0
+
+
+def _wide_operands(seed, B, P, W, counts, m, device):
+    """``chip_smoke.py``'s ``scan_problem``: the operands phase 22 holds the
+    kernel to, so this test and the script cannot drift apart."""
+    from torch_paper_common import chip_smoke
+
+    return chip_smoke().scan_problem(torch, np, device, seed, B, P, W, counts, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, P, W, counts, m", [
+    (3, 5, 12, (40, 2000, 2100, 2100), 180),       # 6 240 tasks: the x4 fleet's count
+    (2, 3, 10, (10, 10, 10, 10), 16_380),          # 16 380 machines
+    (2, 2, 6, (2, 4000, 4000, 3998), 180),         # 12 000 tasks
+    (65_536, 1, 2, (1, 1, 1, 1), 3),               # 65 536 traces
+    (6 * 65_535 + 7, 2, 2, (1, 1, 1, 1), 3),       # past the grid's 65 535 groups of 6
+])
+def test_kernel_equals_plain_version_past_one_block(cuda_device, B, P, W, counts, m):
+    """Past one block's pair state, or past 65 535 groups of traces: one
+    launch a call, equal to the plain version on the CPU bit for bit, rerun
+    bit-identical."""
+    gpu, topo = _wide_operands(sum(counts), B, P, W, counts, m, cuda_device)
+    cpu = tuple(x.cpu() for x in gpu)
+    cfg = ops.ScanConfig(max_queue=60.0)
+    before = ops.LAUNCHES["policy_scan"]
+    got = ops.policy_scan(*gpu, topo, cfg)
+    again = ops.policy_scan(*gpu, topo, cfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["policy_scan"] == before + 2
+    plain = ops.policy_scan(*cpu, topo, cfg)
+    for name, g, a, w in zip(got._fields, got, again, plain):
+        assert torch.equal(g, a), f"{name}: rerun differs"
+        assert torch.equal(g.cpu(), w), f"{name}: differs from the plain version on the CPU"
+    assert float(plain.throttle.min()) < 1.0 or B > 1000  # the queues push back
+
+
 @pytest.mark.cuda
 def test_evaluator_launches_once_and_matches_executor(cuda_device):
     etg, cluster, traces, policies = _problem(True, P_rows=6, W=60)
