@@ -24,7 +24,8 @@ Phases (each raises on failure; nothing is caught):
    feasibility mask and argmax, max abs error 0); the scorer at its
    one-block layout's widest m, ``max_machines`` (B1 with shared and
    per-row maps, B2 with memory and network), and one machine past it, in
-   its machine-tiled layout, each equal to its plain version;
+   its table layout (the machines a row touches) and, one task past the
+   table's most, its machine-tiled layout, each equal to its plain version;
 3. main path at full width: ``schedule`` on ``paper_cluster((20, 70, 90))``
    (the reference golden), ``refine`` on the card (equal to the CPU path
    and to the reference's result), ``simulate`` / ``simulate_batch``;
@@ -82,7 +83,8 @@ Phases (each raises on failure; nothing is caught):
    1e-9 of the executor on 8 sampled pairs;
 11. ``policy_scan`` timed at that sweep beside its plain version, with its
    ceiling without FMA, registers and spills, resident blocks a SM and
-   the waves;
+   the waves; the global-state instance, picked by hand, on the same sweep:
+   equal to the one-block kernel bit for bit, and timed beside it;
 12. multi-tenant scheduling and observability (``repro_torch.multitenant``,
    ``repro_torch.obs``): ``schedule_tenants(device="cuda")`` on
    ``benchmarks/bench_multitenant.py``'s 100-tenant fleet on
@@ -253,21 +255,31 @@ Phases (each raises on failure; nothing is caught):
    batch; the group is destroyed after the phase;
 22. wide clusters (``WIDE_COUNTS``: the paper's three types at 91 x 20/70/90,
    16 380 machines, past every scheduler kernel's one-block layout):
-   ``max_stable_rate_batch`` at 16 384 x 478 (one B1 launch, machine-tiled),
-   a ``refine(max_rounds=1, allow_add=False)`` of a 4-task placement with
-   memory (exactly 4 B2 launches, machine-tiled; one move) and
-   ``evaluate_policies_batch`` of
-   a 6 240-task topology, 3 traces x 16 placements x 24 windows (one
-   ``policy_scan`` launch, the pairs' state in its global scratch), each
-   equal to ``device="cpu"``; B1/B2 at 16 380 machines and where the last
-   tile holds one machine, cut_traffic at 14 501 and 16 380 (w tiles),
-   policy_scan at 6 240 tasks, 16 380 machines, 65 536 traces and past
-   65 535 groups of traces, each equal to its plain version; then B1 (16 384
-   x 478), B2 (4 096 x 478, memory and network), cut_traffic (128 rows of
-   the 6 240-task placement; its bound counts the products over each row's
-   non-zero columns of X, ``cut_work``) and policy_scan (the sweep, then 6 x
-   256 pairs, whose resident blocks' slabs pass the L2) timed on the wide
-   cluster beside their plain versions and bounds.
+   ``max_stable_rate_batch`` at 16 384 x 478 (one B1 launch, a table of
+   the machines a row touches), a ``refine(max_rounds=1, allow_add=False)``
+   of a 4-task placement with memory (exactly 4 B2 launches, the table; one
+   move) and ``evaluate_policies_batch`` of a 6 240-task topology, 3 traces
+   x 16 placements x 24 windows (one ``policy_scan`` launch, the global-state
+   instance over the occupied machines), each equal to ``device="cpu"``;
+   B1/B2 at 16 380 machines and where the machine tiles' last one holds
+   one machine, each at 478 tasks (the table) and one task past the
+   table's most (the machine tiles), at ``TABLE_EDGES`` (one machine a row, distinct
+   machines, ids outside [0, m), an untouched machine with cap_w < 0 or
+   mem_cap_w < 0, per-row capacity with a zero ``net_var`` row, T at the
+   table's most tasks and one past, B1 and B2 with memory and network: the
+   machine tiles), cut_traffic at
+   14 501 and 16 380 (w tiles), policy_scan at 6 240 tasks, 16 380
+   machines, 65 536 traces, past 65 535 groups of traces and at
+   ``SCAN_EDGES`` (a placement on one machine, one on every machine, T at
+   each shared-memory split and one past), each equal to its plain version
+   (the new layouts' reruns bit-identical too); then B1 (16 384 x 478), B2
+   (4 096 x 478, memory and network), cut_traffic (128 rows of the 6 240-task
+   placement; its bound counts the products over each row's non-zero
+   columns of X, ``cut_work``) and policy_scan (the sweep, then 6 x 256
+   pairs) timed on the wide cluster beside their plain versions and bounds
+   (B1/B2's over each row's touched machines, policy_scan's over the
+   occupied machines, each beside the dense count over every machine;
+   policy_scan's serial floor, ``SERIAL_ADD_CYCLES`` a dependent add, too).
 
 Every phase's wall is printed at the end. The reference's results for
 phases 3-5, 12, 14 and 18 are constants below; ``tests/test_torch_multitenant_golden.py``
@@ -812,13 +824,17 @@ def to_tensors(torch, np, device, args, extras):
     return out, {k: t(v, np.float64) for k, v in extras.items()}
 
 
-def compare_kernel(torch, np, ops, args, extras):
+def compare_kernel(torch, np, ops, args, extras, rerun=False):
     """Kernel on the card vs plain version (CPU) on the same inputs; returns
-    the max abs error after checking mask and argmax."""
+    the max abs error after checking mask and argmax (and, with ``rerun``,
+    that a second launch gives the same bits)."""
     cpu_args, cpu_kw = to_tensors(torch, np, "cpu", args, extras)
     gpu_args, gpu_kw = to_tensors(torch, np, "cuda", args, extras)
     plain = ops.sched_scoring(*cpu_args, **cpu_kw).numpy()
     got = ops.sched_scoring(*gpu_args, **gpu_kw)
+    if rerun:
+        check(torch.equal(got, ops.sched_scoring(*gpu_args, **gpu_kw)),
+              "kernel rerun differs")
     torch.cuda.synchronize()
     got = got.cpu().numpy()
     check(got.shape == plain.shape, "kernel output shape")
@@ -1516,6 +1532,22 @@ def runtime_phases(torch, np, P, ops, cut_ops, cluster, refined, wall):
     print(f"    {G} pairs (one placement, {G} traces) a block, {occ['threads']} threads, {smem} "
           f"shared bytes; " + _launch_text(torch, flops, occ["blocks"], occ["blocks_per_sm"],
                                            occ["registers"], occ["local_bytes"]))
+    # The global-state instance (one pair a block, every warp on it) on the
+    # same sweep, picked here by hand: equal to the one-block kernel bit for
+    # bit, and timed beside it (whether it could take the one-block
+    # kernel's place).
+    picks = scan_ops.state_in_global
+    scan_ops.state_in_global = lambda *_: True
+    try:
+        global_out = scan_ops.policy_scan(*operands, topo, cfg)
+        wide_ms = time_cuda(lambda: scan_ops.policy_scan(*operands, topo, cfg))
+    finally:
+        scan_ops.state_in_global = picks
+    for field, g_x, w_x in zip(got._fields, got, global_out):
+        check(torch.equal(g_x, w_x), f"policy_scan {field}: the global-state instance differs "
+              f"from the one-block kernel on the sweep")
+    print(f"    the global-state instance on the same sweep: {wide_ms:.4f} ms against the "
+          f"one-block kernel's {ms:.4f} ms, equal to it bit for bit")
     return _record("policy_scan", "src/repro_torch/kernels/policy_scan/csrc/policy_scan.cu",
                    "src/repro/runtime_stream/eval_jax.py:214", sweep_launches, err,
                    (err, ms, plain_ms, bound, None))
@@ -3220,6 +3252,99 @@ def scan_problem(torch, np, device, seed, B, P_, W, counts, m):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in host), topo
 
 
+# Phase 22 (d)'s edge shapes of the scorer's table layout (and, past it,
+# the machine tiles), and of the policy sweep's global-state instance; the
+# `cuda` tests hold the kernels to the same cases.
+TABLE_EDGES = ("one machine", "distinct machines", "ids outside", "untouched cap < 0",
+               "untouched mem_cap < 0", "per-row capacity, zero net row",
+               "at the table boundary", "past the table boundary",
+               "past the table boundary, memory and network")
+# (B, P, W, counts, m, placement): the linear topology's tasks a component
+# and where they sit ("random": scan_problem's; "one": all on machine 5;
+# "all": every machine holds one, the tasks past m on ids outside [0, m)).
+# The task counts sit at the global-state instance's shared-memory splits
+# (csrc/policy_scan.cu's GlobalLayout, ops.global_split): at 16 380 machines
+# 7 702 tasks' state fits beside the small state and 7 703 do not; at 180
+# machines the per-machine state fits beside 7 445 tasks' and not 7 446's.
+SCAN_EDGES = {
+    "one machine occupied": (2, 3, 10, (10, 10, 10, 10), 16_380, "one"),
+    "every machine occupied": (2, 2, 6, (1, 2000, 2000, 1999), 4_000, "all"),
+    "per-task state at its split": (1, 2, 4, (1, 2567, 2567, 2567), 16_380, "random"),
+    "per-task state past its split": (1, 2, 4, (2, 2567, 2567, 2567), 16_380, "random"),
+    "per-machine state at its split": (1, 2, 4, (2, 2481, 2481, 2481), 180, "random"),
+    "per-machine state past its split": (1, 2, 4, (3, 2481, 2481, 2481), 180, "random"),
+}
+
+
+def table_edge_problem(np, ops, case, m, B=24, T=478):
+    """The scorer's operands for one of TABLE_EDGES on m machines: rows of T
+    tasks (at the boundary cases, the table's most tasks and one more)."""
+    flags = dict(memory="mem" in case or "per-row" in case,
+                 network="net" in case, cap_rows="per-row" in case)
+    if "boundary" in case:
+        T = ops.max_table_tasks(m, flags["memory"], False, False) + ("past" in case)
+    args, extras = scoring_problem(np, 2300 + TABLE_EDGES.index(case), B, T, m, 4,
+                                   outside=case == "ids outside", **flags)
+    tm, comp, uir, e_cm, met_cm, cap = args
+    rng = np.random.default_rng(TABLE_EDGES.index(case))
+    if case == "one machine":  # one slot, T rounds a row
+        tm[:] = (np.arange(B) * 7919 % m)[:, None]
+    elif case == "distinct machines":
+        tm[:] = np.stack([rng.choice(m, T, replace=False) for _ in range(B)])
+    elif case.startswith("untouched"):
+        # Machine m - 1 fails every row (cap < 0, or memory capacity < 0);
+        # only row 5 touches it. Machine m - 3's -0.0 fails none.
+        tm[tm >= m - 3] = 7
+        tm[5, 0] = m - 1
+        if "mem_cap" in case:
+            extras["mem_capacity"] = extras["mem_capacity"].copy()
+            extras["mem_capacity"][[m - 1, m - 3]] = (-0.5, -0.0)
+        else:
+            cap[[m - 1, m - 3]] = (-1.0, -0.0)
+    elif case.startswith("per-row"):
+        extras["net_var"][4] = 0.0
+    return (tm, comp, uir, e_cm, met_cm, cap), extras
+
+
+def scan_edge_problem(torch, np, device, case):
+    """``policy_scan``'s operands for one of SCAN_EDGES (``scan_problem``'s,
+    with the case's placement)."""
+    B, P_, W, counts, m, placement = SCAN_EDGES[case]
+    operands, topo = scan_problem(torch, np, device, 4000 + sum(counts), B, P_, W, counts, m)
+    T = sum(counts)
+    if placement == "one":
+        operands[2][:] = 5
+    elif placement == "all":
+        tm = np.arange(T) * 7 % m
+        tm[m::13] = m + 1
+        operands[2][:] = torch.from_numpy(tm.astype(np.int32))
+    return operands, topo
+
+
+def touched_machines(np, tm, m):
+    """The (row, machine) pairs of a (B, T) placement batch with a task on
+    an id in [0, m): each row's distinct machines, summed."""
+    rows = np.sort(np.where((tm >= 0) & (tm < m), tm, -1), axis=1)
+    distinct = np.ones(rows.shape, dtype=bool)
+    distinct[:, 1:] = rows[:, 1:] != rows[:, :-1]
+    return int((distinct & (rows >= 0)).sum())
+
+
+def sm_clock_hz():
+    """The card's top SM clock (nvidia-smi's clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+# Latency of a dependent FP64 add on an H100, in cycles: the policy sweep's
+# totals are three chains of T such adds a window. An estimate, not measured
+# by this script: the serial floor built on it is printed beside the bound
+# and kept out of the kernels record.
+SERIAL_ADD_CYCLES = 8
+
+
 def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
     """Phase 22: the entry points on a 16 380-machine cluster, card against
     CPU; the kernels past their one-block layouts against their plain
@@ -3257,9 +3382,10 @@ def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
     check(launches["sched_scoring"] == 1, "the wide sweep did not launch B1 once")
     check(np.array_equal(rates_gpu, rates_cpu) and np.array_equal(thpt_gpu, thpt_cpu),
           "max_stable_rate_batch on the wide cluster: the card differs from the CPU")
-    tw, tc = ops.machine_tiles(m, False, False, False)
-    print(f"  max_stable_rate_batch {batch.shape[0]} x {T} on {m} machines (B1, {tc} tiles of "
-          f"{tw}): 1 launch, equal to device='cpu'; {wall['wide_sweep_s']:.3f} s host to host "
+    slots = ops.table_slots(T, m, False, False, False)
+    print(f"  max_stable_rate_batch {batch.shape[0]} x {T} on {m} machines (B1, a table of "
+          f"{slots} slots a row): 1 launch, equal to device='cpu'; {wall['wide_sweep_s']:.3f} s "
+          f"host to host "
           f"(cpu {wall['wide_sweep_cpu_s']:.3f} s); R* {rates_gpu.min():.4f}-{rates_gpu.max():.4f}")
 
     # (b) refine of a small placement, memory on: B2, machine-tiled.
@@ -3334,10 +3460,27 @@ def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
         width, _ = ops.machine_tiles(m, use_mem, per_row, per_row)
         limit = ops.max_machines(use_mem, per_row, per_row)
         for m_case in (m, (limit // width + 1) * width + 1):
-            args, extras = scoring_problem(np, 2200 + m_case % 97, 64, 478, m_case, **kw)
-            compare_kernel(torch, np, ops, args, extras)
-            print(f"  {label} m={m_case} ({ops.machine_tiles(m_case, use_mem, per_row, per_row)[1]}"
-                  f" tiles of {width}): equal to its plain version")
+            # 478 tasks take the table; one task past its most, the machine tiles.
+            tiled_T = ops.max_table_tasks(m_case, use_mem, per_row, per_row) + 1
+            for T_case in (478, tiled_T):
+                args, extras = scoring_problem(np, 2200 + m_case % 97, 64, T_case, m_case, **kw)
+                compare_kernel(torch, np, ops, args, extras, rerun=True)
+                slots = ops.table_slots(T_case, m_case, use_mem, per_row, per_row)
+                layout = (f"a table of {slots} slots a row" if slots else
+                          f"{ops.machine_tiles(m_case, use_mem, per_row, per_row)[1]} tiles "
+                          f"of {width}")
+                print(f"  {label} m={m_case} T={T_case} ({layout}): equal to its plain "
+                      f"version, rerun bit-identical")
+    for case in TABLE_EDGES:
+        args, extras = table_edge_problem(np, ops, case, m)
+        _, n_zero = compare_kernel(torch, np, ops, args, extras, rerun=True)
+        T_case = args[0].shape[1]
+        flags = ("mem_capacity" in extras, False, False)
+        slots = ops.table_slots(T_case, m, *flags)
+        layout = (f"a table of {slots} slots" if slots else
+                  f"{ops.machine_tiles(m, *flags)[1]} machine tiles")
+        print(f"  B{2 if extras else 1} {case}, T={T_case} ({layout}): equal to its plain "
+              f"version, rerun bit-identical; {n_zero} infeasible rows")
     for topology, m_case, B in (("diamond", 14_501, 3), ("linear", m, 2)):
         args, edges, _ = cut_problem(np, P, 2210 + B, topology, B, 6, "per_row")
         tm = rng.integers(0, m_case, size=args[0].shape)
@@ -3360,8 +3503,14 @@ def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
             ("6 240 tasks on 180 machines", (3, 5, 12, (40, 2000, 2100, 2100), 180)),
             (f"40 tasks on {m} machines", (2, 3, 10, (10, 10, 10, 10), m)),
             ("65 536 traces", (65_536, 1, 2, (1, 1, 1, 1), 3)),
-            ("past 65 535 groups of 6 traces", (6 * 65_535 + 7, 2, 2, (1, 1, 1, 1), 3))):
-        gpu, topo = scan_problem(torch, np, "cuda", sum(counts), B, P_, W_, counts, m_case)
+            ("past 65 535 groups of 6 traces", (6 * 65_535 + 7, 2, 2, (1, 1, 1, 1), 3)),
+            *((edge, SCAN_EDGES[edge][:5]) for edge in SCAN_EDGES)):
+        if label in SCAN_EDGES:
+            gpu, topo = scan_edge_problem(torch, np, "cuda", label)
+            label += (f", {sum(counts)} tasks on {m_case} machines, in shared memory "
+                      f"(tasks, machines): {scan_ops.global_split(sum(counts), m_case, 4, 0, 3)}")
+        else:
+            gpu, topo = scan_problem(torch, np, "cuda", sum(counts), B, P_, W_, counts, m_case)
         cfg_k = scan_ops.ScanConfig(max_queue=60.0)
         got = scan_ops.policy_scan(*gpu, topo, cfg_k)
         again = scan_ops.policy_scan(*gpu, topo, cfg_k)
@@ -3393,15 +3542,21 @@ def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
         ms = time_cuda(lambda: ops.sched_scoring(*g_args, **g_kw))
         plain_ms = time_cuda(lambda: sched_scoring_ref(*g_args, **g_kw), reps=5)
         n_bytes = sum(x.numel() * x.element_size() for x in (*g_args, *g_kw.values())) + B * 8
-        flops = B * T * 3 + B * m * 4
+        # The needed work: 3 operations a task, and the finalize (4 a
+        # machine) of each row's touched machines; with a (B, m) operand
+        # (net_var here) every machine of a row finalizes.
+        finals = B * m if "net_var" in extras else touched_machines(np, batch[:B], m)
+        flops = B * T * 3 + finals * 4
         bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-        width, count = ops.machine_tiles(m, bool(extras), False, False)
-        timings[key] = dict(shape=f"B={B} T={T} m={m}, {count} tiles of {width} machines",
-                            ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+        dense = _bound((B * T * 3 + B * m * 4) / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+        slots = ops.table_slots(T, m, bool(extras), False, False)
+        timings[key] = dict(shape=f"B={B} T={T} m={m}, a table of {slots} slots a row", ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                             library_ms=None)
-        print(f"  {key} B={B} T={T} m={m} ({count} tiles of {width}): {ms:.4f} ms, bound "
-              f"{bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / ms:.1f}% of it), plain "
-              f"{plain_ms:.3f} ms; library_ms null")
+        print(f"  {key} B={B} T={T} m={m} (a table of {slots} slots a row): {ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / ms:.1f}% of it; {finals} "
+              f"machines finalized; the dense count over every (row, machine): "
+              f"{dense[0]:.4f} ms by {dense[1]}), plain {plain_ms:.3f} ms; library_ms null")
         del g_args, g_kw
     # cut_traffic on rows of the 6 240-task placement, one task moved a row:
     # thousands of non-zero columns of X a row.
@@ -3447,18 +3602,32 @@ def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
     plain_ms = time_cuda(lambda: policy_scan_ref(*operands, topo, scfg), reps=3)
     out = scan_ops.policy_scan(*operands, topo, scfg)
     Bt, Pt = len(traces), policies.shape[0]
-    flops = Bt * Pt * W * (23 * Ts + 5 * m + 2 * topo.n_shares)
+    # The needed work a window: 23 operations a task, 5 a machine that holds
+    # a task (the dense count: 5 a machine, empty or not), 2 a share.
+    occupied = touched_machines(np, policies, m)
+    flops = Bt * W * (Pt * (23 * Ts + 2 * topo.n_shares) + 5 * occupied)
     n_bytes = sum(x.numel() * x.element_size() for x in (*operands, *out))
     bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    dense = _bound(Bt * Pt * W * (23 * Ts + 5 * m + 2 * topo.n_shares) / FP64_FLOPS_PER_S,
+                   n_bytes / HBM_BYTES_PER_S)
     smem = scan_ops.global_smem_bytes(Ts, m, 4, 0, n_parents)
     occ = scan_kernel.occupancy(Bt, Pt, 0, smem)
-    timings["policy_scan"] = dict(shape=f"B={Bt} P={Pt} W={W} T={Ts} m={m}, state in the "
-                                  f"global scratch", ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    floor_pair = W * Ts * SERIAL_ADD_CYCLES / clock * 1e3
+    rounds = -(-Bt * Pt // (sms * max(occ["blocks_per_sm"], 1)))
+    timings["policy_scan"] = dict(shape=f"B={Bt} P={Pt} W={W} T={Ts} m={m}, global-state "
+                                  f"instance", ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                                   bound_by=bound[1], library_ms=None)
     print(f"  policy_scan B={Bt} P={Pt} W={W} T={Ts} m={m}: {ms:.4f} ms, bound {bound[0]:.4f} ms "
-          f"by {bound[1]} ({100 * bound[0] / ms:.1f}% of it), plain {plain_ms:.3f} ms; "
-          f"library_ms null")
-    print(f"    one pair a block at a time, {occ['threads']} threads, {smem} shared bytes, "
+          f"by {bound[1]} ({100 * bound[0] / ms:.1f}% of it; {occupied / Pt:.1f} occupied "
+          f"machines a placement; the dense count over every machine: {dense[0]:.4f} ms), "
+          f"serial floor {floor_pair * rounds:.4f} ms ({W} x {Ts} dependent adds x "
+          f"{SERIAL_ADD_CYCLES} cycles at {clock / 1e6:.0f} MHz a pair, {rounds} round(s) of "
+          f"resident blocks), plain {plain_ms:.3f} ms; library_ms null")
+    print(f"    one pair a block at a time, {occ['threads']} threads, {smem} shared bytes "
+          f"(per-task, per-machine state in shared memory: "
+          f"{scan_ops.global_split(Ts, m, 4, 0, n_parents)}), "
           f"{scan_ops.slab_bytes(Ts, m, 4, 0, n_parents)} bytes of slab a block; "
           + _launch_text(torch, flops, occ["blocks"], occ["blocks_per_sm"], occ["registers"],
                          occ["local_bytes"]))
@@ -3481,20 +3650,25 @@ def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
         check(torch.equal(f[:Bt, :Pt], o), f"policy_scan {n_tr} x {n_pl}: {name} of its first "
               f"{Bt} x {Pt} pairs differs from the {Bt} x {Pt} sweep")
     full_ms = time_cuda(lambda: scan_ops.policy_scan(*f_operands, topo, scfg))
-    flops = n_tr * n_pl * W * (23 * Ts + 5 * m + 2 * topo.n_shares)
+    occupied = touched_machines(np, full_policies, m)
+    flops = n_tr * W * (n_pl * (23 * Ts + 2 * topo.n_shares) + 5 * occupied)
     n_bytes = sum(x.numel() * x.element_size() for x in (*f_operands, *full))
     bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    dense = _bound(n_tr * n_pl * W * (23 * Ts + 5 * m + 2 * topo.n_shares) / FP64_FLOPS_PER_S,
+                   n_bytes / HBM_BYTES_PER_S)
     occ = scan_kernel.occupancy(n_tr, n_pl, 0, smem)
     slabs = occ["blocks"] * scan_ops.slab_bytes(Ts, m, 4, 0, n_parents)
+    rounds = -(-n_tr * n_pl // occ["blocks"])
     timings["policy_scan"]["full_sweep"] = dict(
         shape=f"B={n_tr} P={n_pl} W={W} T={Ts} m={m}", ms=full_ms, bound_ms=bound[0],
         bound_by=bound[1], blocks=occ["blocks"], slab_bytes=slabs)
     print(f"  policy_scan B={n_tr} P={n_pl} W={W} T={Ts} m={m}: {full_ms:.4f} ms "
           f"({full_ms / (n_tr * n_pl):.4f} ms a pair against {ms / (Bt * Pt):.4f} at {Bt} x {Pt}), "
-          f"bound {bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / full_ms:.2f}% of it); "
-          f"{occ['blocks']} resident blocks ({occ['blocks_per_sm']} a SM), their slabs "
-          f"{slabs / 1e6:.1f} MB against the 50 MB L2; first {Bt} x {Pt} pairs equal to the sweep "
-          f"above")
+          f"bound {bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / full_ms:.2f}% of it; counting "
+          f"every machine: {dense[0]:.4f} ms), serial floor {floor_pair * rounds:.4f} ms "
+          f"({rounds} rounds of {floor_pair:.4f}); {occ['blocks']} resident blocks "
+          f"({occ['blocks_per_sm']} a SM), their slabs {slabs / 1e6:.1f} MB against the 50 MB L2; "
+          f"first {Bt} x {Pt} pairs equal to the sweep above")
     del f_operands, full
     wall["phase_22_s"] = time.perf_counter() - t_phase
     print(f"  phase 22: {wall['phase_22_s']:.1f} s")
@@ -3637,23 +3811,27 @@ def main() -> int:
     check(empty.shape == (0, 180) and empty_b.shape == (0,)
           and (ops.LAUNCHES, cut_ops.LAUNCHES) == before, "B=0 must return empty, no launch")
     print("  B = 0 -> empty result, no launch")
-    # The scorer's two layouts (ROADMAP C-port-4): at ``max_machines`` of the
+    # The scorer's layouts (ROADMAP C-port-4): at ``max_machines`` of the
     # operands' layout B1 and B2 launch their one-block layout, one machine
-    # more their machine-tiled layout (``machine_tiles``); each equals its
-    # plain version.
+    # more their table of the machines a row touches (``table_slots``); each
+    # equals its plain version.
     for label, kw in (("B1, shared maps", dict(n=4)),
                       ("B1, per-row maps", dict(n=4, per_row=True)),
                       ("B2, memory + network", dict(n=4, memory=True, network=True))):
         use_mem, per_row = kw.get("memory", False), kw.get("per_row", False)
         limit = ops.max_machines(use_mem, per_row, per_row)
-        for m in (limit, limit + 1):
-            args, extras = scoring_problem(np, 7, 8, 37, m, **kw)
+        # One past the table's most tasks, the machine tiles.
+        tiled_T = ops.max_table_tasks(limit + 1, use_mem, per_row, per_row) + 1
+        for m, T_case in ((limit, 37), (limit + 1, 37), (limit + 1, tiled_T)):
+            args, extras = scoring_problem(np, 7, 8, T_case, m, **kw)
             err, _ = compare_kernel(torch, np, ops, args, extras)
             key = "sched_scoring_resources" if extras else "sched_scoring"
             max_err[key] = max(max_err[key], err)
+        slots = ops.table_slots(37, limit + 1, use_mem, per_row, per_row)
         width, count = ops.machine_tiles(limit + 1, use_mem, per_row, per_row)
-        print(f"  {label}: m = {limit} (one block a row) and m = {limit + 1} ({count} tiles of "
-              f"{width} machines) launch and equal their plain versions")
+        print(f"  {label}: m = {limit} (one block a row), m = {limit + 1} at T = 37 (a table "
+              f"of {slots} slots a row) and at T = {tiled_T} ({count} tiles of {width} "
+              f"machines) launch and equal their plain versions")
 
     # [3] main path at full width ------------------------------------------
     print("[3] main path: schedule -> refine -> simulate, paper_cluster((20, 70, 90))")

@@ -34,6 +34,7 @@ _ARGTYPES = [
     _I32, _I32, _I32, _I32, _I32, _I32, _I32,  # T, m, n, E, K, W, S
     _I32,                       # pairs a block (0: the global-state instance)
     _F64, _F64, _F64, _F64, _F64, _F64, _F64,  # dt, max_queue, bp_high, bp_low, down, up, min
+    _P, _I64,                   # the global-state instance's slabs and their blocks
     _I64,                       # shared-memory bytes of a block
     _P,                         # stream
 ]

@@ -25,6 +25,7 @@ __all__ = [
     "ScanOutput",
     "ScanTopology",
     "global_smem_bytes",
+    "global_split",
     "policy_scan",
     "pairs_a_block",
     "reset_launches",
@@ -35,16 +36,20 @@ __all__ = [
 
 # Shared memory one block may use on Hopper. The kernel keeps its pairs'
 # whole state there where one pair's fits (``smem_bytes``); past that, its
-# second instance keeps a pair's state in a global scratch, one slab a
-# resident block (``state_in_global``, ``global_smem_bytes``,
-# ``slab_bytes``), so any T and m run.
+# global-state instance takes one pair a block, over the machines that hold
+# a task alone, and keeps the state that does not fit shared memory in a
+# global scratch, one slab a resident block (``state_in_global``,
+# ``global_split``, ``global_smem_bytes``, ``slab_bytes``), so any T and m
+# run.
 SMEM_LIMIT = 232_448
 
 # Pairs (one placement, several traces) a block of the kernel takes, at
 # most, and its worker warps a pair (PAIRS_MAX and WPP in
-# ``csrc/policy_scan.cu``).
+# ``csrc/policy_scan.cu``); the global-state instance's worker warps, all on
+# its one pair (NWG there).
 PAIRS_MAX = 6
 WARPS_A_PAIR = 3
+GLOBAL_WORKER_WARPS = 16
 
 # Kernel launches since the last reset. Only a launch of the CUDA kernel
 # counts; the CPU path and empty sweeps launch nothing.
@@ -76,29 +81,79 @@ def smem_bytes(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
 
 def state_in_global(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
                     n_parents: int = 0) -> bool:
-    """Whether the kernel keeps a pair's state in its global scratch: one
-    pair's block (``smem_bytes`` with ``pairs=1``) past ``SMEM_LIMIT``."""
+    """Whether the kernel takes the pairs with its global-state instance:
+    one pair's block (``smem_bytes`` with ``pairs=1``) past ``SMEM_LIMIT``."""
     return smem_bytes(n_tasks, n_machines, n_components, n_keyed, 1, n_parents) > SMEM_LIMIT
+
+
+# The global-state instance's totals read a copy of a pair's backlog and
+# drops through a ring of RING_CHUNKS chunks of CHUNK doubles an array (kRing
+# and kChunk in ``csrc/policy_scan.cu``).
+RING_CHUNKS, CHUNK = 4, 256
+
+
+def _global_parts(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
+                  n_parents: int) -> tuple[tuple[int, int], ...]:
+    """(doubles, int32) of the global-state instance's three parts
+    (``GlobalLayout`` in ``csrc/policy_scan.cu``): always in shared memory,
+    the totals' ring, alpha, arrivals a component, prev_out, the fields
+    edges' flows, each worker warp's deepest queue, the throttle and the
+    admitted rate, the packed topology and a count a warp (all the block's
+    warps); a pair's per-task state (backlog, processed, dropped; each
+    task's place in the list of occupied machines); and the per-machine
+    state of the min(T, m) machines a placement can occupy (capacities,
+    scales with one for the tasks on no machine, utilization, fixed loads;
+    the listed machines' ids and their starts in the task order, one more
+    for the end)."""
+    T, n, K = n_tasks, n_components, n_keyed
+    occ = min(T, n_machines)
+    small = (2 * RING_CHUNKS * CHUNK + 3 * n + max(K, 1) + GLOBAL_WORKER_WARPS + 2,
+             (3 * n + 2 + n_parents + 4 * K) + (GLOBAL_WORKER_WARPS + 2))
+    return small, (3 * T, T), (4 * occ + 1, 2 * occ + 1)
+
+
+def global_split(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
+                 n_parents: int = 0) -> tuple[bool, bool]:
+    """(per-task state, per-machine state) in shared memory, in the
+    global-state instance: each part where it fits ``SMEM_LIMIT`` beside
+    what is already there, the per-task state first (the chains read it)."""
+    small, task, mach = _global_parts(n_tasks, n_machines, n_components, n_keyed, n_parents)
+
+    def size(part):
+        return 8 * part[0] + 4 * part[1]
+
+    task_smem = size(small) + size(task) <= SMEM_LIMIT
+    mach_smem = size(small) + task_smem * size(task) + size(mach) <= SMEM_LIMIT
+    return task_smem, mach_smem
 
 
 def global_smem_bytes(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
                       n_parents: int = 0) -> int:
-    """Shared-memory bytes of a block of the global-state instance (``Layout::
-    global_bytes`` in ``csrc/policy_scan.cu``): alpha and the packed topology
-    (the placement's arrays are read in place or kept in the slab)."""
-    n, K = n_components, n_keyed
-    return 8 * n + 4 * (3 * n + 2 + n_parents + 4 * K)
+    """Shared-memory bytes of a block of the global-state instance
+    (``GlobalLayout::smem_bytes`` in ``csrc/policy_scan.cu``): the pair's
+    small state and the topology, and the parts that ``global_split`` puts
+    in shared memory."""
+    args = (n_tasks, n_machines, n_components, n_keyed, n_parents)
+    small, task, mach = _global_parts(*args)
+    task_smem, mach_smem = global_split(*args)
+    return (8 * (small[0] + task_smem * task[0] + mach_smem * mach[0])
+            + 4 * (small[1] + task_smem * task[1] + mach_smem * mach[1]))
 
 
 def slab_bytes(n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
                n_parents: int = 0) -> int:
     """Global bytes of one resident block's slab in the global-state
-    instance (``Layout::slab_doubles``): one pair's state (the per-pair
-    doubles of ``smem_bytes``), the machines' fixed loads and each task's
-    machine; padded to 16 bytes."""
-    T, m, n, K = n_tasks, n_machines, n_components, n_keyed
-    doubles = 3 * T + 3 * m + 1 + 2 * n + max(K, 1) + WARPS_A_PAIR + 2 + m + (T + 1) // 2
-    return 8 * (-(-doubles // 2) * 2)
+    instance (``GlobalLayout::slab_doubles``): the copy of the backlog and
+    the drops that the totals read (two arrays of T doubles, T rounded up to
+    ``CHUNK``), then the parts that ``global_split`` leaves out of shared
+    memory, doubles then int32, padded to 16 bytes."""
+    args = (n_tasks, n_machines, n_components, n_keyed, n_parents)
+    _, task, mach = _global_parts(*args)
+    task_smem, mach_smem = global_split(*args)
+    copy = 2 * -(-n_tasks // CHUNK) * CHUNK
+    doubles = copy + (not task_smem) * task[0] + (not mach_smem) * mach[0]
+    ints = (not task_smem) * task[1] + (not mach_smem) * mach[1]
+    return 8 * ((doubles + (ints + 1) // 2 + 1) // 2 * 2)
 
 
 def pairs_a_block(B: int, n_tasks: int, n_machines: int, n_components: int, n_keyed: int,
@@ -137,9 +192,10 @@ def policy_scan(
 
     Returns the (B, P, W) metrics and the (B, P, m) window-mean utilization.
     Any T, m and B run on both devices: on the card, past one pair's
-    ``smem_bytes`` a pair's state goes to a global scratch
-    (``state_in_global``), and the traces past the grid's 65 535 groups go
-    to its third axis.
+    ``smem_bytes`` the global-state instance takes the pair (``state_in_
+    global``: its occupied machines alone, what does not fit shared memory
+    in a slab a block, ``global_split``), and the traces past the grid's
+    65 535 groups go to its third axis.
     """
     dev = rates.device
     if rates.ndim != 2 or capacity.ndim != 3 or task_machine.ndim != 2:
@@ -193,6 +249,22 @@ def _device_topology(topo: ScanTopology, dev: torch.device) -> tuple[torch.Tenso
     return got
 
 
+_RESIDENT: dict[tuple, int] = {}
+
+
+def _slab_blocks(dev: torch.device, pairs: int, smem: int) -> int:
+    """Blocks (and slabs) of a global-state launch: the resident ones at
+    ``smem`` bytes (``kernel.occupancy``, once a device and size), at most
+    the pairs."""
+    from repro_torch.kernels.policy_scan.kernel import occupancy
+
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, smem)
+    if key not in _RESIDENT:
+        _RESIDENT[key] = occupancy(1 << 30, 1, 0, smem, index)["blocks"]
+    return min(pairs, _RESIDENT[key])
+
+
 def _launch(rates, capacity, tm, e, met, shares, topo, cfg):
     from repro_torch.kernels.policy_scan.kernel import load_library
 
@@ -214,8 +286,12 @@ def _launch(rates, capacity, tm, e, met, shares, topo, cfg):
     util = torch.empty((B, P, m), dtype=torch.float64, device=dev)
     n_edges = sum(len(ps) for ps in topo.parents)
     n, K = topo.n_components, len(topo.keyed)
+    slab, blocks = None, 0
     if state_in_global(T, m, n, K, n_edges):  # G = 0: the global-state instance
         G, smem = 0, global_smem_bytes(T, m, n, K, n_edges)
+        blocks = _slab_blocks(dev, B * P, smem)
+        slab = torch.empty(blocks * slab_bytes(T, m, n, K, n_edges) // 8, dtype=torch.float64,
+                           device=dev)
     else:
         G = pairs_a_block(B, T, m, n, K, n_edges)
         smem = smem_bytes(T, m, n, K, G, n_edges)
@@ -227,7 +303,8 @@ def _launch(rates, capacity, tm, e, met, shares, topo, cfg):
         B, P, T, m, n, n_edges, K, W, topo.n_shares, G,
         float(cfg.window_s), float(cfg.max_queue), float(cfg.bp_high), float(cfg.bp_low),
         float(cfg.throttle_down), float(cfg.throttle_up), float(cfg.throttle_min),
-        smem, torch.cuda.current_stream(dev).cuda_stream,
+        None if slab is None else slab.data_ptr(), blocks, smem,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"policy_scan kernel launch failed with CUDA error {err}")

@@ -31,8 +31,10 @@ _ARGTYPES = [
     _P, _I64,             # cap, cap_stride
     _P, _P, _P, _I64,     # net, mem_c, mem_cap, mem_cap_stride
     _P,                   # out
+    _P, _I64,             # scratch, its bytes (ops.scratch_bytes)
     _I64, _I64, _I32,     # B, T, m
-    _I32,                 # tile_w: machines a tile (m: the one-block layout)
+    _I32,                 # tile_w: machines a tile (m: the one-block layout; 0: the table)
+    _I32,                 # slots: the table's slots (0 but for the table layout)
     _I32, _P,             # resources, stream
 ]
 

@@ -13,16 +13,21 @@ import torch
 
 from repro_torch.kernels.sched_scoring.ref import sched_scoring_ref
 
-__all__ = ["LAUNCHES", "machine_tiles", "max_machines", "reset_launches", "sched_scoring"]
+__all__ = ["LAUNCHES", "machine_tiles", "max_machines", "max_table_tasks", "reset_launches",
+           "sched_scoring", "scratch_bytes", "table_slots"]
 
 # One block's shared memory on Hopper. The kernel keeps a row's m
 # accumulators (CPU load, fixed load and, with a memory term, memory; 8 bytes
 # each, and a 4-byte tag a machine) beside its staged task tiles, one row a
 # block at the most: ``acc_doubles`` and ``warp_smem`` in
 # ``csrc/sched_scoring.cu``, mirrored below with its tile constants. Past
-# that m the kernel splits the machines into tiles whose warp takes at most
-# ``TILE_WARP_BYTES``, so that eight one-warp blocks (each reserving 1 KB)
-# share an SM's 228 KB (``tile_width`` there, ``machine_tiles`` here).
+# that m a row touches at most T machines, and the kernel keeps accumulators
+# for those alone, in a table of ``table_slots`` slots a warp (a machine id
+# each beside the accumulators, and a bit a machine), where that takes at
+# most ``TILE_WARP_BYTES``; else it splits the machines into tiles whose warp
+# takes at most ``TILE_WARP_BYTES``. That is a warp's share of an SM where
+# eight one-warp blocks (each reserving 1 KB) share its 228 KB (``tile_width``
+# there, ``machine_tiles`` here).
 BLOCK_SMEM_BYTES = 227 * 1024
 TILE_WARP_BYTES = 27 * 1024
 _TT, _NSTAGE = 128, 2
@@ -38,11 +43,23 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
+def _tile_bytes(row_comp: bool, row_uir: bool) -> int:
+    return _NSTAGE * (_TS_I * 4 * (1 + row_comp) + _TS_D * 8 * row_uir)
+
+
 def warp_smem(m: int, use_mem: bool, row_comp: bool, row_uir: bool) -> int:
     """Shared-memory bytes of one row (one warp) of the kernel."""
     acc_doubles = ((3 if use_mem else 2) * m + (m + 1) // 2 + 1) // 2 * 2
-    tiles = _NSTAGE * (_TS_I * 4 * (1 + row_comp) + _TS_D * 8 * row_uir)
-    return acc_doubles * 8 + tiles
+    return acc_doubles * 8 + _tile_bytes(row_comp, row_uir)
+
+
+def table_bytes(slots: int, m: int, use_mem: bool, row_comp: bool, row_uir: bool) -> int:
+    """Shared-memory bytes of one row's warp with a table of ``slots``
+    slots on m machines: var, met (and mem) float64 and a machine id
+    (int32) a slot and a bit a machine (int32 words), padded to 16 bytes,
+    then the staged tiles."""
+    acc = ((3 if use_mem else 2) * 8 + 4) * slots + 4 * -(-m // 32)
+    return -(-acc // 16) * 16 + _tile_bytes(row_comp, row_uir)
 
 
 def max_machines(use_mem: bool, row_comp: bool, row_uir: bool) -> int:
@@ -71,6 +88,52 @@ def machine_tiles(m: int, use_mem: bool, row_comp: bool, row_uir: bool) -> tuple
     while warp_smem(width + 32, use_mem, row_comp, row_uir) <= TILE_WARP_BYTES:
         width += 32
     return width, -(-m // width)
+
+
+def _slots(touched: int) -> int:
+    # Linear probing under a load of 2/3, and always one free slot.
+    return touched + touched // 2 + 1
+
+
+def max_table_tasks(m: int, use_mem: bool, row_comp: bool, row_uir: bool) -> int:
+    """The most machines a row may touch, min(T, m), for the table layout
+    on m machines: its ``table_bytes`` within ``TILE_WARP_BYTES`` (-1 where
+    not even an empty row's table fits)."""
+    budget = TILE_WARP_BYTES - _tile_bytes(row_comp, row_uir) - 4 * -(-m // 32)
+    most = budget // ((3 if use_mem else 2) * 8 + 4)  # the most slots
+    s = max(2 * (most - 1) // 3, -1)
+    while _slots(s + 1) <= most:
+        s += 1
+    while s >= 0 and _slots(s) > most:
+        s -= 1
+    return s
+
+
+def table_slots(n_tasks: int, m: int, use_mem: bool, row_comp: bool, row_uir: bool) -> int:
+    """The slots of the kernel's table layout at T tasks on m machines:
+    past ``max_machines``, for min(T, m) up to ``max_table_tasks``; else 0,
+    for the one-block layout or, past both, the machine-tiled one
+    (``machine_tiles``)."""
+    if m <= max_machines(use_mem, row_comp, row_uir):
+        return 0
+    touched = min(n_tasks, m)
+    return _slots(touched) if touched <= max_table_tasks(m, use_mem, row_comp, row_uir) else 0
+
+
+def scratch_bytes(B: int, n_tasks: int, m: int, use_mem: bool, row_comp: bool, row_uir: bool,
+                  rows_m: bool) -> int:
+    """Device scratch of the kernel's launch, which the wrapper allocates:
+    the table layout's list of the machines that fail every row missing them
+    and its count (int32, m + 1), where no (B, m) operand (``rows_m``: per-row
+    capacity or memory capacity, or ``net_var``) streams every machine; the
+    machine-tiled layout's partial min and flag of each (row, tile) (a
+    float64 and an int32 each); else none."""
+    flags = (use_mem, row_comp, row_uir)
+    if m <= max_machines(*flags):
+        return 0
+    if table_slots(n_tasks, m, *flags):
+        return 0 if rows_m else 4 * (m + 1)
+    return B * machine_tiles(m, *flags)[1] * 12
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shapes: tuple, device) -> None:
@@ -112,8 +175,9 @@ def sched_scoring(
     Any resource operand selects the resource variant of the kernel (a
     memory term needs both ``mem_c`` and ``mem_capacity``). Any m runs on
     both devices: on the card, past ``max_machines`` of the operands' layout,
-    the kernel takes the machine-tiled layout (``machine_tiles``), with the
-    same bits.
+    the kernel keeps a table of the machines a row touches
+    (``table_slots``), or, past ``max_table_tasks`` tasks, takes the
+    machine-tiled layout (``machine_tiles``), with the same bits.
     """
     dev = task_machine.device
     if task_machine.ndim != 2:
@@ -157,8 +221,13 @@ def _launch(tm, comp, unit_ir, e_cm, met_cm, capacity, net_var, mem_c, mem_capac
     B, T = tm.shape
     m = e_cm.shape[1]
     # The kernel reads a (B, T) map by its row stride (T; 0 for a shared one).
-    tile_w, _ = machine_tiles(m, mem_c is not None, row_stride(comp) != 0,
-                              row_stride(unit_ir) != 0)
+    layout = (mem_c is not None, row_stride(comp) != 0, row_stride(unit_ir) != 0)
+    slots = table_slots(T, m, *layout)
+    tile_w = 0 if slots else machine_tiles(m, *layout)[0]
+    rows_m = (net_var is not None or row_stride(capacity) != 0
+              or (mem_c is not None and row_stride(mem_capacity) != 0))
+    n_scratch = scratch_bytes(B, T, m, *layout, rows_m)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=tm.device) if n_scratch else None
     lib = load_library()
     resources = net_var is not None or mem_c is not None
     out = torch.empty(B, dtype=torch.float64, device=tm.device)
@@ -170,7 +239,7 @@ def _launch(tm, comp, unit_ir, e_cm, met_cm, capacity, net_var, mem_c, mem_capac
         e_cm.data_ptr(), met_cm.data_ptr(),
         capacity.data_ptr(), row_stride(capacity),
         ptr(net_var), ptr(mem_c), ptr(mem_capacity), row_stride(mem_capacity),
-        out.data_ptr(), B, T, m, tile_w, int(resources),
+        out.data_ptr(), ptr(scratch), n_scratch, B, T, m, tile_w, slots, int(resources),
         torch.cuda.current_stream(tm.device).cuda_stream,
     )
     if err != 0:

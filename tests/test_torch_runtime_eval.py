@@ -298,6 +298,40 @@ def test_cpu_sweep_past_one_blocks_state_matches_reference(n_instances, types):
     assert float(want.dropped.max()) > 0.0  # the queues fill
 
 
+def test_cpu_sweep_on_mostly_empty_machines_matches_reference():
+    """Placements that leave almost every machine empty (the global-state
+    instance's occupied machines on a card): 92 tasks on 8 000 machines, one
+    placement on 3 of them, one on 1; the plain version against the
+    reference's executor per pair, within 1e-9, utilization 0.0 exactly on
+    the empty machines."""
+    cluster = R.paper_cluster((800, 3200, 4000))
+    etg = R.round_robin_schedule(R.linear_topology(), cluster, np.asarray((2, 30, 30, 30)))
+    T, m = etg.total_tasks, cluster.n_machines
+    assert ops.state_in_global(T, m, 4, 0, 3)
+    rng = np.random.default_rng(92)
+    policies = np.stack([etg.task_machine(), rng.choice([7, 4000, m - 1], T), np.full(T, 5)])
+    rate, _ = R.max_stable_rate(etg, cluster)
+    traces = [RS.ramp_trace(0.5 * rate, 1.6 * rate, n_windows=5).compile(cluster, seed=1),
+              RS.failure_trace(0.9 * rate, machine=5, n_windows=5).compile(cluster, seed=2)]
+    cfg = RS.RuntimeConfig(max_queue=40.0)
+    want = RS.evaluate_policies_batch(etg, cluster, traces, policies, config=cfg,
+                                      backend="numpy")
+    p_etg, p_cluster, p_traces = _port(etg, cluster, traces)
+    got = PS.evaluate_policies_batch(p_etg, p_cluster, p_traces, policies,
+                                     config=PS.RuntimeConfig(**dataclasses.asdict(cfg)),
+                                     device="cpu")
+    for field in FIELDS:
+        x, y = getattr(got, field), getattr(want, field)
+        assert x.shape == y.shape, field
+        np.testing.assert_allclose(x, y, rtol=1e-9, atol=1e-9, err_msg=field)
+    empty = np.ones((len(policies), m), dtype=bool)
+    for p, placement in enumerate(policies):
+        empty[p, placement] = False
+    util = got.machine_util_mean
+    assert (util[:, empty] == 0.0).all() and (util[:, ~empty] > 0.0).any()
+    assert float(want.dropped.max()) > 0.0  # the queues fill
+
+
 def test_runtime_setup_constants_give_the_sweep_and_traces():
     """``profile_runtime``'s sweep: N_POLICIES seeded placements, the first
     the given one and each other one task moved; the six drift scenarios

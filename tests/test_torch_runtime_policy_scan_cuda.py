@@ -152,23 +152,105 @@ def test_pairs_a_block_fit_shared_memory():
 
 
 # Past one pair's shared memory (4 702 tasks on 180 machines, 5 813
-# machines at 478 tasks, by ``smem_bytes``) the kernel keeps a pair's state
-# in a global slab a resident block. By hand, for the linear topology's 4
-# components, 3 shuffle parents, no keyed edge: a block's shared memory
-# holds alpha and the topology (8 n + 4 x 17 = 100 bytes); a slab is a
-# pair's 3 T + 3 m + 15 doubles, the machines' fixed loads (m) and each
-# task's machine (T / 2 doubles), padded to 16 bytes.
+# machines at 478 tasks, by ``smem_bytes``) the kernel's global-state
+# instance takes a pair a block, over the min(T, m) machines a placement
+# can occupy. By hand, for the linear topology's 4 components, 3 shuffle
+# parents, no keyed edge, and its 16 worker warps: the small state is the
+# totals' ring (2 x 4 x 256 doubles, 16 384 bytes) and 3 n + 1 + 16 + 2 =
+# 31 doubles (248 bytes), the topology, 17 int32, with a count for each of
+# the 18 warps (140 bytes): 16 772 in all. The per-task state is 3 T doubles
+# and T int32 (28 T bytes); the per-machine state 4 occ + 1 doubles and
+# 2 occ + 1 int32 (40 occ + 12 bytes), occ = min(T, m). Each goes to shared
+# memory where it fits 232 448 bytes beside what is there, the per-task
+# state first; the slab holds the copy of the backlog and the drops that the
+# totals read (2 x T rounded up to 256 doubles) and what does not fit,
+# doubles then int32, padded to 16 bytes.
+#   (6 240, 180):    16 772 + 174 720 + 7 212 = 198 704 shared; 12 800 doubles of slab
+#   (6 240, 16 380): 16 772 + 174 720 = 191 492 shared; 12 800 + 24 961 doubles
+#                    and 12 481 int32 (6 241 doubles) -> 44 002 doubles of slab
+#   (40, 16 380):    16 772 + 1 120 + 1 612 = 19 504 shared; 512 doubles of slab
+#   (20 000, 180):   16 772 + 7 212 = 23 984 shared; 40 448 + 60 000 doubles and
+#                    20 000 int32 -> 110 448 doubles of slab
 def test_global_state_sizing_by_hand():
     assert not ops.state_in_global(4702, 180, 4, 0, 3) and ops.state_in_global(4703, 180, 4, 0, 3)
     assert not ops.state_in_global(478, 5813, 4, 0, 3) and ops.state_in_global(478, 5814, 4, 0, 3)
     assert ops.state_in_global(6240, 180, 4, 0, 3) and ops.state_in_global(40, 16380, 4, 0, 3)
-    for T, m in ((6240, 180), (40, 16380), (20000, 180)):
-        assert ops.global_smem_bytes(T, m, 4, 0, 3) == 100
-    assert ops.slab_bytes(6240, 180, 4, 0, 3) == 8 * 22_576
-    assert ops.slab_bytes(40, 16380, 4, 0, 3) == 8 * 65_676
-    assert ops.slab_bytes(20000, 180, 4, 0, 3) == 8 * 70_736
-    for T, m in ((6240, 180), (40, 16380), (20000, 180)):
+    assert ops.global_smem_bytes(6240, 180, 4, 0, 3) == 198_704
+    assert ops.global_smem_bytes(6240, 16380, 4, 0, 3) == 191_492
+    assert ops.global_smem_bytes(40, 16380, 4, 0, 3) == 19_504
+    assert ops.global_smem_bytes(20000, 180, 4, 0, 3) == 23_984
+    assert ops.slab_bytes(6240, 180, 4, 0, 3) == 8 * 12_800
+    assert ops.slab_bytes(6240, 16380, 4, 0, 3) == 8 * 44_002
+    assert ops.slab_bytes(40, 16380, 4, 0, 3) == 8 * 512
+    assert ops.slab_bytes(20000, 180, 4, 0, 3) == 8 * 110_448
+    for T, m in ((6240, 180), (6240, 16380), (40, 16380), (20000, 180)):
         assert ops.slab_bytes(T, m, 4, 0, 3) % 16 == 0
+        assert ops.global_smem_bytes(T, m, 4, 0, 3) <= ops.SMEM_LIMIT
+
+
+# The splits by hand, with the sizes above: the per-task state fits while
+# 16 772 + 28 T <= 232 448 (T <= 7 702); at 180 machines the per-machine
+# state (7 212 bytes) fits beside it while 28 T <= 208 464 (T <= 7 445), and
+# alone past 7 702 tasks; at 16 380 machines it fits only while 40 occ + 12
+# <= 215 676 - 28 T, which no T past one block's state meets.
+@pytest.mark.parametrize("T, m, split", [
+    (6240, 180, (True, True)),
+    (6240, 16380, (True, False)),
+    (40, 16380, (True, True)),
+    (20000, 180, (False, True)),
+    (7445, 180, (True, True)),
+    (7446, 180, (True, False)),
+    (7702, 16380, (True, False)),
+    (7703, 16380, (False, False)),
+    (7703, 180, (False, True)),
+])
+def test_global_split_by_hand(T, m, split):
+    assert ops.global_split(T, m, 4, 0, 3) == split
+    shared = ops.global_smem_bytes(T, m, 4, 0, 3)
+    assert shared == 16_772 + split[0] * 28 * T + split[1] * (40 * min(T, m) + 12)
+    assert shared <= ops.SMEM_LIMIT
+
+
+def test_wrapper_reaches_the_library_with_the_mirrors_layout(monkeypatch):
+    """On each side of each boundary (one pair's block, then the global
+    instance's two splits) the launcher hands the library the layout the
+    mirrors pick: pairs a block (0 for the global-state instance) and its
+    shared-memory count. Here the library is a stand-in that records the
+    call and stops it, so no launch counts."""
+    from repro_torch.kernels.policy_scan import kernel
+
+    class Launching(Exception):
+        pass
+
+    calls = []
+
+    class Library:
+        @staticmethod
+        def policy_scan_launch(*args):
+            calls.append(args)
+            raise Launching
+
+    monkeypatch.setattr(kernel, "load_library", Library)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(ops, "_slab_blocks", lambda dev, pairs, smem: min(pairs, 132))
+    base = 388 + 16_384  # the small state, the topology and the totals' ring
+    for T, m, G, smem in ((4702, 180, 1, ops.smem_bytes(4702, 180, 4, 0, 1, 3)),
+                          (4703, 180, 0, base + 28 * 4703 + 7212),
+                          (7445, 180, 0, base + 28 * 7445 + 7212),
+                          (7446, 180, 0, base + 28 * 7446),
+                          (7702, 16380, 0, base + 28 * 7702),
+                          (7703, 16380, 0, base)):
+        operands, topo = _wide_operands(T, 1, 1, 2, (T - 3, 1, 1, 1), m, "cpu")
+        before = dict(ops.LAUNCHES)
+        with pytest.raises(Launching):
+            ops._launch(*operands, topo, ops.ScanConfig())
+        assert ops.LAUNCHES == before
+        args = calls[-1]  # ..., B, P, T, m, n, E, K, W, S, G, 7 constants, slab, its
+        assert args[17:27] == (1, 1, T, m, 4, 3, 0, 2, 0, G)  # blocks, smem, stream
+        assert args[-2] == smem, (T, m)
+        assert (args[-4] is None, args[-3]) == ((True, 0) if G else (False, 1)), (T, m)
 
 
 def _wide_operands(seed, B, P, W, counts, m, device):
@@ -204,6 +286,29 @@ def test_kernel_equals_plain_version_past_one_block(cuda_device, B, P, W, counts
         assert torch.equal(g, a), f"{name}: rerun differs"
         assert torch.equal(g.cpu(), w), f"{name}: differs from the plain version on the CPU"
     assert float(plain.throttle.min()) < 1.0 or B > 1000  # the queues push back
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "one machine occupied", "every machine occupied", "per-task state at its split",
+    "per-task state past its split", "per-machine state at its split",
+    "per-machine state past its split"])
+def test_global_instance_equals_plain_version_at_edges(cuda_device, case):
+    """``chip_smoke.py``'s edge shapes of the global-state instance: a
+    placement on one machine, one on every machine, and task counts at each
+    of its shared-memory splits and one past; equal to the plain version on
+    the CPU bit for bit, rerun bit-identical."""
+    from torch_paper_common import chip_smoke
+
+    gpu, topo = chip_smoke().scan_edge_problem(torch, np, cuda_device, case)
+    cfg = ops.ScanConfig(max_queue=60.0)
+    got = ops.policy_scan(*gpu, topo, cfg)
+    again = ops.policy_scan(*gpu, topo, cfg)
+    torch.cuda.synchronize()
+    plain = ops.policy_scan(*(x.cpu() for x in gpu), topo, cfg)
+    for name, g, a, w in zip(got._fields, got, again, plain):
+        assert torch.equal(g, a), f"{name}: rerun differs"
+        assert torch.equal(g.cpu(), w), f"{name}: differs from the plain version on the CPU"
 
 
 @pytest.mark.cuda

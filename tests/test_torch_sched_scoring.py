@@ -199,12 +199,57 @@ def test_machine_tiles_by_hand(use_mem, row_comp, row_uir, m, tiles):
         assert ops.warp_smem(width + 32, use_mem, row_comp, row_uir) > ops.TILE_WARP_BYTES
 
 
+# Past ``max_machines`` a row keeps accumulators for the machines it
+# touches alone, in a table of S + S // 2 + 1 slots for S = min(T, m): var,
+# met (and mem) float64 and a machine id (int32) a slot, and a bit a
+# machine (int32 words: 512, 2 048 bytes, at 16 380 machines), padded to 16
+# bytes, beside the staged tiles (1 088, 3 200 or 4 288 bytes as above),
+# within TILE_WARP_BYTES = 27 648. By hand, at 16 380 machines:
+#   shared maps:     (27 648 - 1 088 - 2 048) / 20 -> H <= 1 225 -> S = 816 (816 + 408 + 1)
+#   per-row unit:    (27 648 - 3 200 - 2 048) / 20 -> H <= 1 120 -> S = 746 (746 + 373 + 1)
+#   per-row maps:    (27 648 - 4 288 - 2 048) / 20 -> H <= 1 065 -> S = 709 (709 + 354 + 1)
+#   memory, shared:  24 512 / 28 -> H <= 875 -> S = 583 (583 + 291 + 1)
+#   memory, per-row: 21 312 / 28 -> H <= 761 -> S = 507 (507 + 253 + 1)
+# At the paper's 478 tasks every operand layout takes the table: 478 + 239 +
+# 1 = 718 slots; 20 x 718 + 2 048 = 16 408 -> 16 416 bytes + 1 088 = 17 504
+# with shared maps, 28 x 718 + 2 048 = 22 152 -> 22 160 + 4 288 = 26 448
+# with memory and per-row maps.
+@pytest.mark.parametrize("use_mem,row_comp,row_uir,tasks,bytes_478", [
+    (False, False, False, 816, 17504),
+    (False, False, True, 746, 19616),
+    (False, True, True, 709, 20704),
+    (True, False, False, 583, 23248),
+    (True, True, True, 507, 26448),
+])
+def test_table_slots_by_hand(use_mem, row_comp, row_uir, tasks, bytes_478):
+    flags = (use_mem, row_comp, row_uir)
+    limit = ops.max_machines(*flags)
+    assert ops.max_table_tasks(16380, *flags) == tasks
+    assert ops.table_slots(478, 16380, *flags) == 718
+    assert ops.table_bytes(718, 16380, *flags) == bytes_478
+    slots = tasks + tasks // 2 + 1
+    assert ops.table_bytes(slots, 16380, *flags) <= ops.TILE_WARP_BYTES
+    assert ops.table_bytes(slots + 2, 16380, *flags) > ops.TILE_WARP_BYTES
+    # The three layouts' boundaries: m past max_machines, then T past the table.
+    most = ops.max_table_tasks(limit + 1, *flags)
+    assert ops.table_slots(most, limit, *flags) == 0                      # the one-block layout
+    assert ops.table_slots(most, limit + 1, *flags) == most + most // 2 + 1  # the table
+    assert ops.table_slots(most + 1, limit + 1, *flags) == 0              # the machine tiles
+    assert ops.table_slots(2, limit + 1, *flags) == 4                     # 2 + 1 + 1
+    assert ops.table_slots(0, limit + 1, *flags) == 1                     # one free slot, always
+    # The bitmap grows with m: past ~200 000 machines not even an empty row fits.
+    assert ops.max_table_tasks(1_000_000, *flags) == -1
+    assert ops.table_slots(1, 1_000_000, *flags) == 0
+
+
 @pytest.mark.parametrize("resources", [False, True])
 def test_wrapper_refuses_past_the_limit_before_any_launch(monkeypatch, resources):
     """At ``max_machines`` the launcher reaches the library with the
-    one-block layout (tile width m); one machine past it, with the
-    machine-tiled layout (``machine_tiles``' width). Here the library is a
-    stand-in that records the call and stops it, so no launch counts."""
+    one-block layout (tile width m, no table); one machine past it, with
+    the table (``table_slots``, tile width 0) up to ``max_table_tasks``
+    tasks, and past those with the machine-tiled layout (``machine_tiles``'
+    width, no table). Here the library is a stand-in that records the call
+    and stops it, so no launch counts."""
     from repro_torch.kernels.sched_scoring import kernel
 
     class Launching(Exception):
@@ -224,16 +269,29 @@ def test_wrapper_refuses_past_the_limit_before_any_launch(monkeypatch, resources
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 0})())
     limit = ops.max_machines(resources, False, False)
-    for m, tile_w in ((limit, limit), (limit + 1, ops.machine_tiles(limit + 1, resources,
-                                                                     False, False)[0])):
-        args, kw = _tensors(*_problem(3, 4, 9, m, 2, resources=resources))
+    tasks = ops.max_table_tasks(limit + 1, resources, False, False)
+    tiles = ops.machine_tiles(limit + 1, resources, False, False)[0]
+    # Scratch, which the wrapper allocates: none for one block a row; the
+    # table's list of failing machines, m + 1 int32, unless net_var (the
+    # resource variant here) streams every machine; the tiles' partials, a
+    # float64 and an int32 a (row, tile).
+    tiled_scratch = 4 * -(-(limit + 1) // tiles) * 12
+    for m, T, tile_w, slots, n_scratch in (
+            (limit, 9, limit, 0, 0),
+            (limit + 1, 9, 0, 14, 0 if resources else 4 * (limit + 2)),
+            (limit + 1, tasks, 0, tasks + tasks // 2 + 1, 0 if resources else 4 * (limit + 2)),
+            (limit + 1, tasks + 1, tiles, 0, tiled_scratch)):
+        args, kw = _tensors(*_problem(3, 4, T, m, 2, resources=resources))
         before = dict(ops.LAUNCHES)
         with pytest.raises(Launching):
             ops._launch(*args, kw.get("net_var"), kw.get("mem_c"), kw.get("mem_capacity"))
         assert ops.LAUNCHES == before
-        *_, B, T, m_arg, tile_arg, res_arg, _stream = calls[-1]
-        assert (B, T, m_arg, tile_arg, res_arg) == (4, 9, m, tile_w, int(resources))
-    assert calls[0][-3] == limit and calls[1][-3] < limit
+        *_, scratch, scratch_bytes, B, T_arg, m_arg, tile_arg, slots_arg, res_arg, _stream = (
+            calls[-1])
+        assert (B, T_arg, m_arg, tile_arg, slots_arg, res_arg) == (4, T, m, tile_w, slots,
+                                                                   int(resources))
+        assert scratch_bytes == n_scratch and (scratch is None) == (n_scratch == 0)
+    assert tiles < limit and (resources and tiles == 928 or not resources and tiles == 1312)
 
 
 @pytest.fixture
@@ -260,20 +318,20 @@ def test_cuda_kernel_matches_plain_version(cuda_device, per_row, resources):
     assert torch.equal(got.cpu(), plain)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("where", ["limit + 1", "16380", "one past a whole tile"])
-@pytest.mark.parametrize("per_row", [False, True])
-@pytest.mark.parametrize("resources", [False, True])
-def test_cuda_machine_tiled_kernel_matches_plain_version(cuda_device, where, per_row, resources):
-    """Past ``max_machines`` the machine-tiled layout: one launch a call,
-    equal to the plain version on the CPU bit for bit and to its own rerun,
-    ids outside [0, m) among the tasks; at the layout's first m, at 16 380
-    machines and where the last tile holds one machine."""
-    limit = ops.max_machines(resources, per_row, per_row)
-    width = ops.machine_tiles(limit + 1, resources, per_row, per_row)[0]
+def _wide_case(cuda_device, where, per_row, resources, tiled):
+    """One launch a call past ``max_machines``, equal to the plain version on
+    the CPU bit for bit and to its own rerun, ids outside [0, m) among the
+    tasks; at the first m past ``max_machines``, at 16 380 machines and where
+    the machine tiles' last one holds one machine. At the paper's 478 tasks
+    a row takes the table layout; at ``max_table_tasks`` + 1, the tiles."""
+    flags = (resources, per_row, per_row)
+    limit = ops.max_machines(*flags)
+    width = ops.machine_tiles(limit + 1, *flags)[0]
     m = {"limit + 1": limit + 1, "16380": 16380,
          "one past a whole tile": (limit // width + 1) * width + 1}[where]
-    tm, comp, uir, e_cm, met_cm, cap, extras = _problem(m % 1000, 40, 478, m, 4, per_row,
+    T = ops.max_table_tasks(m, *flags) + 1 if tiled else 478
+    assert (ops.table_slots(T, m, *flags) == 0) == tiled
+    tm, comp, uir, e_cm, met_cm, cap, extras = _problem(m % 1000, 40, T, m, 4, per_row,
                                                         resources)
     rng = np.random.default_rng(m)
     tm[3:, ::11] = rng.choice([-1, m, m + 9], size=tm[3:, ::11].shape)
@@ -292,6 +350,49 @@ def test_cuda_machine_tiled_kernel_matches_plain_version(cuda_device, where, per
     assert int((plain == 0.0).sum()) >= 3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["limit + 1", "16380", "one past a whole tile"])
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("resources", [False, True])
+def test_cuda_machine_tiled_kernel_matches_plain_version(cuda_device, where, per_row, resources):
+    """The machine-tiled layout, one task past the table's most."""
+    _wide_case(cuda_device, where, per_row, resources, tiled=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["limit + 1", "16380", "one past a whole tile"])
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("resources", [False, True])
+def test_cuda_table_kernel_matches_plain_version(cuda_device, where, per_row, resources):
+    """The table layout, at the paper's 478 tasks."""
+    _wide_case(cuda_device, where, per_row, resources, tiled=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "one machine", "distinct machines", "ids outside", "untouched cap < 0",
+    "untouched mem_cap < 0", "per-row capacity, zero net row", "at the table boundary",
+    "past the table boundary", "past the table boundary, memory and network"])
+def test_cuda_table_kernel_matches_plain_version_at_edges(cuda_device, case):
+    """``chip_smoke.py``'s edge shapes of the table layout on 16 380
+    machines (past its most tasks, the machine tiles): one launch a call,
+    equal to the plain version on the CPU bit for bit and to its rerun."""
+    from torch_paper_common import chip_smoke
+
+    args, extras = chip_smoke().table_edge_problem(np, ops, case, 16380)
+    c_args, c_kw = _tensors(*args, extras)
+    plain = ops.sched_scoring(*c_args, **c_kw)
+    name = "sched_scoring_resources" if extras else "sched_scoring"
+    g_args = [a.to(cuda_device) for a in c_args]
+    g_kw = {k: v.to(cuda_device) for k, v in c_kw.items()}
+    before = ops.LAUNCHES[name]
+    got = ops.sched_scoring(*g_args, **g_kw)
+    again = ops.sched_scoring(*g_args, **g_kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 2
+    assert torch.equal(got.cpu(), plain) and torch.equal(got, again)
+
+
 # --- The order of the CUDA kernel's design, pinned on the CPU -------------
 #
 # csrc/sched_scoring.cu gives a row one warp. Lane l takes task j0 + l of
@@ -301,13 +402,17 @@ def test_cuda_machine_tiled_kernel_matches_plain_version(cuda_device, where, per
 # min and "infeasible" flags combine by an xor tree. The twin below does
 # exactly that in scalar float64 and must equal the plain version bit for
 # bit; `owners` also takes 1 and 8 to show the split never matters. Past
-# ``max_machines`` a warp takes one tile of the row's machines: only its
+# ``max_machines`` a warp keeps a table of the machines its row touches:
+# `table` runs the twin so, finalizing those machines alone and failing a
+# row that misses a machine with cap_w < 0 or mem_cap_w < 0, or, with a
+# (B, m) operand, every machine from its accumulators or from zeros. Past
+# ``max_table_tasks`` a warp takes one tile of the row's machines: only its
 # tasks, in the same rounds, and a second pass takes the tiles' partials in
 # order; `tile` runs the twin so, at tile edges (the last tile one machine
 # wide, or whole) and at the kernel's own width.
 
 def _scorer_twin(tm, comp, uir, e_cm, met_cm, cap, net=None, mem_c=None, mem_cap=None,
-                 owners=32, group=32, tile=None):
+                 owners=32, group=32, tile=None, table=False):
     B, T = tm.shape
     m = e_cm.shape[1]
     out = np.empty(B)
@@ -330,19 +435,30 @@ def _scorer_twin(tm, comp, uir, e_cm, met_cm, cap, net=None, mem_c=None, mem_cap
                     if mem_c is not None:
                         mem[w] = mem[w] + float(mem_c[c])
         cap_row = cap[b] if cap.ndim == 2 else cap
+        mcap = None if mem_c is None else mem_cap[b] if mem_cap.ndim == 2 else mem_cap
+        # The table: the touched machines alone, in slot order (a hash's:
+        # any order), where no (B, m) operand asks for every machine.
+        machines = range(m)
+        rows_m = cap.ndim == 2 or net is not None or (mem_c is not None and mem_cap.ndim == 2)
+        row_bad = False
+        if table and not rows_m:
+            touched = {int(w) for w in tm[b] if 0 <= w < m}
+            machines = sorted(touched, key=lambda w: (w * 2654435769) % 2**32)
+            row_bad = any(float(cap_row[w]) - 0.0 < 0.0
+                          or (mcap is not None and 0.0 > float(mcap[w]))
+                          for w in range(m) if w not in touched)
         # One tile of all m machines, or tiles of `tile` (the machine-tiled
         # layout: a warp a tile, the tiles' partials taken in tile order).
-        row_rate, row_bad = float("inf"), False
-        for w0 in range(0, m, tile or max(m, 1)):
-            w1 = min(w0 + (tile or m), m)
+        row_rate = float("inf")
+        for w0 in range(0, len(machines), tile or max(len(machines), 1)):
+            w1 = min(w0 + (tile or len(machines)), len(machines))
             rate, bad = [float("inf")] * owners, [False] * owners
             for g in range(owners):
-                for w in range(w0 + g, w1, owners):
+                for w in (machines[k] for k in range(w0 + g, w1, owners)):
                     v = var[w] + float(net[b, w]) if net is not None else var[w]
                     head = float(cap_row[w]) - met[w]
                     bad[g] |= head < 0.0
                     if mem_c is not None:
-                        mcap = mem_cap[b] if mem_cap.ndim == 2 else mem_cap
                         bad[g] |= mem[w] > float(mcap[w])
                     if v > 0.0:
                         rate[g] = min(rate[g], head / max(v, 1e-300))
@@ -387,6 +503,29 @@ def test_kernel_order_twin_bit_identical_to_plain_version(owners, m, resources):
                         mem_c=extras.get("mem_c"), mem_cap=extras.get("mem_capacity"),
                         owners=owners, tile=tile)
     assert np.array_equal(plain, twin)
+
+
+TABLE_EDGES = ["one machine", "distinct machines", "ids outside", "untouched cap < 0",
+               "untouched mem_cap < 0", "per-row capacity, zero net row"]
+
+
+@pytest.mark.parametrize("case", TABLE_EDGES)
+def test_table_twin_bit_identical_to_plain_version(case):
+    """The table layout's order and its finalize over touched machines (or,
+    with a (B, m) operand, every machine) equal the plain version at
+    ``chip_smoke.py``'s edge shapes, here at 300 machines."""
+    from torch_paper_common import chip_smoke
+
+    (tm, comp, uir, e_cm, met_cm, cap), extras = chip_smoke().table_edge_problem(
+        np, ops, case, 300, B=12, T=60)
+    args, kw = _tensors(tm, comp, uir, e_cm, met_cm, cap, extras)
+    plain = ops.sched_scoring(*args, **kw).numpy()
+    twin = _scorer_twin(tm, comp, uir, e_cm, met_cm, cap, net=extras.get("net_var"),
+                        mem_c=extras.get("mem_c"), mem_cap=extras.get("mem_capacity"),
+                        table=True)
+    assert np.array_equal(plain, twin)
+    if case.startswith("untouched"):  # machine 299 fails every row: only row 5 touches it
+        assert not plain.any()
 
 
 def test_plain_version_ignores_ids_outside_machines():
