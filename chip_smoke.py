@@ -268,14 +268,20 @@ Phases (each raises on failure; nothing is caught):
    mem_cap_w < 0, per-row capacity with a zero ``net_var`` row, T at the
    table's most tasks and one past, B1 and B2 with memory and network: the
    machine tiles), cut_traffic at
-   14 501 and 16 380 (w tiles), policy_scan at 6 240 tasks, 16 380
+   14 501 and 16 380 (the list layout), policy_scan at 6 240 tasks, 16 380
    machines, 65 536 traces, past 65 535 groups of traces and at
    ``SCAN_EDGES`` (a placement on one machine, one on every machine, T at
    each shared-memory split and one past), each equal to its plain version
    (the new layouts' reruns bit-identical too); then B1 (16 384 x 478), B2
    (4 096 x 478, memory and network), cut_traffic (128 rows of the 6 240-task
-   placement; its bound counts the products over each row's non-zero
-   columns of X, ``cut_work``) and policy_scan (the sweep, then 6 x 256
+   placement, its list layout held bit for bit and rerun; its bound counts
+   the products over each row's non-zero columns of X, ``cut_work``; its
+   plan, list lengths and scratch bytes at B = 128 and 65 520 printed; an
+   inf and a NaN in columns no task occupies at B = 2, NaN where its plain
+   version has NaN; then the same placement on ``MID_COUNTS``' 8 100
+   machines through ``network_unit_load``, one launch, timed beside the
+   previous revision's kernel where a copy lies at ``PARENT_CUT_SOURCE``)
+   and policy_scan (the sweep, then 6 x 256
    pairs) timed on the wide cluster beside their plain versions and bounds
    (B1/B2's over each row's touched machines, policy_scan's over the
    occupied machines, each beside the dense count over every machine;
@@ -287,7 +293,8 @@ and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
 ``tests/test_torch_paper_*.py`` phase 14's and phase 18's.
 The last lines are the ``{"kernels": [...]}`` record (eight kernels; B1, B2,
 cut_traffic and policy_scan carry phase 22's shapes and times under
-``wide_cluster``, and B1, B2 and policy_scan its launches;
+``wide_cluster``, cut_traffic's 8 100-machine shape under its
+``mid_cluster``, and the four kernels its launches;
 ``rglru_scan_bwd`` counts its launches in phases 20 and 21, B5 in phases
 8, 20 and 21; B1 counts its
 launches in phases 3-4, 12, 14 and 18, B2 and cut_traffic in phases 3-4,
@@ -307,6 +314,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1280,7 +1288,7 @@ def time_cut_traffic(torch, np, P, cut_ops, etg, cluster, rng, launches, max_err
           f"{bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.3f} GFLOP and {n_bytes / 1e6:.2f} MB "
           f"that the rows' non-zero columns need; {100 * bound[0] / ms:.1f}% of it), plain "
           f"{plain_ms:.3f} ms; no single PyTorch call computes it, so library_ms is null")
-    plan = cut_kernel.launch_plan(B, T, k2, m)
+    plan = cut_kernel.launch_plan(B, T, edges, m)
     print(f"    {plan['rows']} rows a block, {plan['threads']} threads, {plan['smem_bytes']} shared "
           f"bytes, {plan['tile_columns']}-column distance tiles, {plan['tile_stages']} in flight; "
           + _launch_text(torch, flops, plan["blocks"], plan["blocks_per_sm"], plan["registers"],
@@ -3227,6 +3235,14 @@ WIDE_REFINE_B2_LAUNCHES = 4
 # The repo's usual policy sweep (6 traces x 256 placements), timed on the
 # wide cluster: more resident blocks' slabs than the L2 holds.
 WIDE_FULL_SWEEP = (6, 256)
+# cut_traffic's second timed cluster: the three types at 45 x 20/70/90,
+# 8 100 machines, where its list layout starts well before 16 380.
+MID_COUNTS = (900, 3150, 4050)
+# A copy of an earlier revision's csrc/cut_traffic.cu (its C entry without
+# the list layout's operands), put here by hand, for example with ``git show
+# REV:src/repro_torch/kernels/cut_traffic/csrc/cut_traffic.cu``; where it
+# exists, phase 22 builds it and times it at the 8 100-machine shape.
+PARENT_CUT_SOURCE = ROOT / "build" / "parent" / "cut_traffic.cu"
 
 
 def scan_problem(torch, np, device, seed, B, P_, W, counts, m):
@@ -3328,6 +3344,137 @@ def touched_machines(np, tm, m):
     distinct = np.ones(rows.shape, dtype=bool)
     distinct[:, 1:] = rows[:, 1:] != rows[:, :-1]
     return int((distinct & (rows >= 0)).sum())
+
+
+def wide_cut_shape(np, P, etg, cluster, rng, B=128):
+    """cut_traffic's host operands of ``etg``'s placement on ``cluster`` (B
+    rows, one task moved a row), its edges and six racks' distances."""
+    base, m = etg.task_machine(), cluster.n_machines
+    tm = np.tile(base, (B, 1))
+    tm[np.arange(B), rng.integers(0, base.size, B)] = rng.integers(0, m, B)
+    comp = etg.task_component()
+    cir = P.component_rates(etg.utg, 1.0)
+    host = (tm, comp, (cir / etg.n_instances)[comp], np.asarray(etg.utg.alpha, dtype=np.float64),
+            cir)
+    return host, etg.utg.edges, P.rack_distance_matrix(np.arange(m) % 6, 1.0, 2.0)
+
+
+def same_or_nan(torch, a, b):
+    """Equal where not NaN, NaN in the same places."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
+def list_lengths(torch, np, cut_ops, g_args, edges, g_dist):
+    """The list layout's list lengths (groups x lists) of these operands,
+    from the host mirror ``cut_ops.list_columns``."""
+    flags = (~torch.isfinite(g_dist)).any(0).cpu().numpy()
+    tm, comp = g_args[0].cpu().numpy(), g_args[1].cpu().numpy()
+    lists = cut_ops.list_columns(tm, comp, edges, g_args[3].shape[0], flags)
+    return [[len(c) for c in g] for g in lists]
+
+
+def parent_cut_kernel(torch):
+    """The kernel of ``PARENT_CUT_SOURCE`` (built on first use) as a call
+    on the wrapper's operands, or None where no copy is there."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cut_traffic import kernel as cut_kernel
+    from repro_torch.kernels.cut_traffic import ops as cut_ops
+
+    if not PARENT_CUT_SOURCE.exists():
+        return None
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib = _build.load_library(PARENT_CUT_SOURCE, "cut_traffic_launch", [
+        i32, p, p, i64, p, i64, p, p, p, p, p, i32, i32, p, ctypes.c_double, p, i64, i64, i32,
+        i32, p], cut_kernel.NVCC_FLAGS)
+
+    def run(tm, comp, uir, alpha, cir, edges, dist, penalty):
+        (B, T), n, m = tm.shape, alpha.shape[0], dist.shape[0]
+        send, recv, pairs, _, _, k2, _ = cut_ops._device_slots(tuple(edges), n, tm.device)
+        out = torch.empty((B, m), dtype=torch.float64, device=tm.device)
+        err = lib.cut_traffic_launch(
+            tm.device.index or 0, tm.data_ptr(), comp.data_ptr(), comp.shape[-1] * (comp.ndim == 2),
+            uir.data_ptr(), uir.shape[-1] * (uir.ndim == 2), alpha.data_ptr(), cir.data_ptr(),
+            send.data_ptr(), recv.data_ptr(), pairs.data_ptr(), len(edges), k2, dist.data_ptr(),
+            float(penalty), out.data_ptr(), B, T, n, m, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent cut_traffic kernel failed with CUDA error {err}")
+        return out
+
+    return run
+
+
+def time_wide_cut(torch, np, cut_ops, cut_kernel, host, edges, dist, entry=None, parent=None):
+    """cut_traffic's list layout on ``host``'s rows: held bit for bit
+    against its plain version on the card (and ``entry``, the result of an
+    entry point's call, and the kernel of ``parent`` where given), rerun
+    bit-identical, timed beside its plain version and ``parent`` (3 runs each);
+    its plan, list lengths, bound (``cut_work``) and timing record."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels.cut_traffic.ref import cut_traffic_ref
+    from repro_torch.launch.timing import time_cuda
+
+    tm, comp = host[:2]
+    (B, T), m = tm.shape, dist.shape[0]
+    g_args, g_dist = cut_tensors(torch, np, "cuda", host, dist)
+    got = cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05)
+    again = cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05)
+    want = cut_traffic_ref(*g_args, edges, g_dist, 0.05)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and torch.equal(got.view(torch.int64), again.view(torch.int64))
+          and (entry is None or torch.equal(entry, got)),
+          f"cut_traffic at m={m} differs from its plain version or its rerun")
+    ms = time_cuda(lambda: cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05))
+    plain_ms = time_cuda(lambda: cut_traffic_ref(*g_args, edges, g_dist, 0.05), reps=3)
+    parent_ms = None
+    if parent is not None:
+        check(torch.equal(parent(*g_args, edges, g_dist, 0.05), got),
+              f"the parent cut_traffic kernel at m={m} differs")
+        parent_ms = time_cuda(lambda: parent(*g_args, edges, g_dist, 0.05), reps=3)
+    # Where one call's device time goes, by kernel (warm L2, one call). Late
+    # in the whole script the profiler has been seen to record no device
+    # activity on the card; then the split is not measured.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            name = re.search(r"\w+_kernel|Memset", e.name)
+            key = name.group() if name else e.name[:40]
+            split[key] = split.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
+    flops, dist_bytes = cut_work(np, tm, comp, edges, m)
+    n_bytes = sum(x.numel() * x.element_size() for x in g_args) + dist_bytes + B * m * 8
+    bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    plan = cut_kernel.launch_plan(B, T, edges, m)
+    lists = list_lengths(torch, np, cut_ops, g_args, edges, g_dist)
+    print(f"  cut_traffic B={B} T={T} m={m} ({k2} contracted rows a row, {dist_bytes // (8 * m)} "
+          f"machines hold tasks): {ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({flops / 1e9:.1f} GFLOP and {n_bytes / 1e6:.1f} MB that the rows' non-zero columns "
+          f"need; {100 * bound[0] / ms:.2f}% of it), plain {plain_ms:.3f} ms, the previous "
+          f"revision's kernel " + (f"{parent_ms:.4f} ms" if parent_ms is not None else
+                                   "not timed (no copy at PARENT_CUT_SOURCE)")
+          + "; library_ms null; equal to its plain version, rerun bit-identical")
+    print(f"    layout {plan['layout']}: groups of {plan['rows']} rows, {plan['threads']} threads, "
+          f"{plan['smem_bytes']} shared bytes, {plan['w_tile']}-machine by "
+          f"{plan['tile_columns']}-column distance tiles, {plan['tile_stages']} in flight, "
+          f"{plan['wave_rows']} rows a wave, {plan['scratch_bytes']} scratch bytes, lists of up "
+          f"to {plan['list_capacity']} columns; list lengths (groups x lists) {lists}; "
+          f"products by zero included, the dense product is {2 * B * k2 * m * m / 1e9:.1f} "
+          f"GFLOP; " + _launch_text(torch, flops, plan["blocks"], plan["blocks_per_sm"],
+                                   plan["registers"], plan["local_bytes"]))
+    print("    device ms of one call by kernel (profiler, warm L2): "
+          + (", ".join(f"{k} {v:.4f}" for k, v in split.items()) if split else
+             "not measured (the profiler recorded no device activity)"))
+    return dict(shape=f"B={B} T={T} m={m} K2={k2}, groups of {plan['rows']}, w tiles of "
+                f"{plan['w_tile']}", ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None, parent_ms=parent_ms,
+                scratch_bytes=plan["scratch_bytes"])
 
 
 def sm_clock_hz():
@@ -3493,11 +3640,10 @@ def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
         want = cut_traffic_ref(*g_args, edges, g_dist, 0.05)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"cut_traffic at m={m_case} differs from its plain version")
-        k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
-        plan = cut_kernel.launch_plan(B, tm.shape[1], k2, m_case)
+        plan = cut_kernel.launch_plan(B, tm.shape[1], edges, m_case)
         print(f"  cut_traffic {topology} m={m_case} B={B}: layout {plan['layout']}, distance tiles "
-              f"of {plan['w_tile']} machines by {plan['tile_columns']} columns; equal to its "
-              f"plain version on the card")
+              f"of {plan['w_tile']} machines by {plan['tile_columns']} listed columns; equal to "
+              f"its plain version on the card")
         del g_dist, racks
     for label, (B, P_, W_, counts, m_case) in (
             ("6 240 tasks on 180 machines", (3, 5, 12, (40, 2000, 2100, 2100), 180)),
@@ -3559,43 +3705,46 @@ def wide_phase(torch, np, P, ops, cut_ops, scan_ops, base_etg, wall):
               f"{dense[0]:.4f} ms by {dense[1]}), plain {plain_ms:.3f} ms; library_ms null")
         del g_args, g_kw
     # cut_traffic on rows of the 6 240-task placement, one task moved a row:
-    # thousands of non-zero columns of X a row.
-    B, base_tm = 128, sweep_etg.task_machine()
-    Tc, utg = base_tm.size, sweep_etg.utg
-    tm = np.tile(base_tm, (B, 1))
-    tm[np.arange(B), rng.integers(0, Tc, B)] = rng.integers(0, m, B)
-    comp_c = sweep_etg.task_component()
-    cir = P.component_rates(utg, 1.0)
-    g_args, g_dist = cut_tensors(
-        torch, np, "cuda", (tm, comp_c, (cir / sweep_etg.n_instances)[comp_c],
-                            np.asarray(utg.alpha, dtype=np.float64), cir),
-        P.rack_distance_matrix(np.arange(m) % 6, 1.0, 2.0))
-    edges = utg.edges
+    # thousands of non-zero columns of X a row; on 16 380 machines, then on
+    # 8 100 through ``network_unit_load`` (the launch counted) beside the
+    # previous revision's kernel where its copy is built (PARENT_CUT_SOURCE).
+    cut_kw = dict(torch=torch, np=np, cut_ops=cut_ops, cut_kernel=cut_kernel)
+    host, edges, dist = wide_cut_shape(np, P, sweep_etg, wide, rng)
+    timings["cut_traffic"] = time_wide_cut(**cut_kw, host=host, edges=edges, dist=dist)
+    tm_c = host[0]
+    print(f"    scratch bytes at B=128: {timings['cut_traffic']['scratch_bytes']}; at B=65 520 "
+          f"(a 4-task refine's rows): "
+          f"{cut_kernel.launch_plan(65_520, tm_c.shape[1], edges, m)['scratch_bytes']}")
+    # The non-finite rule: an inf and a NaN in columns no task occupies.
+    g_args, g_dist = cut_tensors(torch, np, "cuda", tuple(x[:2] if np.ndim(x) == 2 else x
+                                                          for x in host), dist)
+    free = np.setdiff1d(np.arange(m), tm_c[:2])
+    g_dist[3, int(free[-1])] = float("inf")
+    g_dist[int(free[0]), int(free[len(free) // 2])] = float("nan")
     got = cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05)
+    again = cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05)
     want = cut_traffic_ref(*g_args, edges, g_dist, 0.05)
+    nan_at = torch.isnan(got).any(0).nonzero().flatten().tolist()
+    check(same_or_nan(torch, got, want) and same_or_nan(torch, got, again)
+          and nan_at == sorted((3, int(free[0]))),
+          "cut_traffic with non-finite unoccupied columns differs from its plain version")
+    lists = list_lengths(torch, np, cut_ops, g_args, edges, g_dist)
+    print(f"  cut_traffic B=2 m={m}, an inf in column {int(free[-1])} and a NaN in column "
+          f"{int(free[len(free) // 2])}, no task on either: NaN at machines {nan_at}, as its "
+          f"plain version (equal, rerun bit-identical); list lengths {lists}")
+    del g_dist, g_args, got, again, want
+    mid = P.paper_cluster(MID_COUNTS)
+    mid_etg = P.round_robin_schedule(P.linear_topology(), mid, np.array(WIDE_SWEEP_INSTANCES))
+    host, edges, dist = wide_cut_shape(np, P, mid_etg, mid, rng)
+    cut_ops.reset_launches()
+    net = P.cost_model.network_unit_load(*host, edges, dist, 0.05, device="cuda")
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "cut_traffic at the timed wide shape differs")
-    ms = time_cuda(lambda: cut_ops.cut_traffic(*g_args, edges, g_dist, 0.05))
-    plain_ms = time_cuda(lambda: cut_traffic_ref(*g_args, edges, g_dist, 0.05), reps=3)
-    k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
-    flops, dist_bytes = cut_work(np, tm, comp_c, edges, m)
-    n_bytes = sum(x.numel() * x.element_size() for x in g_args) + dist_bytes + B * m * 8
-    bound = _bound(flops / FP64_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-    plan = cut_kernel.launch_plan(B, Tc, k2, m)
-    timings["cut_traffic"] = dict(shape=f"B={B} T={Tc} m={m} K2={k2}, w tiles of "
-                                  f"{plan['w_tile']}", ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound[0], bound_by=bound[1], library_ms=None)
-    print(f"  cut_traffic B={B} T={Tc} m={m} ({k2} contracted rows a row, {dist_bytes // (8 * m)} "
-          f"machines hold tasks): {ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
-          f"({flops / 1e9:.1f} GFLOP and {n_bytes / 1e6:.1f} MB that the rows' non-zero columns "
-          f"need; {100 * bound[0] / ms:.2f}% of it), plain {plain_ms:.3f} ms; library_ms null")
-    print(f"    layout {plan['layout']}, {plan['threads']} threads, {plan['smem_bytes']} shared "
-          f"bytes, {plan['w_tile']}-machine by {plan['tile_columns']}-column distance tiles, "
-          f"{plan['tile_stages']} in flight; products by zero included, it does "
-          f"{2 * B * k2 * m * m / 1e9:.1f} GFLOP; " + _launch_text(
-              torch, flops, plan["blocks"], plan["blocks_per_sm"], plan["registers"],
-              plan["local_bytes"]))
-    del g_dist, g_args, got, want
+    launches["cut_traffic"] = cut_ops.LAUNCHES["cut_traffic"]
+    check(launches["cut_traffic"] == 1, "network_unit_load did not launch cut_traffic once")
+    timings["cut_traffic"]["mid_cluster"] = time_wide_cut(**cut_kw, host=host, edges=edges,
+                                                         dist=dist, entry=net,
+                                                         parent=parent_cut_kernel(torch))
+    del net
     operands, topo, scfg = scan_operands(sweep_etg, wide, traces, policies, cfg,
                                          torch.device("cuda"))
     ms = time_cuda(lambda: scan_ops.policy_scan(*operands, topo, scfg))
@@ -3735,8 +3884,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_modules = (kernel, cut_kernel, flash_kernel, decode_kernel, scan_kernel,
                       scan_policy_kernel)
-    with ThreadPoolExecutor(len(kernel_modules)) as pool:  # one nvcc per source, all at once
+    with ThreadPoolExecutor(len(kernel_modules) + 1) as pool:  # one nvcc per source, all at once
         builds = [pool.submit(k.load_library) for k in kernel_modules]
+        builds.append(pool.submit(parent_cut_kernel, torch))  # phase 22's, where a copy lies
         for build in builds:
             build.result()
     wall["build_s"] = time.perf_counter() - t0
@@ -3747,6 +3897,10 @@ def main() -> int:
         for line in info.get("log", "").splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  ptxas: {line.strip()}")
+    if PARENT_CUT_SOURCE.exists():
+        info = build_info(PARENT_CUT_SOURCE)
+        print(f"  built the copy {PARENT_CUT_SOURCE.relative_to(ROOT)} in "
+              f"{info.get('seconds', 0.0):.2f} s (phase 22 times it)")
     print(f"  all six built in {wall['build_s']:.2f} s")
 
     # [2] kernel against its plain version on the card ---------------------

@@ -66,24 +66,21 @@ def _tensors(tm, comp, uir, alpha, cir, edges, dist):
             edges, t(dist))
 
 
-def _kernel_twin(tm, comp, uir, alpha, cir, edges, dist, penalty, owners=32, chunk=64):
-    """The CUDA kernel's arithmetic in its order, one scalar at a time:
-    per task the sender output and receiver share; the masses of each row
-    in chunks of ``chunk`` tasks, each owner adding its own machines'
-    (w = g mod owners) tasks in increasing order; the distance contraction
-    over v = 0, 1, ...; the edges in order; the penalty."""
-    B, T = tm.shape
-    m = dist.shape[0]
-    send_slot, recv_slot, pairs = ops.edge_slots(edges, len(alpha))
+def _twin_masses(tm, comp, uir, alpha, cir, edges, m, owners, chunk):
+    """The kernel's steps 1-2, one scalar at a time: per task the sender
+    output and receiver share; the masses x[slot][w] of each row in chunks
+    of ``chunk`` tasks, each owner adding its own machines' (w = g mod
+    owners) tasks in increasing order. Returns (k2, each row's x)."""
+    send_slot, recv_slot, _ = ops.edge_slots(edges, len(alpha))
     k2 = sum(s >= 0 for s in send_slot) + sum(s >= 0 for s in recv_slot)
-    out = np.empty((B, m))
-    for b in range(B):
+    rows = []
+    for b in range(tm.shape[0]):
         c_row = comp[b] if comp.ndim == 2 else comp
         u_row = uir[b] if uir.ndim == 2 else uir
         x = [[0.0] * m for _ in range(k2)]
-        for t0 in range(0, T, chunk):
+        for t0 in range(0, tm.shape[1], chunk):
             for g in range(owners):
-                for t in range(t0, min(t0 + chunk, T)):
+                for t in range(t0, min(t0 + chunk, tm.shape[1])):
                     w, c = int(tm[b, t]), int(c_row[t])
                     if not 0 <= w < m or w % owners != g:
                         continue  # ids outside [0, m) match no machine
@@ -94,6 +91,32 @@ def _kernel_twin(tm, comp, uir, alpha, cir, edges, dist, penalty, owners=32, chu
                     if recv_slot[c] >= 0:
                         s = recv_slot[c]
                         x[s][w] = x[s][w] + (u / max(cc, 1e-300) if cc > 0.0 else 0.0)
+        rows.append(x)
+    return k2, rows
+
+
+def _twin_edges(x, y, pairs, m, penalty):
+    """Steps 4-5 of one row: the edges in order, then the penalty."""
+    out = np.empty(m)
+    with np.errstate(invalid="ignore"):  # 0 x inf where distance holds one
+        for w in range(m):
+            acc = 0.0
+            for sa, rb in pairs:
+                acc = acc + x[sa][w] * y[rb][w]
+                acc = acc + x[rb][w] * y[sa][w]
+            out[w] = acc * penalty
+    return out
+
+
+def _kernel_twin(tm, comp, uir, alpha, cir, edges, dist, penalty, owners=32, chunk=64):
+    """The one-block layouts' arithmetic in their order, one scalar at a
+    time: the masses (``_twin_masses``); the distance contraction over v =
+    0, 1, ...; the edges in order; the penalty."""
+    m = dist.shape[0]
+    k2, masses = _twin_masses(tm, comp, uir, alpha, cir, edges, m, owners, chunk)
+    pairs = ops.edge_slots(edges, len(alpha))[2]
+    out = np.empty((tm.shape[0], m))
+    for b, x in enumerate(masses):
         y = [[0.0] * m for _ in range(k2)]
         for s in range(k2):
             for w in range(m):
@@ -101,13 +124,45 @@ def _kernel_twin(tm, comp, uir, alpha, cir, edges, dist, penalty, owners=32, chu
                 for v in range(m):
                     acc = acc + x[s][v] * float(dist[w, v])
                 y[s][w] = acc
-        for w in range(m):
-            acc = 0.0
-            for sa, rb in pairs:
-                acc = acc + x[sa][w] * y[rb][w]
-                acc = acc + x[rb][w] * y[sa][w]
-            out[b, w] = acc * penalty
+        out[b] = _twin_edges(x, y, pairs, m, penalty)
     return out
+
+
+def _list_twin(tm, comp, uir, alpha, cir, edges, dist, penalty, group_rows):
+    """The list layout's arithmetic in its order: the masses as
+    ``list_masses_kernel`` adds them (4 warps of 32 lanes a row: owner w mod
+    128, chunks of 32 tasks); per group of ``group_rows`` rows and list, the
+    sorted columns where a row of the group holds a task of the list's
+    component, or where ``distance`` holds an inf or a NaN
+    (``ops.list_columns``); each Y[slot][w] summed over those columns alone,
+    in increasing v (a numpy product and sum a column, over all w at once:
+    each rounded once); the edges in order; the penalty."""
+    m = dist.shape[0]
+    k2, masses = _twin_masses(tm, comp, uir, alpha, cir, edges, m, 128, 32)
+    pairs = ops.edge_slots(edges, len(alpha))[2]
+    _, list_slots, _ = ops.contracted_lists(edges, len(alpha))
+    lists = ops.list_columns(tm, comp, edges, len(alpha), ~np.isfinite(dist).all(axis=0),
+                             group_rows)
+    out = np.empty((tm.shape[0], m))
+    for b, x in enumerate(masses):
+        y = [None] * k2
+        for cols, slots in zip(lists[b // group_rows], list_slots):
+            for s in slots:
+                if s >= 0:
+                    acc = np.zeros(m)
+                    with np.errstate(invalid="ignore"):
+                        for v in cols:
+                            acc = acc + x[s][v] * dist[:, v]
+                    y[s] = acc
+        out[b] = _twin_edges(x, y, pairs, m, penalty)
+    return out
+
+
+def _same_bits(a, b):
+    """Equal bit for bit where not NaN, and NaN in the same places."""
+    nan = np.isnan(a)
+    return bool(np.array_equal(nan, np.isnan(b)) and np.array_equal(
+        np.where(nan, 0.0, a).view(np.int64), np.where(nan, 0.0, b).view(np.int64)))
 
 
 @pytest.mark.parametrize("topology", list(TOPOLOGIES))
@@ -187,16 +242,130 @@ def test_wrapper_rejects_bad_operands():
         ops.cut_traffic(tm, comp[:-1], uir, alpha, cir, edges, dist)
 
 
-# Step 3's distance tiles span all m machines (padded to 64) up to
-# MAX_MACHINES = 232 448 // 16 // 64 * 64 = 14 528, where two one-column
-# tiles fill a block; past it, W_TILE = 9 x 64 = 576 machines at a time.
+# Step 3's distance tiles span all m machines (padded to 64) while X^T and
+# Y^T fit one block's shared memory: at K2 = 6 up to 1 600 machines, where
+# the kernel's Y^T-apart layout takes 2 x 1 600 x 6 x 8 bytes of X^T and Y^T
+# and three 2-column tiles of 1 602 doubles, 230 496 of 232 448 bytes
+# (1 601 machines pad to 1 664: 239 712). Past it, the list layout's tiles
+# of W_TILE = 128 machines.
 @pytest.mark.parametrize("m, tiles", [
-    (1, (64, 1)), (180, (192, 1)), (14_500, (14_528, 1)), (14_528, (14_528, 1)),
-    (14_529, (576, 26)), (16_380, (576, 29)), (17_280, (576, 30)),
+    (1, (64, 1)), (180, (192, 1)), (14_500, (128, 114)), (14_528, (128, 114)),
+    (14_529, (128, 114)), (16_380, (128, 128)), (17_280, (128, 135)),
 ])
 def test_distance_tiles_by_hand(m, tiles):
-    assert ops.MAX_MACHINES == 14_528 and ops.W_TILE == 576
-    assert ops.distance_tiles(m) == tiles
+    assert ops.W_TILE == 128 and ops.GROUP_ROWS == 32
+    assert ops.distance_tiles(m, 6) == tiles
+
+
+# The one-block layouts' last machine count by K2: 6 (the linear
+# topology), 18 (wide_fanout: Y^T apart, 2 x 640 x 18 x 8 + 3 x 2 x 642 x 8
+# = 215 136 bytes; 704 machines take 233 280) and 98 (fanout of 48: at 128
+# machines 2 x 128 x 102 x 8 + 9 216 = 218 112; at 192, 322 560).
+@pytest.mark.parametrize("k2, last", [(6, 1_600), (18, 640), (98, 128)])
+def test_one_block_boundary_by_hand(k2, last):
+    assert ops.one_block(last, k2) and not ops.one_block(last + 1, k2)
+    assert ops.distance_tiles(last + 1, k2) == (128, -(-(last + 1) // 128))
+
+
+def test_list_wave_by_hand():
+    """The list layout's scratch: X and Y of a wave's rows, 2 x 6 x 16 380
+    float64 a row (1 572 480 bytes), and a group's lists, bitmaps and
+    lengths, 4 x 4 x (16 380 + 512 + 1) int32 (270 288 bytes): 50 589 648
+    bytes a group of 32 rows; the non-finite columns' 512 words once. The
+    scratch stops growing with B at WAVE_BYTES // 50 589 648 = 7 groups."""
+    assert ops.WAVE_BYTES == 384 << 20
+    per_group = 32 * 1_572_480 + 270_288
+    assert ops.list_wave(128, 6, 16_380, 4) == (128, 4 * per_group + 2_048)
+    assert ops.list_wave(65_520, 6, 16_380, 4) == (224, 7 * per_group + 2_048)
+    assert ops.list_wave(1, 6, 16_380, 4) == (32, per_group + 2_048)
+    assert ops.list_wave(10**6, 6, 1_600, 4) == (0, 0)  # one block
+
+
+def test_contracted_lists_by_hand():
+    # linear: components 1 and 2 send and receive; 0 sends, 3 receives
+    assert ops.contracted_lists(((0, 1), (1, 2), (2, 3)), 4) == (
+        [2, 0, 1, 3], [(1, 3), (2, 4), (0, -1), (5, -1)], 2)
+    # star: 2 both ways; 0 and 1 send, 3 and 4 receive
+    assert ops.contracted_lists(((0, 2), (1, 2), (2, 3), (2, 4)), 5) == (
+        [1, 2, 0, 3, 4], [(2, 3), (0, -1), (1, -1), (4, -1), (5, -1)], 1)
+    # wide_fanout (18 slots): eight middle components both ways
+    list_of, slots, n2 = ops.contracted_lists(R.wide_fanout_topology().edges, 10)
+    assert (list_of, n2) == ([8, 0, 1, 2, 3, 4, 5, 6, 7, 9], 8)
+    assert slots[:8] == [(1 + i, 9 + i) for i in range(8)] and slots[8:] == [(0, -1), (17, -1)]
+
+
+def test_list_columns_by_hand():
+    """Two groups of two rows of the linear topology on 8 machines; column
+    6 of ``distance`` holds an inf, so every list holds it."""
+    tm = np.array([[0, 1, 2, 3], [0, 5, 2, 3], [4, 4, -1, 8], [7, 1, 1, 2]])
+    comp = np.array([0, 1, 2, 3])
+    flags = np.zeros(8, dtype=bool)
+    flags[6] = True
+    lists = ops.list_columns(tm, comp, ((0, 1), (1, 2), (2, 3)), 4, flags, group_rows=2)
+    assert [[c.tolist() for c in g] for g in lists] == [
+        [[1, 5, 6], [2, 6], [0, 6], [3, 6]],   # lists: components 1, 2, 0, 3
+        [[1, 4, 6], [1, 6], [4, 6, 7], [2, 6]],  # ids -1 and 8 match no machine
+    ]
+
+
+def _list_case(case, seed):
+    """A list-layout case of the linear topology (or wide_fanout) on m
+    machines: random per-row placements, or the case's shape."""
+    topology = "wide_fanout" if case == "wide_fanout" else "linear"
+    B, m = 7, 40 + 9 * seed
+    prob = list(_problem(seed, topology, B, m, "skew" if case == "skew" else "per_row",
+                         outside=case == "ids outside"))
+    tm, comp, uir, _, _, _, dist = prob
+    rng = np.random.default_rng(seed)
+    if case == "rows share columns":  # one placement, one task moved a row
+        tm[:] = tm[0]
+        tm[np.arange(B), rng.integers(0, tm.shape[1], B)] = rng.integers(0, m, B)
+    elif case == "rows share none":  # row b on machines [5 b, 5 b + 5)
+        tm[:] = 5 * np.arange(B)[:, None] + rng.integers(0, 5, size=tm.shape)
+    elif case.startswith("zero mass"):  # two tasks of one component cancel on machine 3
+        c = next(c for c in range(len(prob[3])) if (comp[0] == c).sum() > 1)
+        t0, t1 = np.flatnonzero(comp[0] == c)[:2]
+        tm[0][tm[0] == 3] = 4
+        tm[0, [t0, t1]] = 3
+        uir[0, t1] = -uir[0, t0]
+        if "inf" in case:
+            dist = dist.copy()
+            dist[5, 3] = np.inf
+    elif case in ("inf, unoccupied column", "nan, unoccupied column"):
+        tm[tm == 11] = 12
+        dist = dist.copy()
+        dist[4, 11] = np.inf if case.startswith("inf") else np.nan
+    prob[0], prob[2], prob[6] = tm, uir, dist
+    return prob
+
+
+LIST_CASES = ["per_row", "skew", "rows share columns", "rows share none", "zero mass",
+              "zero mass on an inf", "inf, unoccupied column", "nan, unoccupied column",
+              "ids outside", "wide_fanout"]
+
+
+@pytest.mark.parametrize("group_rows", [2, 3, 4])
+@pytest.mark.parametrize("case", LIST_CASES)
+def test_list_twin_bit_identical_to_plain_version(case, group_rows):
+    """The list layout's order (each Y[slot][w] over its group's listed
+    columns alone) gives the plain version's floats bit for bit, NaN where
+    it gives NaN."""
+    prob = _list_case(case, LIST_CASES.index(case))
+    plain = ops.cut_traffic(*_tensors(*prob), 0.3).numpy()
+    twin = _list_twin(*prob, 0.3, group_rows)
+    assert _same_bits(plain, twin)
+    assert np.isnan(plain).any() == ("inf" in case or "nan" in case)
+
+
+def test_list_twin_needs_the_nonfinite_columns():
+    """Without the non-finite columns in its lists the list order would miss
+    the plain version's NaN (0 x inf): the rule is needed."""
+    prob = _list_case("inf, unoccupied column", LIST_CASES.index("inf, unoccupied column"))
+    plain = ops.cut_traffic(*_tensors(*prob), 0.3).numpy()
+    lists = ops.list_columns(prob[0], prob[1], prob[5], len(prob[3]),
+                             np.zeros(prob[6].shape[0], dtype=bool), 2)
+    assert all(11 not in c for g in lists for c in g)
+    assert np.isnan(plain[:, 4]).all() and np.isfinite(np.delete(plain, 4, axis=1)).all()
 
 
 def test_edge_slots_order_sources_then_sinks():
@@ -276,6 +445,13 @@ def _wide_on_card(seed, topology, B, m, device, outside=False):
     return g_args, edges, dist
 
 
+def _same_on_card(a, b):
+    """Equal where not NaN, and NaN in the same places."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
 def _held_on_card(g_args, edges, dist):
     """The kernel against the plain version on the card (its sums have no
     atomics, so it is exact there), one launch, rerun bit-identical."""
@@ -287,51 +463,94 @@ def _held_on_card(g_args, edges, dist):
     want = cut_traffic_ref(*g_args, edges, dist, 0.05)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["cut_traffic"] == before + 2
-    assert torch.equal(got, want) and torch.equal(got, again)
+    assert _same_on_card(got, want) and torch.equal(got.view(torch.int64),
+                                                    again.view(torch.int64))
+    return got
+
+
+def _k2(edges):
+    return len({a for a, _ in edges}) + len({b for _, b in edges})
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_at_the_largest_machine_count(cuda_device):
-    """m = MAX_MACHINES: X^T and Y^T in the global scratch, one-column
-    distance tiles of all m machines, two in flight, unpadded rows."""
+    """m = 1 600, the largest count of the one-block layouts at K2 = 6: X^T
+    and Y^T in shared memory, Y^T apart, two-column distance tiles of all m
+    machines (230 496 of 232 448 bytes)."""
     from repro_torch.kernels.cut_traffic.kernel import launch_plan
 
-    m = ops.MAX_MACHINES
+    m = 1_600
     g_args, edges, dist = _wide_on_card(13, "linear", 2, m, cuda_device)
     _held_on_card(g_args, edges, dist)
-    plan = launch_plan(2, g_args[0].shape[1], 6, m)
-    assert (plan["layout"], plan["tile_columns"], plan["tile_stages"]) == (2, 1, 2)
-    assert plan["w_tile"] == m
+    plan = launch_plan(2, g_args[0].shape[1], edges, m)
+    assert (plan["layout"], plan["tile_columns"], plan["smem_bytes"]) == (1, 2, 230_496)
+    assert (plan["w_tile"], plan["scratch_bytes"]) == (m, 0) and ops.one_block(m, 6)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("topology, m, B, outside", [
-    ("diamond", 14_501, 3, False),   # past the old refusal: still the one-block tiles
-    ("linear", 16_380, 2, True),     # 20/70/90 x 91: w tiles, ids outside [0, m)
-    ("wide_fanout", 16_380, 1, False),  # 18 contracted rows: two rounds of warp tiles
+    ("diamond", 14_501, 3, False),   # the list layout: groups of 32 rows
+    ("linear", 16_380, 2, True),     # 20/70/90 x 91: ids outside [0, m)
+    ("wide_fanout", 16_380, 1, False),  # 18 contracted rows: 8 two-slot lists
 ])
 def test_cuda_kernel_past_the_one_block_tiles(cuda_device, topology, m, B, outside):
-    """Past the m whose distance tiles span all machines, the tiles split
-    along w (layout 3, ``distance_tiles``); each output still sums v in
-    increasing order: equal to the plain version."""
+    """Past the one-block layouts the list layout takes m: step 3 over each
+    group's listed columns, tiles of W_TILE machines (``distance_tiles``);
+    each output still sums v in increasing order: equal to the plain
+    version."""
     from repro_torch.kernels.cut_traffic.kernel import launch_plan
 
     g_args, edges, dist = _wide_on_card(17, topology, B, m, cuda_device, outside)
     _held_on_card(g_args, edges, dist)
-    k2 = len({a for a, _ in edges}) + len({b for _, b in edges})
-    plan = launch_plan(B, g_args[0].shape[1], k2, m)
-    assert plan["w_tile"] == ops.distance_tiles(m)[0]
-    assert plan["layout"] == (3 if m > ops.MAX_MACHINES else 2)
+    plan = launch_plan(B, g_args[0].shape[1], edges, m)
+    assert plan["w_tile"] == ops.distance_tiles(m, _k2(edges))[0] == ops.W_TILE
+    assert (plan["layout"], plan["rows"], plan["list_capacity"]) == (2, ops.GROUP_ROWS, m)
 
 
 @pytest.mark.cuda
-def test_wrapper_rejects_more_machines_than_the_kernel_holds(cuda_device):
-    """One machine past MAX_MACHINES the kernel takes its w tiles (there is
-    no limit left to reject): equal to the plain version."""
+def test_cuda_kernel_one_machine_past_the_one_block_layouts(cuda_device):
+    """One machine past the one-block layouts (1 601 at K2 = 6) the kernel
+    takes its lists: equal to the plain version."""
     from repro_torch.kernels.cut_traffic.kernel import launch_plan
 
-    m = ops.MAX_MACHINES + 1
+    m = 1_601
     g_args, edges, dist = _wide_on_card(2, "star", 2, m, cuda_device)
     _held_on_card(g_args, edges, dist)
-    plan = launch_plan(2, g_args[0].shape[1], 6, m)
-    assert (plan["layout"], plan["w_tile"]) == (3, ops.W_TILE)
+    plan = launch_plan(2, g_args[0].shape[1], edges, m)
+    assert (plan["layout"], plan["w_tile"]) == (2, ops.W_TILE) and not ops.one_block(m, 6)
+    n_lists = len(ops.contracted_lists(edges, 5)[1])
+    assert plan["scratch_bytes"] == ops.list_wave(2, 6, m, n_lists)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["about 2 000 machines", "inf and NaN in unoccupied columns",
+                                  "zero mass on an inf", "more rows than one wave"])
+def test_cuda_list_layout_matches_plain_version(cuda_device, case):
+    """The list layout where the one-block layouts end (2 000 machines at
+    K2 = 6), with non-finite columns of ``distance`` that no task occupies
+    (their 0 x inf is the plain version's NaN), with an inf on an occupied
+    column whose mass sums to zero, and with more rows than one wave of its
+    scratch (``ops.list_wave``): equal to the plain version, rerun
+    bit-identical."""
+    m = 2_000
+    wave_rows = ops.list_wave(1 << 30, 6, m, 4)[0]
+    B = {"more rows than one wave": wave_rows + 45}.get(case, 70)
+    g_args, edges, dist = _wide_on_card(19, "linear", B, m, cuda_device, outside=True)
+    tm, _, uir = g_args[:3]
+    if case == "inf and NaN in unoccupied columns":
+        tm[tm == 7] = 8
+        tm[tm == 1_999] = 8
+        dist[3, 7] = float("inf")
+        dist[5, 1_999] = float("nan")
+    elif case == "zero mass on an inf":  # two tasks of row 0 cancel on machine 7
+        comp0 = g_args[1][0].cpu().numpy()
+        c = next(c for c in range(4) if (comp0 == c).sum() > 1)
+        t0, t1 = (int(t) for t in np.flatnonzero(comp0 == c)[:2])
+        tm[0][tm[0] == 7] = 8
+        tm[0, [t0, t1]] = 7
+        uir[0, t1] = -uir[0, t0]
+        dist[2, 7] = float("inf")
+    got = _held_on_card(g_args, edges, dist)
+    assert torch.isnan(got).any() == (case != "about 2 000 machines"
+                                      and case != "more rows than one wave")
+    assert not ops.one_block(m, 6) and (B > wave_rows) == (case == "more rows than one wave")
