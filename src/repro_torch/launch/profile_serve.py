@@ -17,10 +17,14 @@ wall time (ended by a synchronise), the device busy time (the union of the
 kernels' and copies' intervals in the trace), the busy share, the device
 time and wrapper calls of each of the port's own kernels (B3 flash
 attention; B4 decode attention, its split and combine kernels summed; B5
-RG-LRU scan), the device time of each labelled stage (``STAGES``: a MoE
-layer's stages, xLSTM's recurrences, Whisper's encoder and
-cross-attention), and the kernels that took the most device time, then
-one JSON line with the same numbers.
+RG-LRU scan; the sLSTM recurrence), the device time of each labelled
+stage (``STAGES``: a MoE layer's stages, xLSTM's recurrences, Whisper's
+encoder and cross-attention), and the kernels that took the most device
+time, then
+one JSON line with the same numbers. A trace that holds no device
+activity, or fewer calls of a port kernel than its wrapper launched, is
+taken once more (``whole_trace``), both counts printed; a second short
+trace fails.
 Needs a card; there is no CPU mode.
 """
 
@@ -40,21 +44,23 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rglru_scan import ops as scan_ops
+from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.models import moe, xlstm
 from repro_torch.models import model as M
 
 __all__ = ["MOE_STAGES", "PORT_KERNELS", "STAGES", "stages", "port_call_ms", "profile_phase",
-           "main"]
+           "trace_shortfall", "whole_trace", "main"]
 
 # The port's hand-written kernels: the substring of every trace kernel name
 # whose device time is theirs, and that of the one kernel they launch once a
 # wrapper call (B4 launches a split and a combine kernel a call).
 PORT_KERNELS = {"flash_attention": "flash_attention",
                 "decode_attention": "decode_attention_combine",
-                "rglru_scan": "rglru_scan"}
+                "rglru_scan": "rglru_scan",
+                "slstm_scan": "slstm_scan"}
 # Their wrappers, by the same names.
 _PORT_OPS = {"flash_attention": flash_ops, "decode_attention": decode_ops,
-             "rglru_scan": scan_ops}
+             "rglru_scan": scan_ops, "slstm_scan": slstm_ops}
 
 
 # The stages of a MoE layer, by the function of ``models.moe`` that runs
@@ -64,10 +70,10 @@ MOE_STAGES = {"_route": "route", "_slot_tables": "dispatch", "_dispatch": "dispa
               "_expert_ffn": "experts", "_combine": "combine", "mlp": "shared"}
 
 # Every labelled stage: (module, range prefix, {function: stage}). xLSTM's
-# recurrences (the mLSTM chunk loop, its one-token update, the sLSTM time
-# loop; torch ops, no kernel of the port) and Whisper's encoder (its B3
-# launches included) and cross-attention sub-layer (the norm, the k/v
-# projections of the frames, B3 or B4) beside the MoE stages.
+# recurrences (the mLSTM chunk loop and its one-token update, torch ops; the
+# sLSTM time loop, the ``slstm_scan`` kernel on the card) and Whisper's
+# encoder (its B3 launches included) and cross-attention sub-layer (the
+# norm, the k/v projections of the frames, B3 or B4) beside the MoE stages.
 STAGES = (
     (moe, "moe", MOE_STAGES),
     (xlstm, "xlstm", {"_mlstm_chunk_parallel": "mlstm_chunks", "_mlstm_decode": "mlstm_decode",
@@ -138,29 +144,75 @@ def port_call_ms(spans, key: str, once: str) -> list[float]:
     return calls
 
 
-def profile_phase(fn, top: int = 8, kernels: dict[str, str] = PORT_KERNELS) -> dict:
-    """Run ``fn`` once under the profiler; wall and device-busy seconds, the
+def trace_shortfall(spans, launched, kernels: dict[str, str]) -> str | None:
+    """What a trace lacks, or None where it is whole: device activity, and
+    for each of ``kernels`` (named as in ``PORT_KERNELS``) as many calls
+    (``port_call_ms``) in ``spans`` as its wrapper noted launches in
+    ``launched`` ((kernel, range) pairs)."""
+    if not spans:
+        return "the profiler recorded no device activity"
+    short = []
+    for key, once in kernels.items():
+        noted = sum(1 for k, _ in launched if k == key)
+        traced = len(port_call_ms(spans, key, once))
+        if noted and traced != noted:
+            short.append(f"{key}: {noted} launches noted, {traced} in the trace")
+    return "; ".join(short) or None
+
+
+def whole_trace(trace, kernels: dict[str, str], again=None):
+    """``trace()`` profiles a run once and returns (spans, launched,
+    record). Where that trace falls short (``trace_shortfall``: records the
+    profiler dropped), ``again()`` (where given) restores what the run
+    changed and the run is profiled once more; both counts are printed.
+    Returns the record of the whole trace; raises, naming both shortfalls,
+    where the second trace falls short too."""
+    spans, launched, record = trace()
+    first = trace_shortfall(spans, launched, kernels)
+    if first is None:
+        return record
+    print(f"  profiler: the trace fell short ({first}); profiling once more", flush=True)
+    if again is not None:
+        again()
+    spans, launched, record = trace()
+    second = trace_shortfall(spans, launched, kernels)
+    if second is not None:
+        raise RuntimeError(f"the profiler's trace fell short twice: first {first}; then {second}")
+    counts = ", ".join(f"{key} {len(port_call_ms(spans, key, once))}"
+                       for key, once in kernels.items() if any(k == key for k, _ in launched))
+    print(f"  profiler: the second trace is whole ({len(spans)} device activities"
+          + (f"; calls {counts}" if counts else "") + ")", flush=True)
+    return record
+
+
+def profile_phase(fn, top: int = 8, kernels: dict[str, str] = PORT_KERNELS, again=None) -> dict:
+    """Run ``fn`` under the profiler; wall and device-busy seconds, the
     device time and calls of each of ``kernels`` (named as in
     ``PORT_KERNELS``), and the device time under each ``<prefix>.<stage>``
     range of ``STAGES`` (``stages``; empty without one): its torch ops'
-    and the port kernels it launched."""
+    and the port kernels it launched. A trace that falls short is taken
+    once more (``whole_trace``), after ``again()`` where given (a decode
+    run's prefill: the cache has room for one run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _LAUNCHED.clear()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    def trace():
+        _LAUNCHED.clear()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # A profiler range also shows on the device's timeline, spanning its
-    # kernels and the gaps between them: it is no device activity.
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    if not spans:
-        raise RuntimeError("the profiler recorded no device activity")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # A profiler range also shows on the device's timeline, spanning its
+        # kernels and the gaps between them: it is no device activity.
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False))
+        launched = list(_LAUNCHED)
+        return spans, launched, (prof, spans, launched, wall)
+
+    prof, spans, launched, wall = whole_trace(trace, kernels, again)
     busy_us, end = 0.0, float("-inf")
     by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
     for start, stop, name in spans:
@@ -178,16 +230,11 @@ def profile_phase(fn, top: int = 8, kernels: dict[str, str] = PORT_KERNELS) -> d
         if e.device_type == DeviceType.CPU and e.name.startswith(prefixes):
             stage_ms[e.name] += e.device_time_total * 1e-3
     for key, once in kernels.items():
-        in_stage = [stage for k, stage in _LAUNCHED if k == key]
-        if not any(in_stage):
-            continue
-        per_call = port_call_ms(spans, key, once)
-        if len(per_call) != len(in_stage):
-            raise RuntimeError(f"{key}: {len(in_stage)} launches noted, {len(per_call)} in the "
-                               f"trace")
-        for stage, ms in zip(in_stage, per_call):
-            if stage is not None:
-                stage_ms[stage] += ms
+        in_stage = [stage for k, stage in launched if k == key]
+        if any(in_stage):
+            for stage, ms in zip(in_stage, port_call_ms(spans, key, once)):
+                if stage is not None:
+                    stage_ms[stage] += ms
     return dict(wall_s=wall, device_busy_s=busy_us * 1e-6, busy_share=busy_us * 1e-6 / wall,
                 launches=len(spans), port_kernels=port, stages_ms=dict(stage_ms),
                 top=[dict(name=n[:80], device_ms=t * 1e-3, calls=c) for n, (t, c) in ranked])
@@ -241,7 +288,7 @@ def main(argv: list[str] | None = None) -> None:
            "steps": steps}
     for name, fn in (("prefill", prefill), ("decode", decode)):
         with stages():
-            out[name] = res = profile_phase(fn)
+            out[name] = res = profile_phase(fn, again=prefill if fn is decode else None)
         print(f"[{name}] wall {res['wall_s']:.4f} s, device busy {res['device_busy_s']:.4f} s "
               f"({100 * res['busy_share']:.1f}%), {res['launches']} device activities")
         print("  port kernels: " + ", ".join(f"{k} {v['device_ms']:.3f} ms x{v['calls']}"

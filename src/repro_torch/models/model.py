@@ -51,7 +51,9 @@ computation the reference differentiates, never B3 or B4, which have no
 backward. With ``remat=True`` every repeat of a segment and every loss
 chunk runs in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
 under ``cfg.remat``; the port's config keeps no ``remat`` field, so the
-caller passes it). RG-LRU blocks train through B5 and its backward kernel.
+caller passes it). RG-LRU blocks train through B5 and its backward kernel;
+sLSTM blocks through the plain time loop (the ``slstm_scan`` kernel serves
+and has no backward).
 Serving drops the aux loss, as the reference's ``prefill`` and
 ``decode_step`` do.
 
@@ -305,9 +307,11 @@ def _apply_block(p: dict, sig: Signature, x: torch.Tensor, cfg: ModelConfig, cac
     if ctx.gather_weights:
         p = ctx.gather_params(p)  # ZeRO-3 use-site weight gather (MeshCtx)
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
-    if sig.kind in ("mlstm", "slstm"):
-        block = xlstm_lib.mlstm_block if sig.kind == "mlstm" else xlstm_lib.slstm_block
-        y, new_cache = block(p["cell"], h, cfg, state=cache, ctx=ctx)
+    if sig.kind == "mlstm":
+        y, new_cache = xlstm_lib.mlstm_block(p["cell"], h, cfg, state=cache, ctx=ctx)
+        return x + y, new_cache, None
+    if sig.kind == "slstm":
+        y, new_cache = xlstm_lib.slstm_block(p["cell"], h, cfg, state=cache, ctx=ctx, train=train)
         return x + y, new_cache, None
     if sig.kind == "rglru":
         y, new_cache = rglru_lib.rglru_block(p["rec"], h, cfg, state=cache, ctx=ctx)

@@ -16,13 +16,18 @@ chunks where the JAX package runs ``lax.scan``; the state carries from
 chunk to chunk as ``C[v_dim, k_dim]``, ``n`` and ``m``. At S >= 256 that
 is not a multiple of ``S // 256`` (513, say) the reference's reshape
 fails; the port raises a ``ValueError`` there and does not pad. A decode
-step (S == 1) is the one-token update. sLSTM (a recurrence through
-h_{t-1} that is not diagonal) runs a Python loop over time in both modes.
+step (S == 1) is the one-token update.
 
-The recurrences are eager torch ops, float32 throughout, with the
-reference's stabilisers and its -1e30 mask fill; no hand-written kernel
-replaces them (they are XLA loops, not Pallas kernels, in the reference).
-Both blocks return a new state only when one was passed in.
+sLSTM (a recurrence through h_{t-1} that is not diagonal) runs its whole
+time loop, in both modes, in one launch of the hand-written
+``kernels/slstm_scan`` kernel on the card (the reference's ``lax.scan``;
+``_slstm_scan`` dispatches); on the CPU and on the training route
+(``train=True``, which needs autograd) it runs the plain loop of
+``kernels/slstm_scan/ref.py``.
+
+The mLSTM recurrence is eager torch ops. Both are float32 throughout, with
+the reference's stabilisers and its -1e30 mask fill. Both blocks return a
+new state only when one was passed in.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.kernels.slstm_scan import ops as slstm_ops
+from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MeshCtx, dense, per_shard, init_dense, rms_norm
 
@@ -252,17 +259,19 @@ def init_slstm_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype)
     }
 
 
-def _slstm_scan(zx, ix, fx, ox, rw, st: SLSTMState):
+def _slstm_scan(zx, ix, fx, ox, rw, st: SLSTMState, train: bool = False):
     """The time loop. Gate inputs (B, S, d) float32, ``rw`` (d, d) float32.
-    Returns (h (B, S, d), state after the last step)."""
-    c, n, h, m = st.c, st.n, st.h, st.m
-    # Elementwise in the input alone, so computed for every step at once.
-    log_f, o = per_shard(F.logsigmoid, fx), torch.sigmoid(ox)
+    Returns (h (B, S, d), state after the last step). Meta tensors: shapes
+    only; the training route (``train``): the plain loop, which autograd
+    differentiates; otherwise ``slstm_ops.slstm_scan``: the kernel on CUDA
+    tensors, the plain loop on CPU tensors."""
     if zx.device.type == "meta":
         # Shapes only (the dry-run, where a meta operation costs a Python
         # call): every step's product and update at once, the operations
         # the loop runs S times on (B, d) run once on (B, S, d); the
         # previous output stands in for h_{t-1}, whose values meta lacks.
+        c, n, h, m = st.c, st.n, st.h, st.m
+        log_f, o = per_shard(F.logsigmoid, fx), torch.sigmoid(ox)
         prev = torch.cat([h[:, None], zx[:, :-1]], dim=1)
         zt = torch.tanh(zx + prev @ rw)
         m_all = torch.maximum(log_f + m[:, None], ix)
@@ -270,25 +279,17 @@ def _slstm_scan(zx, ix, fx, ox, rw, st: SLSTMState):
         c_all, n_all = f_p * c[:, None] + i_p * zt, f_p * n[:, None] + i_p
         hs = o * c_all / n_all.clamp_min(1.0)
         return hs, SLSTMState(c=c_all[:, -1], n=n_all[:, -1], h=hs[:, -1], m=m_all[:, -1])
-    hs = []
-    for t in range(zx.shape[1]):
-        zt = torch.tanh(zx[:, t] + h @ rw)
-        m_new = torch.maximum(log_f[:, t] + m, ix[:, t])
-        i_p = torch.exp(ix[:, t] - m_new)
-        f_p = torch.exp(log_f[:, t] + m - m_new)
-        c = f_p * c + i_p * zt
-        n = f_p * n + i_p
-        h = o[:, t] * c / n.clamp_min(1.0)
-        m = m_new
-        hs.append(h)
-    return torch.stack(hs, dim=1), SLSTMState(c=c, n=n, h=h, m=m)
+    scan = slstm_scan_ref if train else slstm_ops.slstm_scan
+    hs, c, n, h, m = scan(zx, ix, fx, ox, rw, *(t.contiguous() for t in (st.c, st.n, st.h, st.m)))
+    return hs, SLSTMState(c=c, n=n, h=h, m=m)
 
 
-def _slstm_scan_local(ctx: MeshCtx, zx, ix, fx, ox, rw, st: SLSTMState):
+def _slstm_scan_local(ctx: MeshCtx, zx, ix, fx, ox, rw, st: SLSTMState, train: bool = False):
     """``_slstm_scan`` over a mesh: the time loop on each rank's batch
     shard through ``local_map``, the gates' features and the recurrent
     matrix whole on every rank (the recurrence mixes every feature each
-    step); the loop then dispatches local operations, not DTensor ones."""
+    step); the loop then dispatches local operations, not DTensor ones
+    (on the card the kernel, on the training route the plain loop)."""
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
 
@@ -297,7 +298,7 @@ def _slstm_scan_local(ctx: MeshCtx, zx, ix, fx, ox, rw, st: SLSTMState):
     rep_pl = list(ctx.placements(rw.shape, (None, None)))
 
     def body(zx, ix, fx, ox, rw, c, n, h, m):
-        hs, out = _slstm_scan(zx, ix, fx, ox, rw, SLSTMState(c=c, n=n, h=h, m=m))
+        hs, out = _slstm_scan(zx, ix, fx, ox, rw, SLSTMState(c=c, n=n, h=h, m=m), train)
         return hs, out.c, out.n, out.h, out.m
 
     # The recurrent matrix's gradient is each rank's sum over its own batch
@@ -319,14 +320,17 @@ def slstm_block(
     cfg: ModelConfig,
     state: SLSTMState | None = None,
     ctx: MeshCtx = MeshCtx(),
+    train: bool = False,
 ) -> tuple[torch.Tensor, SLSTMState | None]:
+    """``train``: the training route, whose time loop autograd
+    differentiates (the plain loop; the kernel has no backward)."""
     B = x.shape[0]
     zx, ix, fx, ox = (dense(p[w], x).float() for w in ("w_z", "w_i", "w_f", "w_o"))
     rw = p["r_z"]["w"].float()
     st = state if state is not None else init_slstm_state(B, cfg, device=x.device)
     if ctx.mesh is None:
-        hs, new_state = _slstm_scan(zx, ix, fx, ox, rw, st)
+        hs, new_state = _slstm_scan(zx, ix, fx, ox, rw, st, train)
     else:
-        hs, new_state = _slstm_scan_local(ctx, zx, ix, fx, ox, rw, st)
+        hs, new_state = _slstm_scan_local(ctx, zx, ix, fx, ox, rw, st, train)
     out = ctx.shard_tokens(hs.to(x.dtype))
     return dense(p["w_out"], out), (new_state if state is not None else None)

@@ -48,7 +48,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys, repro_torch.core, repro_torch.kernels.sched_scoring.ops,"
         " repro_torch.kernels.cut_traffic.ops, repro_torch.launch.profile_refine,"
         " repro_torch.kernels.flash_attention.ops, repro_torch.kernels.decode_attention.ops,"
-        " repro_torch.kernels.rglru_scan.ops, repro_torch.models.rglru,"
+        " repro_torch.kernels.rglru_scan.ops, repro_torch.kernels.slstm_scan.ops,"
+        " repro_torch.kernels.slstm_scan.kernel, repro_torch.models.rglru,"
         " repro_torch.models.moe, repro_torch.models.mla, repro_torch.models.attention,"
         " repro_torch.configs.granite_moe_1b_a400m, repro_torch.configs.deepseek_v3_671b,"
         " repro_torch.models.xlstm, repro_torch.configs.xlstm_125m,"

@@ -1,0 +1,174 @@
+"""The sLSTM recurrence's plain version, its dispatcher and its wrapper on
+the CPU, against the JAX package.
+
+At ``xlstm-125m``'s reduced config (d_model 64), B = 2, float32:
+``ref.slstm_scan_ref`` against the ``lax.scan`` of
+``repro.models.xlstm.slstm_block``, which the test isolates by giving the
+block an identity ``w_out`` (so its output is the scan's h, exactly) and
+handing the port the gate pre-activations the reference's own ``dense``
+computed. S = 12 and 512, from a zero state and from the state a 12-token
+prompt left: every output and state within atol = rtol = 1e-5 (the
+tolerance of ``tests/test_torch_xlstm.py``). The dispatcher
+(``models.xlstm._slstm_scan``) on CPU tensors is ``ref.py`` bit for bit and
+launches nothing; the wrapper refuses wrong shapes, types and devices by
+name. The kernel itself runs only on the card:
+``tests/test_torch_slstm_scan_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import layers as jax_layers
+from repro.models import xlstm as jax_xlstm
+from repro.models.layers import MeshCtx
+from repro_torch.configs import get_config
+from repro_torch.kernels.slstm_scan import ops as slstm_ops
+from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+from repro_torch.models import xlstm
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+CTX = MeshCtx(mesh=None)
+B = 2
+
+
+@pytest.fixture(scope="module")
+def block():
+    """The reference's sLSTM parameters (reduced config), random biases,
+    and an identity output projection."""
+    jcfg = jax_get_config("xlstm-125m").reduced()
+    p = jax.tree.map(np.asarray, jax_xlstm.init_slstm_block(jax.random.PRNGKey(3), jcfg,
+                                                            jnp.float32))
+    rng = np.random.default_rng(3)
+    for name in ("w_z", "w_i", "w_f", "w_o"):
+        p[name]["b"] = rng.standard_normal(p[name]["b"].shape).astype(np.float32)
+    p["w_out"] = {"w": np.eye(jcfg.d_model, dtype=np.float32)}
+    return jcfg, p
+
+
+def _x(seed, S, d):
+    return np.random.default_rng(seed).standard_normal((B, S, d)).astype(np.float32)
+
+
+def _jax_scan(jcfg, p, x, state):
+    """The reference's gate pre-activations, and its scan's (hs, state)."""
+    jp = jax.tree.map(jnp.asarray, p)
+    gates = [np.asarray(jax_layers.dense(jp[w], jnp.asarray(x)), np.float32)
+             for w in ("w_z", "w_i", "w_f", "w_o")]
+    hs, st = jax_xlstm.slstm_block(jp, jnp.asarray(x), CTX, jcfg, state=state)
+    return gates, np.asarray(hs), st
+
+
+def _state(jcfg, p, start):
+    if start == "zero":
+        return jax_xlstm.init_slstm_state(B, jcfg, jnp.float32)
+    _, _, st = _jax_scan(jcfg, p, _x(7, 12, jcfg.d_model), jax_xlstm.init_slstm_state(
+        B, jcfg, jnp.float32))
+    return st
+
+
+def _args(gates, rw, st):
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))  # noqa: E731
+    return (*(t(g) for g in gates), t(rw), *(t(getattr(st, k)) for k in ("c", "n", "h", "m")))
+
+
+@pytest.mark.parametrize("S", [12, 512])
+@pytest.mark.parametrize("start", ["zero", "carried"])
+def test_plain_version_matches_the_references_scan(block, start, S):
+    jcfg, p = block
+    st = _state(jcfg, p, start)
+    gates, want_hs, want = _jax_scan(jcfg, p, _x(S, S, jcfg.d_model), st)
+    hs, c, n, h, m = slstm_scan_ref(*_args(gates, p["r_z"]["w"], st))
+    assert hs.shape == (B, S, jcfg.d_model)
+    np.testing.assert_allclose(hs.numpy(), want_hs, **TOL)
+    for got, name in ((c, "c"), (n, "n"), (h, "h"), (m, "m")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(want, name)), **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 12])
+def test_dispatcher_on_the_cpu_is_the_plain_version(block, S):
+    jcfg, p = block
+    st = _state(jcfg, p, "carried")
+    gates, _, _ = _jax_scan(jcfg, p, _x(20 + S, S, jcfg.d_model), st)
+    args = _args(gates, p["r_z"]["w"], st)
+    slstm_ops.reset_launches()
+    hs, state = xlstm._slstm_scan(*args[:5], xlstm.SLSTMState(*args[5:]))
+    want = slstm_scan_ref(*args)
+    for got, exp in zip((hs, state.c, state.n, state.h, state.m), want):
+        assert torch.equal(got, exp)
+    assert slstm_ops.LAUNCHES == {"slstm_scan": 0}
+
+
+def test_training_route_is_the_plain_loop_and_differentiable(block):
+    """``slstm_block(train=True)`` runs the loop (autograd's route); its
+    output equals the serving route's on the CPU, and gradients reach the
+    recurrent matrix."""
+    _, p = block
+    cfg = get_config("xlstm-125m").reduced()
+    tp = {k: {kk: torch.from_numpy(np.array(v)) for kk, v in d.items()} for k, d in p.items()}
+    tp["r_z"]["w"].requires_grad_(True)
+    x = torch.from_numpy(_x(5, 12, cfg.d_model))
+    y_train, _ = xlstm.slstm_block(tp, x, cfg, train=True)
+    with torch.no_grad():
+        y_serve, _ = xlstm.slstm_block(tp, x, cfg)
+    assert torch.equal(y_train.detach(), y_serve)
+    (grad,) = torch.autograd.grad(y_train.square().sum(), tp["r_z"]["w"])
+    assert grad.shape == (cfg.d_model, cfg.d_model) and bool(grad.abs().sum() > 0)
+
+
+def test_meta_tensors_make_shapes_only():
+    B_, S, d = 3, 5, 16
+    meta = lambda *shape: torch.empty(*shape, device="meta")  # noqa: E731
+    out = slstm_ops.slstm_scan(*(meta(B_, S, d) for _ in range(4)), meta(d, d),
+                               *(meta(B_, d) for _ in range(4)))
+    assert [tuple(t.shape) for t in out] == [(B_, S, d)] + [(B_, d)] * 4
+    assert all(t.device.type == "meta" for t in out)
+
+
+def _good(B_=2, S=3, d=8):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(B_, S, d, generator=g) for _ in range(4)] + [
+        torch.randn(d, d, generator=g)] + [torch.randn(B_, d, generator=g) for _ in range(4)]
+
+
+def _with(i, t):
+    args = _good()
+    args[i] = t
+    return args
+
+
+_REFUSALS = {
+    "zx not (B, S, d)": (lambda: _with(0, torch.zeros(2, 8)), ValueError, "zx must be"),
+    "ix shape": (lambda: _with(1, torch.zeros(2, 4, 8)), ValueError, "ix must be"),
+    "rw shape": (lambda: _with(4, torch.zeros(8, 7)), ValueError, "rw must be"),
+    "m shape": (lambda: _with(8, torch.zeros(3, 8)), ValueError, "m must be"),
+    "bfloat16 fx": (lambda: _with(2, torch.zeros(2, 3, 8, dtype=torch.bfloat16)), TypeError,
+                    "fx is torch.bfloat16"),
+    "float64 c": (lambda: _with(5, torch.zeros(2, 8, dtype=torch.float64)), TypeError,
+                  "c is torch.float64"),
+    "h on another device": (lambda: _with(7, torch.zeros(2, 8, device="meta")), ValueError,
+                            "h lies on meta"),
+    "ox not contiguous": (lambda: _with(3, torch.zeros(2, 8, 3).transpose(1, 2)), ValueError,
+                          "ox must be contiguous"),
+}
+
+
+@pytest.mark.parametrize("case", list(_REFUSALS))
+def test_wrapper_refuses_by_name(case):
+    make, exc, match = _REFUSALS[case]
+    slstm_ops.reset_launches()
+    with pytest.raises(exc, match=match):
+        slstm_ops.slstm_scan(*make())
+    assert slstm_ops.LAUNCHES == {"slstm_scan": 0}
+
+
+def test_wrapper_takes_cpu_tensors_without_a_launch():
+    slstm_ops.reset_launches()
+    args = _good()
+    got = slstm_ops.slstm_scan(*args)
+    for g, w in zip(got, slstm_scan_ref(*args)):
+        assert torch.equal(g, w)
+    assert slstm_ops.LAUNCHES == {"slstm_scan": 0}
