@@ -153,12 +153,17 @@ Phases (each raises on failure; nothing is caught):
    64), the plain sLSTM loop never on the card; one prefill and 8 decode
    steps under the profiler, with the device time of the mLSTM chunk loop
    and its one-token update (eager torch ops) and of the sLSTM time loop
-   (the kernel) and the busy share; (a') the ``slstm_scan`` kernel against
-   its plain version (within ``SLSTM_TOL``) at (8, 512, 768) and at S = 1,
-   each from a fresh state and from the state a prompt left, at
-   ``SLSTM_EDGES`` and with a NaN in one gate, and timed at the prefill's
-   and a decode step's shape beside its bound, its serial floor (the same
-   launch, its grid-wide barriers alone) and its plain version; (b) its
+   (the kernel) and the busy share; (a') the ``slstm_scan`` kernel in both
+   layouts (one thread-block cluster a group of rows, which the plan takes
+   for the prefill; the cooperative launch, which it takes for a decode
+   step), with each plan (C, R, resident clusters, shared bytes, registers
+   and spills), against its plain version (within ``SLSTM_TOL``) at (8, 512,
+   768) and at S = 1, each from a fresh state and from the state a prompt
+   left, at ``SLSTM_EDGES`` and with a NaN in one gate (reruns equal; the
+   cluster layout refuses d 4100 by name), timed at the prefill's and a
+   decode step's shape beside its bound, its serial floor (the same launch
+   without the arithmetic: the grid-wide barriers, or the cluster's h
+   exchange) and its plain version, and at ``SLSTM_STEPS``; (b) its
    full depth in float32 (TF32 off) on the card against the CPU, 2 x 512
    prompt tokens + 8 steps, the CPU fed the card's tokens: logits within
    ``F32_REL`` of their max-abs, argmax equal; then bf16 against float32
@@ -310,8 +315,9 @@ launches in phases 3-4, 12, 14 and 18, B2 and cut_traffic in phases 3-4,
 (qwen2-vl-72b) and 19 (the trained qwen1.5-0.5b), with recurrentgemma-2b's, granite's, whisper-tiny's and
 qwen2-vl-72b's own numbers in nested keys; whisper-tiny's holds its
 launches and each timed shape, qwen2-vl-72b's its timed shape;
-``slstm_scan`` counts xlstm-125m's launches in phase 16, its decode
-step's shape and both serial floors in its own keys), the
+``slstm_scan`` counts xlstm-125m's launches in phase 16, the prefill in
+the plan's layout at top level, a decode step in its plan's layout and
+both layouts' times and serial floors in its own keys), the
 card's ``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or away from the repository, it exits non-zero and
@@ -2290,15 +2296,24 @@ def profiled_serve(torch, M, cfg, params, B, P, steps, names, frames=None, first
     return profs[0][1], profs[1][1]
 
 
-# Phase 16's sLSTM kernel against its plain version: atol = rtol =
-# SLSTM_TOL (B5's), as its dot products sum in another order than cuBLAS
-# (the update itself rounds as the plain version's); the shapes past the
-# serving one (SLSTM_EDGES, (label, B, S, d)): a ragged column group, rows
-# past one staging tile (128 rows of d 64), k past one chunk with rw read
-# from global memory (d 4100), one feature.
+# Phase 16's sLSTM kernel against its plain version, in both layouts: atol =
+# rtol = SLSTM_TOL (B5's), as its dot products sum in another order than
+# cuBLAS (the update itself rounds as the plain version's); the shapes past
+# the serving one (SLSTM_EDGES, (label, B, S, d)): a ragged column group or
+# slice, rows past one staging tile, k past one chunk with rw read from
+# global memory (d 4100: past the cluster layout, which refuses it by name),
+# one feature, 9 rows (two a cluster), rows past the resident clusters, the
+# last d the cluster layout holds and the first it does not. SLSTM_STEPS: the
+# short calls where both layouts are timed, around the plan's
+# CLUSTER_MIN_STEPS.
 SLSTM_TOL = 1e-5
-SLSTM_EDGES = (("a ragged column group", 3, 7, 100), ("rows past a staging tile", 130, 3, 64),
-               ("k past one chunk, rw in global memory", 2, 3, 4100), ("one feature", 1, 2, 1))
+SLSTM_EDGES = (("a ragged column group or slice", 3, 7, 100),
+               ("rows past a staging tile", 130, 3, 64),
+               ("k past one chunk, rw in global memory", 2, 3, 4100), ("one feature", 1, 2, 1),
+               ("9 rows", 9, 5, 768), ("rows past the resident clusters", 130, 3, 768),
+               ("the widest d a cluster holds", 2, 3, 768),
+               ("a feature past the cluster layout", 2, 3, 769))
+SLSTM_STEPS = (1, 2, 3, 4)
 
 
 def slstm_inputs(torch, gen, B, S, d, rw=None, state=None):
@@ -2332,54 +2347,93 @@ def slstm_error(torch, what, got, want) -> float:
     return err
 
 
-def time_slstm(torch, slstm_ops, slstm_ref, args, what):
-    """The sLSTM kernel on ``args``: against its plain version, then timed
-    as ``time_scan`` times B5, with its serial floor (the same launch, its
-    S - 1 grid-wide barriers alone) and without a library call (no single
-    PyTorch call computes the recurrence). Returns (err, ms, plain_ms,
-    bound, None, floor_ms)."""
+def time_slstm(torch, slstm_ops, slstm_ref, args, what, layout, plain_ms=None):
+    """The sLSTM kernel on ``args`` in ``layout``: against its plain version,
+    then timed as ``time_scan`` times B5, with its serial floor (the same
+    launch without the arithmetic: the grid-wide barriers of the cooperative
+    layout, the h exchange of the cluster layout) and without a library call
+    (no single PyTorch call computes the recurrence). The plain version is
+    timed unless ``plain_ms`` is given. Returns (err, ms, plain_ms, bound,
+    None, floor_ms)."""
     from repro_torch.launch.timing import time_cuda
 
     B, S, d = args[0].shape
-    err = slstm_error(torch, what, slstm_ops.slstm_scan(*args), slstm_ref(*args))
-    ms = time_cuda(lambda: slstm_ops.slstm_scan(*args))
-    floor_ms = time_cuda(lambda: slstm_ops.serial_floor(*args))
-    plain_ms = time_cuda(lambda: slstm_ref(*args), reps=3 if S > 1 else 5)
+    err = slstm_error(torch, f"{what} ({layout} layout)",
+                      slstm_ops.slstm_scan(*args, layout=layout), slstm_ref(*args))
+    ms = time_cuda(lambda: slstm_ops.slstm_scan(*args, layout=layout))
+    floor_ms = time_cuda(lambda: slstm_ops.serial_floor(*args, layout=layout))
+    if plain_ms is None:
+        plain_ms = time_cuda(lambda: slstm_ref(*args), reps=3 if S > 1 else 5)
     n_bytes = 5 * B * S * d * 4 + d * d * 4 + 8 * B * d * 4  # 4 gates, hs; rw; state in, out
     flops = 2 * B * S * d * d  # h_{t-1} @ rw every step
     bound = _bound(flops / FP32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
-    print(f"  slstm_scan {what} B={B} S={S} d={d} float32: {ms:.4f} ms, bound {bound[0]:.4f} ms "
-          f"by {bound[1]} ({flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB; "
-          f"{100 * bound[0] / ms:.1f}% of it), serial floor {floor_ms:.4f} ms ({max(S - 1, 0)} grid-wide barriers), plain "
+    print(f"  slstm_scan {what} B={B} S={S} d={d} float32, {layout} layout: {ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB; "
+          f"{100 * bound[0] / ms:.1f}% of it), serial floor {floor_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms; library_ms null; max abs error {err:.3e}")
     return err, ms, plain_ms, bound, None, floor_ms
 
 
 def slstm_checks(torch, B, S, d):
     """Phase 16 (a'): the sLSTM kernel against its plain version on the
-    card at xlstm-125m's shapes, from a fresh state and from the state a
-    prompt left, at ``SLSTM_EDGES`` and with a NaN in one gate; timed at the
-    prefill's and a decode step's shape. Returns (max abs error, prefill
-    timing, decode timing)."""
+    card in both layouts at xlstm-125m's shapes, from a fresh state and from
+    the state a prompt left, at ``SLSTM_EDGES`` and with a NaN in one gate;
+    both timed at the prefill's and a decode step's shape with their serial
+    floors, and at ``SLSTM_STEPS``; the plan's layout checked the faster at
+    the prefill and a decode step. Returns (max abs error, {layout: (prefill
+    timing, decode timing)}, the plan's layout at the prefill, at a decode
+    step)."""
     from repro_torch.kernels.slstm_scan import kernel as slstm_kernel
     from repro_torch.kernels.slstm_scan import ops as slstm_ops
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+    from repro_torch.launch.timing import time_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     fresh = slstm_inputs(torch, gen, B, S, d)
     rw = fresh[4]
     left = slstm_scan_ref(*fresh)[1:]  # the state the prompt left
-    plan = slstm_kernel.launch_plan(B, d)
-    print(f"  slstm_scan launch at B={B} d={d}: {plan['grid']} blocks of 256 threads, all "
-          f"resident ({plan['blocks_per_sm']} a SM), {plan['groups_per_block']} group(s) of 8 "
-          f"columns a block, rw {'in shared memory' if plan['rw_resident'] else 'in global memory'}"
-          f", h staged {plan['rows']} rows x {plan['chunk']}, {plan['smem_bytes']} shared bytes; "
-          f"{plan['registers']} registers, {plan['local_bytes']} local (spilled) bytes a thread")
-    prefill = time_slstm(torch, slstm_ops, slstm_scan_ref, fresh, "prefill, fresh state")
-    decode = time_slstm(torch, slstm_ops, slstm_scan_ref,
-                        slstm_inputs(torch, gen, B, 1, d, rw, left),
-                        "decode step, the state a prompt left")
-    err = max(prefill[0], decode[0])
+    step = slstm_inputs(torch, gen, B, 1, d, rw, left)
+    attrs = slstm_kernel.device_attributes()
+    dev = slstm_ops.device()
+    print(f"  slstm_scan device: {attrs['sms']} SMs, {attrs['smem_optin']} opt-in shared bytes a "
+          f"block, cooperative launch {attrs['cooperative_launch']}, cluster launch "
+          f"{attrs['cluster_launch']}; resident clusters of C = 1..{len(dev.active_clusters)} "
+          f"blocks: {list(dev.active_clusters)}")
+    coop = slstm_kernel.launch_plan(B, d)
+    print(f"  slstm_scan cooperative layout at B={B} d={d}: {coop['grid']} blocks of 256 threads, "
+          f"all resident ({coop['blocks_per_sm']} a SM), {coop['groups_per_block']} group(s) of 8 "
+          f"columns a block, rw {'in shared memory' if coop['rw_resident'] else 'in global memory'}"
+          f", h staged {coop['rows']} rows x {coop['chunk']}, {coop['smem_bytes']} shared bytes; "
+          f"{coop['registers']} registers, {coop['local_bytes']} local (spilled) bytes a thread")
+    clu = slstm_ops.plan(B, S, d, dev, "cluster")
+    print(f"  slstm_scan cluster layout at B={B} d={d}: {clu['clusters']} clusters of C = "
+          f"{clu['C']} blocks of 384 threads ({clu['active_clusters']} resident at once, "
+          f"{clu['waves']} wave(s)), R = {clu['R']} rows a cluster, {clu['width']} columns a block "
+          f"(rw in registers), {clu['smem_bytes']} shared bytes; {attrs['registers']} registers, "
+          f"{attrs['local_bytes']} local (spilled) bytes a thread")
+    check(attrs["local_bytes"] == 0, "the cluster kernel spills registers")
+    chosen = (slstm_ops.plan(B, S, d, dev)["layout"], slstm_ops.plan(B, 1, d, dev)["layout"])
+    timings, plain = {}, {}
+    for layout in slstm_ops.LAYOUTS:
+        timings[layout] = (
+            time_slstm(torch, slstm_ops, slstm_scan_ref, fresh, "prefill, fresh state", layout,
+                       plain.get("prefill")),
+            time_slstm(torch, slstm_ops, slstm_scan_ref, step,
+                       "decode step, the state a prompt left", layout, plain.get("decode")))
+        plain = {"prefill": timings[layout][0][2], "decode": timings[layout][1][2]}
+    for what, i, layout in (("prefill", 0, chosen[0]), ("decode step", 1, chosen[1])):
+        other = next(x for x in slstm_ops.LAYOUTS if x != layout)
+        print(f"  slstm_scan {what}: the plan takes the {layout} layout, "
+              f"{timings[layout][i][1]:.4f} ms against {timings[other][i][1]:.4f} ms")
+        check(i == 1 or timings[layout][i][1] < timings[other][i][1],
+              f"the plan's {layout} layout is not the faster at the {what}")
+    for steps in SLSTM_STEPS:
+        args = slstm_inputs(torch, gen, B, steps, d, rw, left)
+        ms = {x: time_cuda(lambda: slstm_ops.slstm_scan(*args, layout=x))
+              for x in slstm_ops.LAYOUTS}
+        print(f"  slstm_scan at S = {steps}: " + ", ".join(f"{x} {v:.4f} ms" for x, v in ms.items())
+              + f"; the plan takes {slstm_ops.plan(B, steps, d, dev)['layout']}")
+    err = max(t[0] for pair in timings.values() for t in pair)
     cases = [("prefill, the state a prompt left", slstm_inputs(torch, gen, B, S, d, rw, left)),
              ("decode step, fresh state", slstm_inputs(torch, gen, B, 1, d, rw))]
     cases += [(label, slstm_inputs(torch, gen, b, s, w)) for label, b, s, w in SLSTM_EDGES]
@@ -2388,12 +2442,28 @@ def slstm_checks(torch, B, S, d):
     cases.append(("a NaN in one gate", nan))
     for label, args in cases:
         want = slstm_scan_ref(*args)
-        err = max(err, slstm_error(torch, label, slstm_ops.slstm_scan(*args), want))
         nans = int(torch.isnan(want[0]).sum())
         check(label != "a NaN in one gate" or nans > 0, "the NaN case made no NaN")
+        took = []
+        for layout in slstm_ops.LAYOUTS:
+            if layout == "cluster" and slstm_ops.cluster_size(args[0].shape[2]) is None:
+                try:
+                    slstm_ops.slstm_scan(*args, layout=layout)
+                except ValueError as e:
+                    check("cluster layout cannot take" in str(e), f"{label}: refused as {e}")
+                    took.append("cluster refuses it by name")
+                    continue
+                check(False, f"{label}: the cluster layout took d = {args[0].shape[2]}")
+            got = slstm_ops.slstm_scan(*args, layout=layout)
+            again = slstm_ops.slstm_scan(*args, layout=layout)
+            check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                      for x, y in zip(got, again)), f"{label} ({layout} layout): a rerun differs")
+            err = max(err, slstm_error(torch, f"{label} ({layout} layout)", got, want))
+            took.append(layout)
         print(f"  slstm_scan {label}, (B, S, d) {tuple(args[0].shape)}: within {SLSTM_TOL} of "
-              f"its plain version" + (f", NaN in the same {nans} outputs" if nans else ""))
-    return err, prefill, decode
+              f"its plain version, reruns equal ({', '.join(took)})"
+              + (f", NaN in the same {nans} outputs" if nans else ""))
+    return err, timings, chosen
 
 
 def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, flash_ref,
@@ -2446,7 +2516,7 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
 
     # (a') the sLSTM kernel against its plain version, and timed ------------------
     t0 = time.perf_counter()
-    slstm_err, slstm_prefill, slstm_decode = slstm_checks(torch, B, P, cfg.d_model)
+    slstm_err, slstm_times, slstm_chosen = slstm_checks(torch, B, P, cfg.d_model)
     wall["slstm_kernel_s"] = time.perf_counter() - t0
 
     # (b) xlstm's full depth, float32 and bf16, card against CPU --------------
@@ -2493,8 +2563,8 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
                                 causal=False)}),
         "decode_attention": (launches["decode_attention"], {
             "cross": time_decode(torch, F, decode_ops, decode_ref, B, Hw, Hw, S_enc, S_enc, D)}),
-        "slstm_scan": (xl_launches["slstm_scan"], dict(max_err=slstm_err, prefill=slstm_prefill,
-                                                   decode=slstm_decode)),
+        "slstm_scan": (xl_launches["slstm_scan"], dict(max_err=slstm_err, times=slstm_times,
+                                                   chosen=slstm_chosen)),
     }
     del params
     torch.cuda.empty_cache()
@@ -4479,14 +4549,23 @@ def main() -> int:
             rec["launches"] += launches
     # The sLSTM kernel: no TPU kernel; it replaces the reference's lax.scan.
     slstm_launches, slstm = whisper_timings["slstm_scan"]
+    # Top level: the prefill in the plan's layout; ``decode`` a decode step in
+    # the plan's layout; ``layouts`` both layouts at both shapes.
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    pre_layout, dec_layout = slstm["chosen"]
+    times = slstm["times"]
     rec = _record("slstm_scan", kernel_src.format("slstm_scan"), "src/repro/models/xlstm.py:312",
-                  slstm_launches, slstm["max_err"], slstm["prefill"][:5])
+                  slstm_launches, slstm["max_err"], times[pre_layout][0][:5])
     decode = _record("slstm_scan", rec["source"], rec["replaces"], slstm_launches,
-                     slstm["max_err"], slstm["decode"][:5])
-    rec.update(shape="B=8 S=512 d=768 float32", serial_floor_ms=slstm["prefill"][5],
-               decode={"shape": "B=8 S=1 d=768 float32", "serial_floor_ms": slstm["decode"][5],
-                       **{k: decode[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "library_ms")}})
+                     slstm["max_err"], times[dec_layout][1][:5])
+    rec.update(shape="B=8 S=512 d=768 float32", layout=pre_layout,
+               serial_floor_ms=times[pre_layout][0][5],
+               decode={"shape": "B=8 S=1 d=768 float32", "layout": dec_layout,
+                       "serial_floor_ms": times[dec_layout][1][5],
+                       **{k: decode[k] for k in keys}},
+               layouts={layout: {shape: {"ms": t[1], "serial_floor_ms": t[5]}
+                                 for shape, t in zip(("prefill", "decode"), pair)}
+                        for layout, pair in times.items()})
     records.append(rec)
     print(f"  slstm_scan: {slstm_launches} launches in phase 16 (xlstm-125m)")
 

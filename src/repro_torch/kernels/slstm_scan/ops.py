@@ -1,38 +1,172 @@
-"""Wrapper of the sLSTM recurrence kernel: checks, dispatch by device and
-launch counts.
+"""Wrapper of the sLSTM recurrence kernel: checks, the layout plan, dispatch
+by device and launch counts.
 
 ``slstm_scan(zx, ix, fx, ox, rw, c, n, h, m)`` runs an sLSTM block's time
 loop (``repro.models.xlstm.slstm_block``'s ``lax.scan``) and returns
 ``(hs, c, n, h, m)``: every step's output (B, S, d) and the state after
 the last step. On CUDA tensors it launches the hand-written kernel
-(``csrc/slstm_scan.cu``, one launch a call); on CPU tensors it runs the
-plain PyTorch version (``ref.py``). There is no fallback between the two:
-a launch that fails raises. On meta tensors it only makes the outputs'
-shapes. The kernel has no backward: on CUDA tensors that require grad
-under grad mode it raises, and the training route runs the plain loop
-(``models.xlstm.slstm_block(train=True)``).
+(``csrc/slstm_scan.cu``, one launch a call) in the layout ``plan`` names;
+on CPU tensors it runs the plain PyTorch version (``ref.py``). There is no
+fallback between the two or between the layouts: the layout is chosen
+before the launch, and a launch that fails raises. On meta tensors it only
+makes the outputs' shapes. The kernel has no backward: on CUDA tensors that
+require grad under grad mode it raises, and the training route runs the
+plain loop (``models.xlstm.slstm_block(train=True)``).
+
+The layouts (the source's header says how each runs):
+
+- ``"cluster"``: one thread-block cluster of C blocks a group of up to
+  ``MAX_ROWS`` rows, block c holding ``rw[:, its columns]`` in registers,
+  h exchanged through distributed shared memory and waited for on an
+  mbarrier of each block: no barrier across clusters. It takes d up to
+  ``MAX_CLUSTER_D`` (48 columns a block at most, C up to 16).
+- ``"cooperative"``: one cooperative launch over the whole card, a grid
+  barrier a step; every shape.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
+from repro_torch.kernels.slstm_scan.kernel import MAX_CLUSTER
 from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
 
-__all__ = ["LAUNCHES", "reset_launches", "serial_floor", "slstm_scan"]
+__all__ = ["CLUSTER_MIN_STEPS", "LAUNCHES", "LAYOUTS", "MAX_CLUSTER_D",
+           "MAX_ROWS", "MAX_WIDTH", "Device", "cluster_size", "cluster_smem", "column_split",
+           "device", "plan", "reset_launches", "serial_floor", "slice_width", "slstm_scan"]
 
 # Kernel launches since the last reset. Only a launch of the CUDA kernel
 # counts; the CPU path, empty inputs and the serial floor launch nothing
 # that counts.
 LAUNCHES = {"slstm_scan": 0}
 
+LAYOUTS = ("cluster", "cooperative")
+_LAYOUT_IDS = {"cooperative": 0, "cluster": 1}
+
+# The cluster kernel's shape (the constants of ``csrc/slstm_scan.cu``): 12
+# warps of 4 columns each hold 48 columns of rw a block; a lane holds 24
+# rows k of them, so k < 768; a lane updates one (row, column), so a
+# cluster takes at most 8 rows (more rows take more clusters).
+MAX_WIDTH = 48
+MAX_CLUSTER_D = 768
+MAX_ROWS = 8
+# Calls of fewer steps take the cooperative layout where both fit. At (8, S,
+# 768) on an H100 the cluster layout costs ~26 us to start (144 KiB of rw a
+# block) and ~1.6 us a step, the cooperative one ~14 us and ~5.8 us a step:
+# they cross near S = 3 (chip_smoke.py phase 16a' times both at S = 1 to 4
+# and 512).
+CLUSTER_MIN_STEPS = 3
+
 _GATES = ("zx", "ix", "fx", "ox")
 _STATE = ("c", "n", "h", "m")
+
+
+@dataclass(frozen=True)
+class Device:
+    """What the plan reads of a device: the opt-in shared bytes a block, and
+    ``active_clusters[C - 1]``: the clusters of C blocks of the cluster
+    kernel it holds at once (0 where it holds none)."""
+    smem_optin: int
+    active_clusters: tuple[int, ...]
 
 
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def slice_width(d: int, C: int) -> int:
+    """Columns a block of a cluster of C owns: ceil(d / C) rounded up to 4
+    (every slice starts on a 16-byte boundary); the last block the rest."""
+    return _ceil(_ceil(d, C), 4) * 4
+
+
+def column_split(d: int, C: int) -> list[tuple[int, int]]:
+    """(first column, width) of each block of a cluster of C: ``slice_width``
+    columns each, the last block the rest (none where the others hold all)."""
+    W = slice_width(d, C)
+    return [(min(c * W, d), max(0, min(W, d - c * W))) for c in range(C)]
+
+
+def cluster_size(d: int, largest: int = MAX_CLUSTER) -> int | None:
+    """The fewest blocks a cluster can split d columns over (at most
+    ``MAX_WIDTH`` a block, ``largest`` blocks), or None where no cluster of
+    the kernel holds d."""
+    if d > MAX_CLUSTER_D:
+        return None
+    C = _ceil(d, MAX_WIDTH)
+    return C if C <= largest else None
+
+
+def cluster_smem(R: int) -> int:
+    """Dynamic shared bytes of a cluster block of R rows: two mbarriers (16
+    bytes) and h double-buffered (2 R ``MAX_CLUSTER_D`` floats: every row
+    padded to the kernel's widest)."""
+    return 16 + 8 * R * MAX_CLUSTER_D
+
+
+def _cannot(d: int, why: str) -> ValueError:
+    return ValueError(f"the cluster layout cannot take d = {d}: {why}; the cooperative "
+                      f"layout takes every shape")
+
+
+def plan(B: int, S: int, d: int, dev: Device, layout: str | None = None) -> dict:
+    """The launch of a (B, S, d) call on ``dev``: ``layout`` forced, or the
+    cluster layout wherever it fits and the call has at least
+    ``CLUSTER_MIN_STEPS`` steps, else the cooperative one. A forced layout
+    that cannot take the shape raises, naming it.
+
+    The cluster layout's plan: C blocks a cluster (the fewest that hold d),
+    its ``columns`` (``column_split``), the device's ``active_clusters`` of
+    C, R rows a cluster (as few as the resident clusters allow, at most
+    ``MAX_ROWS`` and what shared memory holds, spread evenly over ``waves``
+    of resident clusters), ``clusters`` = ceil(B / R) and the shared bytes a
+    block."""
+    if layout is not None and layout not in LAYOUTS:
+        raise ValueError(f"unknown slstm_scan layout {layout!r}: one of {LAYOUTS}")
+    C = cluster_size(d, len(dev.active_clusters))
+    why = None
+    if C is None:
+        why = (f"a block holds at most {MAX_WIDTH} columns of rw over k < {MAX_CLUSTER_D}, "
+               f"a cluster at most {len(dev.active_clusters)} blocks")
+    elif dev.active_clusters[C - 1] < 1:
+        why = f"the device holds no cluster of {C} blocks"
+    elif cluster_smem(1) > dev.smem_optin:
+        why = f"one row needs more than the device's {dev.smem_optin} shared bytes a block"
+    if layout is None:
+        layout = "cluster" if why is None and S >= CLUSTER_MIN_STEPS else "cooperative"
+    if layout == "cooperative":
+        return {"layout": "cooperative"}
+    if why is not None:
+        raise _cannot(d, why)
+    active = dev.active_clusters[C - 1]
+    r_max = min(MAX_ROWS, (dev.smem_optin - 16) // (cluster_smem(1) - 16))
+    waves = _ceil(_ceil(B, r_max), active)
+    R = _ceil(B, waves * active)
+    return {"layout": "cluster", "C": C, "R": R, "clusters": _ceil(B, R), "waves": waves,
+            "active_clusters": active, "width": slice_width(d, C), "columns": column_split(d, C),
+            "smem_bytes": cluster_smem(R)}
+
+
+@functools.lru_cache(maxsize=None)
+def _device(index: int) -> Device:
+    from repro_torch.kernels.slstm_scan.kernel import device_attributes
+
+    attrs = device_attributes(index)
+    return Device(attrs["smem_optin"], attrs["active_clusters"])
+
+
+def device(index: int | None = None) -> Device:
+    """The plan's attributes of CUDA device ``index`` (the current one by
+    default), read once a process."""
+    return _device(torch.cuda.current_device() if index is None else index)
 
 
 def _check(zx, ix, fx, ox, rw, c, n, h, m) -> None:
@@ -60,36 +194,52 @@ def _check(zx, ix, fx, ox, rw, c, n, h, m) -> None:
         raise ValueError(f"slstm_scan runs on cpu, cuda or meta tensors, not {zx.device}")
 
 
+def _check_layout(layout: str | None, d: int) -> None:
+    """A forced layout's refusals that hold on every device."""
+    if layout is not None and layout not in LAYOUTS:
+        raise ValueError(f"unknown slstm_scan layout {layout!r}: one of {LAYOUTS}")
+    if layout == "cluster" and cluster_size(d) is None:
+        raise _cannot(d, f"a block holds at most {MAX_WIDTH} columns of rw over k < "
+                         f"{MAX_CLUSTER_D}, a cluster at most {MAX_CLUSTER} blocks")
+
+
 def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
-def _launch(zx, ix, fx, ox, rw, c, n, h, m, floor: bool):
+def _launch(zx, ix, fx, ox, rw, c, n, h, m, layout: str | None, floor: bool):
     from repro_torch.kernels.slstm_scan.kernel import load_library
 
     B, S, d = zx.shape
+    index = _device_index(zx)
+    p = plan(B, S, d, device(index), layout)
     hs = torch.empty_like(zx)
     out = [torch.empty_like(c) for _ in range(4)]
     err = load_library().slstm_scan_launch(
-        _device_index(zx), *(t.data_ptr() for t in (zx, ix, fx, ox, rw, c, n, h, m)),
-        hs.data_ptr(), *(t.data_ptr() for t in out), B, S, d, int(floor),
+        index, *(t.data_ptr() for t in (zx, ix, fx, ox, rw, c, n, h, m)),
+        hs.data_ptr(), *(t.data_ptr() for t in out), B, S, d, _LAYOUT_IDS[p["layout"]],
+        p.get("C", 0), p.get("R", 0), int(floor),
         torch.cuda.current_stream(zx.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"slstm_scan kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"slstm_scan kernel launch ({p['layout']} layout) failed with CUDA "
+                           f"error {err}")
     return hs, *out
 
 
 def slstm_scan(zx: torch.Tensor, ix: torch.Tensor, fx: torch.Tensor, ox: torch.Tensor,
                rw: torch.Tensor, c: torch.Tensor, n: torch.Tensor, h: torch.Tensor,
-               m: torch.Tensor):
+               m: torch.Tensor, layout: str | None = None):
     """(hs (B, S, d), c, n, h, m (B, d)) of the sLSTM time loop.
 
     zx, ix, fx, ox: the gate pre-activations (B, S, d); rw: the recurrent
     matrix (d, d); c, n, h, m: the entering state (B, d). All float32,
-    contiguous, on one device.
+    contiguous, on one device. ``layout`` forces the kernel's layout (one of
+    ``LAYOUTS``; ``plan`` chooses by default); a layout that cannot take the
+    shape raises on every device.
     """
     _check(zx, ix, fx, ox, rw, c, n, h, m)
+    _check_layout(layout, zx.shape[2])
     if zx.device.type == "meta":
         return torch.empty_like(zx), *(torch.empty_like(t) for t in (c, n, h, m))
     if zx.device.type == "cpu":
@@ -99,17 +249,20 @@ def slstm_scan(zx: torch.Tensor, ix: torch.Tensor, fx: torch.Tensor, ox: torch.T
                            "training runs the plain loop (slstm_block(train=True))")
     if zx.numel() == 0:  # no step, no row or no feature: nothing to launch
         return torch.empty_like(zx), *(t.clone() for t in (c, n, h, m))
-    hs, *state = _launch(zx, ix, fx, ox, rw, c, n, h, m, floor=False)
+    hs, *state = _launch(zx, ix, fx, ox, rw, c, n, h, m, layout, floor=False)
     LAUNCHES["slstm_scan"] += 1
     return hs, *state
 
 
-def serial_floor(zx, ix, fx, ox, rw, c, n, h, m) -> None:
-    """The kernel's serial floor on these CUDA inputs: the same launch with
-    the arithmetic removed, its S - 1 grid-wide barriers alone (timed beside
-    the kernel; not counted as a launch of it)."""
+def serial_floor(zx, ix, fx, ox, rw, c, n, h, m, layout: str | None = None) -> None:
+    """The kernel's serial floor on these CUDA inputs in ``layout`` (the
+    plan's by default): the same launch with the arithmetic removed, its
+    S - 1 barriers alone (grid-wide in the cooperative layout; a cluster's,
+    with the h exchange, in the cluster layout). Timed beside the kernel;
+    not counted as a launch of it."""
     _check(zx, ix, fx, ox, rw, c, n, h, m)
+    _check_layout(layout, zx.shape[2])
     if zx.device.type != "cuda":
         raise ValueError(f"the serial floor runs on CUDA tensors, not {zx.device}")
     if zx.numel():
-        _launch(zx, ix, fx, ox, rw, c, n, h, m, floor=True)
+        _launch(zx, ix, fx, ox, rw, c, n, h, m, layout, floor=True)

@@ -11,8 +11,10 @@ prompt left: every output and state within atol = rtol = 1e-5 (the
 tolerance of ``tests/test_torch_xlstm.py``). The dispatcher
 (``models.xlstm._slstm_scan``) on CPU tensors is ``ref.py`` bit for bit and
 launches nothing; the wrapper refuses wrong shapes, types and devices by
-name. The kernel itself runs only on the card:
-``tests/test_torch_slstm_scan_cuda.py``.
+name. The layout plan (``ops.plan``) is checked against the H100's
+attributes: which layout, cluster size C and rows R each shape gets, and
+that every column split covers each column once. The kernel itself runs
+only on the card: ``tests/test_torch_slstm_scan_cuda.py``.
 """
 
 import jax
@@ -172,3 +174,103 @@ def test_wrapper_takes_cpu_tensors_without_a_launch():
     for g, w in zip(got, slstm_scan_ref(*args)):
         assert torch.equal(g, w)
     assert slstm_ops.LAUNCHES == {"slstm_scan": 0}
+
+
+# The H100 80GB HBM3's attributes as ``kernel.device_attributes`` reads them
+# (chip_smoke.py phase 16a' prints them): 232 448 opt-in shared bytes a
+# block, and the clusters of C = 1 .. 16 blocks of the cluster kernel it holds
+# at once; only 7 of 16 blocks (its GPCs), not 8.
+H100 = slstm_ops.Device(
+    smem_optin=232448, active_clusters=(132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7))
+# The same card were it to hold 8 clusters of 16.
+EIGHT_16 = slstm_ops.Device(smem_optin=232448, active_clusters=H100.active_clusters[:15] + (8,))
+
+
+@pytest.mark.parametrize("dev,R,clusters", [(H100, 2, 4), (EIGHT_16, 1, 8)])
+def test_plan_of_the_xlstm_prefill(dev, R, clusters):
+    """xlstm-125m's prefill (8, 512, 768): the cluster layout, 16 blocks of
+    48 columns; two rows a cluster on the H100's 7 resident clusters of 16,
+    one where 8 fit."""
+    p = slstm_ops.plan(8, 512, 768, dev)
+    assert p["layout"] == "cluster" and p["C"] == 16 and p["width"] == 48
+    assert (p["R"], p["clusters"], p["waves"]) == (R, clusters, 1)
+    assert p["active_clusters"] == dev.active_clusters[15]
+    assert p["smem_bytes"] == slstm_ops.cluster_smem(R) <= dev.smem_optin
+
+
+@pytest.mark.parametrize("d", [768, 64])
+def test_plan_of_rows_past_the_resident_clusters(d):
+    """130 rows: more than one a cluster, at most ``MAX_ROWS``, the waves of
+    resident clusters evenly filled, every row in one cluster."""
+    p = slstm_ops.plan(130, 3, d, H100)
+    C = slstm_ops.cluster_size(d)
+    active = H100.active_clusters[C - 1]
+    assert p["layout"] == "cluster" and p["C"] == C
+    assert 1 < p["R"] <= slstm_ops.MAX_ROWS
+    assert p["clusters"] == -(-130 // p["R"]) and (p["clusters"] - 1) * p["R"] < 130
+    assert p["waves"] == -(-p["clusters"] // active)
+
+
+@pytest.mark.parametrize("d", [769, 4100])
+def test_plan_past_the_cluster_layout_is_the_cooperative_layout(d):
+    assert slstm_ops.cluster_size(d) is None
+    assert slstm_ops.plan(2, 3, d, H100) == {"layout": "cooperative"}
+
+
+@pytest.mark.parametrize("d", [1, 4, 47, 48, 49, 100, 200, 700, 765, 767, 768])
+def test_column_split_covers_every_column_once(d):
+    """Ragged slices (d = 1, d not a multiple of C, d one past a block):
+    each column in exactly one block, every slice 16-byte aligned and at
+    most ``MAX_WIDTH`` wide, no block empty."""
+    C = slstm_ops.cluster_size(d)
+    split = slstm_ops.column_split(d, C)
+    assert len(split) == C and C == -(-d // slstm_ops.MAX_WIDTH)
+    covered = [j for start, width in split for j in range(start, start + width)]
+    assert covered == list(range(d))
+    assert all(start % 4 == 0 and 0 < width <= slstm_ops.MAX_WIDTH for start, width in split)
+    assert slstm_ops.plan(2, 5, d, H100)["columns"] == split
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 512])
+def test_plan_by_steps(S):
+    """A decode step (S = 1) and calls of fewer than ``CLUSTER_MIN_STEPS``
+    steps take the cooperative layout; longer calls the cluster layout."""
+    want = "cluster" if S >= slstm_ops.CLUSTER_MIN_STEPS else "cooperative"
+    assert slstm_ops.plan(8, S, 768, H100)["layout"] == want
+    # Forced, either layout takes the step.
+    for layout in slstm_ops.LAYOUTS:
+        assert slstm_ops.plan(8, S, 768, H100, layout)["layout"] == layout
+
+
+_PLAN_REFUSALS = {
+    "cluster past 768 features": (dict(d=769, dev=H100, layout="cluster"),
+                                  "cluster layout cannot take d = 769"),
+    "cluster on a device with no cluster of 16": (
+        dict(d=768, dev=slstm_ops.Device(232448, H100.active_clusters[:15] + (0,)),
+             layout="cluster"), "holds no cluster of 16 blocks"),
+    "an unknown layout": (dict(d=768, dev=H100, layout="grid"), "unknown slstm_scan layout"),
+}
+
+
+@pytest.mark.parametrize("case", list(_PLAN_REFUSALS))
+def test_plan_refuses_a_forced_layout_by_name(case):
+    kw, match = _PLAN_REFUSALS[case]
+    with pytest.raises(ValueError, match=match):
+        slstm_ops.plan(2, 3, kw["d"], kw["dev"], kw["layout"])
+
+
+@pytest.mark.parametrize("layout,d,match", [("cluster", 769, "cluster layout cannot take d = 769"),
+                                            ("grid", 8, "unknown slstm_scan layout")])
+def test_wrapper_refuses_a_forced_layout_by_name(layout, d, match):
+    """On every device, before any dispatch: here on CPU tensors."""
+    slstm_ops.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        slstm_ops.slstm_scan(*_good(d=d), layout=layout)
+    assert slstm_ops.LAUNCHES == {"slstm_scan": 0}
+
+
+@pytest.mark.parametrize("layout", list(slstm_ops.LAYOUTS))
+def test_wrapper_takes_a_forced_layout_on_the_cpu_as_the_plain_version(layout):
+    args = _good()
+    for got, want in zip(slstm_ops.slstm_scan(*args, layout=layout), slstm_scan_ref(*args)):
+        assert torch.equal(got, want)
