@@ -3,7 +3,7 @@
 paper's main path, the LM serving paths, the streaming runtime, multi-tenant
 scheduling, the paper's reproduction, MoE serving, xLSTM, the Whisper
 encoder-decoder, qwen2-vl's backbone, the LM-serving planner, LM
-training and the mesh route on one NVIDIA GPU,
+training (xLSTM's too) and the mesh route on one NVIDIA GPU,
 holds every kernel against its plain PyTorch version, and prints the
 kernels' numbers.
 
@@ -261,8 +261,10 @@ Phases (each raises on failure; nothing is caught):
    a 1 x 1 ("data", "model") mesh on the card: one train step of
    qwen1.5-0.5b at full width and depth, of recurrentgemma-2b's first 3
    layers (exactly 4 B5 and 2 ``rglru_scan_bwd`` launches, inside
-   ``local_map``) and of granite-moe-1b-a400m's first 2 layers (the
-   ``a2a`` route), each through ``make_train_step(mesh=...)`` on DTensors
+   ``local_map``), of granite-moe-1b-a400m's first 2 layers (the
+   ``a2a`` route) and of xlstm-125m's first 2 blocks (exactly 2
+   ``slstm_scan`` and 1 ``slstm_scan_bwd`` launches, inside
+   ``local_map``), each through ``make_train_step(mesh=...)`` on DTensors
    and equal bit for bit to the mesh-less step from the same state and
    batch; the group is destroyed after the phase;
 22. wide clusters (``WIDE_COUNTS``: the paper's three types at 91 x 20/70/90,
@@ -297,13 +299,31 @@ Phases (each raises on failure; nothing is caught):
    pairs) timed on the wide cluster beside their plain versions and bounds
    (B1/B2's over each row's touched machines, policy_scan's over the
    occupied machines, each beside the dense count over every machine;
-   policy_scan's serial floor, ``SERIAL_ADD_CYCLES`` a dependent add, too).
+   policy_scan's serial floor, ``SERIAL_ADD_CYCLES`` a dependent add, too);
+23. xLSTM training (``slstm_scan`` under its ``torch.autograd.Function``,
+   whose backward is the ``slstm_scan_bwd`` kernel): (a) xlstm-125m at full
+   width and depth (12 blocks, six mLSTM and six sLSTM, d_model 768), bf16
+   parameters, float32 moments, remat, 8 x 512 ``SyntheticLM`` tokens a
+   step, 10 steps of the cosine schedule through the ``Trainer``: the loss
+   falls, exactly 12 ``slstm_scan`` and 6 ``slstm_scan_bwd`` launches a step
+   (the forward and remat's recompute; the backward), no B3, B4 or B5, the
+   plain sLSTM loop and its plain backward never on the card; the step wall
+   (median of steps 3-10), tokens/s, peak memory, and one profiled step's
+   device busy; (b) one float32 step (TF32 off) of its first 4 blocks (two
+   mLSTM, two sLSTM) on the card and on the CPU from the same parameters
+   and batch, within phase 19's tolerances; (c) ``slstm_scan_bwd`` against
+   its plain version on the card in both layouts (within
+   ``SLSTM_BWD_TOL`` of each gradient's max-abs) at (8, 512, 768) from a
+   fresh state and from a prompt's, at ``SLSTM_EDGES`` and with a NaN in
+   one gate (NaN where the plain version has it; reruns equal bit for
+   bit), timed in both layouts beside its bound, its serial floor (the
+   dz_pre exchange alone) and its plain version.
 
-Every phase's wall is printed at the end. The reference's results for
+Every phase's wall and the whole run's are printed at the end. The reference's results for
 phases 3-5, 12, 14 and 18 are constants below; ``tests/test_torch_multitenant_golden.py``
 and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
 ``tests/test_torch_paper_*.py`` phase 14's and phase 18's.
-The last lines are the ``{"kernels": [...]}`` record (nine kernels; B1, B2,
+The last lines are the ``{"kernels": [...]}`` record (ten kernels; B1, B2,
 cut_traffic and policy_scan carry phase 22's shapes and times under
 ``wide_cluster``, cut_traffic's 8 100-machine shape under its
 ``mid_cluster``, and the four kernels its launches;
@@ -315,9 +335,11 @@ launches in phases 3-4, 12, 14 and 18, B2 and cut_traffic in phases 3-4,
 (qwen2-vl-72b) and 19 (the trained qwen1.5-0.5b), with recurrentgemma-2b's, granite's, whisper-tiny's and
 qwen2-vl-72b's own numbers in nested keys; whisper-tiny's holds its
 launches and each timed shape, qwen2-vl-72b's its timed shape;
-``slstm_scan`` counts xlstm-125m's launches in phase 16, the prefill in
-the plan's layout at top level, a decode step in its plan's layout and
-both layouts' times and serial floors in its own keys), the
+``slstm_scan`` counts xlstm-125m's launches in phases 16, 21 and 23, the
+prefill in the plan's layout at top level, a decode step in its plan's
+layout and both layouts' times and serial floors in its own keys;
+``slstm_scan_bwd`` its launches in phases 21 and 23, the training shape in
+the plan's layout at top level and both layouts under ``layouts``), the
 card's ``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or away from the repository, it exits non-zero and
@@ -2013,9 +2035,9 @@ class PlainOnCard:
             setattr(mod, name, fn)
 
     def counting(self, fn):
-        def run(q, *args, **kwargs):
-            self.calls += q.is_cuda
-            return fn(q, *args, **kwargs)
+        def run(*args, **kwargs):
+            self.calls += any(getattr(a, "is_cuda", False) for a in args)
+            return fn(*args, **kwargs)
         return run
 
 
@@ -2374,6 +2396,30 @@ def time_slstm(torch, slstm_ops, slstm_ref, args, what, layout, plain_ms=None):
     return err, ms, plain_ms, bound, None, floor_ms
 
 
+def each_layout(torch, slstm_ops, label, d, run, error):
+    """``run(layout)`` (a kernel call that returns a tuple of tensors) in
+    each of ``slstm_ops.LAYOUTS``: the cluster layout refusing d past it by
+    name, every other call run twice and equal bit for bit, then held by
+    ``error(what, got)``. Returns (the largest error, what each layout
+    did)."""
+    err, took = 0.0, []
+    for layout in slstm_ops.LAYOUTS:
+        if layout == "cluster" and slstm_ops.cluster_size(d) is None:
+            try:
+                run(layout)
+            except ValueError as e:
+                check("cluster layout cannot take" in str(e), f"{label}: refused as {e}")
+                took.append("cluster refuses it by name")
+                continue
+            check(False, f"{label}: the cluster layout took d = {d}")
+        got, again = run(layout), run(layout)
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in zip(got, again)), f"{label} ({layout} layout): a rerun differs")
+        err = max(err, error(f"{label} ({layout} layout)", got))
+        took.append(layout)
+    return err, took
+
+
 def slstm_checks(torch, B, S, d):
     """Phase 16 (a'): the sLSTM kernel against its plain version on the
     card in both layouts at xlstm-125m's shapes, from a fresh state and from
@@ -2444,22 +2490,11 @@ def slstm_checks(torch, B, S, d):
         want = slstm_scan_ref(*args)
         nans = int(torch.isnan(want[0]).sum())
         check(label != "a NaN in one gate" or nans > 0, "the NaN case made no NaN")
-        took = []
-        for layout in slstm_ops.LAYOUTS:
-            if layout == "cluster" and slstm_ops.cluster_size(args[0].shape[2]) is None:
-                try:
-                    slstm_ops.slstm_scan(*args, layout=layout)
-                except ValueError as e:
-                    check("cluster layout cannot take" in str(e), f"{label}: refused as {e}")
-                    took.append("cluster refuses it by name")
-                    continue
-                check(False, f"{label}: the cluster layout took d = {args[0].shape[2]}")
-            got = slstm_ops.slstm_scan(*args, layout=layout)
-            again = slstm_ops.slstm_scan(*args, layout=layout)
-            check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                      for x, y in zip(got, again)), f"{label} ({layout} layout): a rerun differs")
-            err = max(err, slstm_error(torch, f"{label} ({layout} layout)", got, want))
-            took.append(layout)
+        case_err, took = each_layout(
+            torch, slstm_ops, label, args[0].shape[2],
+            lambda layout, args=args: slstm_ops.slstm_scan(*args, layout=layout),
+            lambda what, got, want=want: slstm_error(torch, what, got, want))
+        err = max(err, case_err)
         print(f"  slstm_scan {label}, (B, S, d) {tuple(args[0].shape)}: within {SLSTM_TOL} of "
               f"its plain version, reruns equal ({', '.join(took)})"
               + (f", NaN in the same {nans} outputs" if nans else ""))
@@ -2475,7 +2510,6 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
     from repro_torch.configs import get_config
 
     from repro_torch.kernels.slstm_scan import ops as slstm_ops
-    from repro_torch.models import xlstm
 
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
@@ -2487,13 +2521,14 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
     params = M.init_params(cfg, seed=0, device="cuda")
     B, P, G = 8, 512, 64
     n_slstm = cfg.resolved_block_pattern.count("slstm")
-    # The sLSTM time loop's plain version, wherever it is called from.
-    loops = ((xlstm, "slstm_scan_ref"), (slstm_ops, "slstm_scan_ref"))
+    # The sLSTM time loop's plain versions, forward and backward.
+    loops = slstm_loops(slstm_ops)
     # One sLSTM kernel launch a block a prefill and a block a decode step.
     with PlainOnCard(flash_ops, decode_ops, *loops) as plain:
         xl_launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, P, G,
                                 dict(flash_attention=0, decode_attention=0, rglru_scan=0,
-                                     rglru_scan_bwd=0, slstm_scan=n_slstm * G), wall)
+                                     rglru_scan_bwd=0, slstm_scan=n_slstm * G, slstm_scan_bwd=0),
+                                wall)
     check(plain.calls == 0, f"a plain attention version or the plain sLSTM loop ran on the card "
                             f"{plain.calls} times")
     H, Dm = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
@@ -2538,7 +2573,7 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
         launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, Pw, G,
                              dict(flash_attention=cfg.encoder_layers + 2 * L,
                                   decode_attention=2 * L * (G - 1), rglru_scan=0, rglru_scan_bwd=0,
-                                  slstm_scan=0), wall)
+                                  slstm_scan=0, slstm_scan_bwd=0), wall)
     check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
     print(f"  {cfg.encoder_layers} encoder layers over {S_enc} stub frames (d_model "
           f"{cfg.d_model}) + {L} decoder layers, vocab {cfg.vocab_size} padded to "
@@ -3292,8 +3327,9 @@ def rglru_train_phase(torch, M, flash_ops, decode_ops, scan_ops, bwd_ref, wall, 
 # qwen2-vl-72b's train_4k at all 80 layers on both meshes. (b) a one-rank
 # NCCL group and a 1 x 1 ("data", "model") mesh on the card: one train step
 # each of qwen1.5-0.5b (full width and depth), recurrentgemma-2b's first
-# MESH_RG_LAYERS layers and granite-moe-1b-a400m's first MESH_MOE_LAYERS
-# (through the ``a2a`` route), through ``make_train_step(mesh=...)`` on
+# MESH_RG_LAYERS layers, granite-moe-1b-a400m's first MESH_MOE_LAYERS
+# (through the ``a2a`` route) and xlstm-125m's first MESH_XL_LAYERS (an
+# mLSTM and an sLSTM block), through ``make_train_step(mesh=...)`` on
 # DTensors, against the mesh-less step from the same state and batch: equal
 # bit for bit (deterministic algorithms on for both, as the embedding and
 # MoE gathers' backward otherwise add in no fixed order).
@@ -3302,7 +3338,7 @@ MESH_DRYRUN_CELLS = tuple(
                                        "recurrentgemma-2b")
      for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
     + [("qwen2-vl-72b", "train_4k", False), ("qwen2-vl-72b", "train_4k", True)])
-MESH_RG_LAYERS, MESH_MOE_LAYERS = 3, 2
+MESH_RG_LAYERS, MESH_MOE_LAYERS, MESH_XL_LAYERS = 3, 2, 2
 
 
 def _dtensor_full(tree):
@@ -3312,8 +3348,8 @@ def _dtensor_full(tree):
 
 
 def mesh_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
-    """Phase 21 (see MESH_DRYRUN_CELLS). Returns B5's and its backward's
-    launches inside ``local_map`` in (b)."""
+    """Phase 21 (see MESH_DRYRUN_CELLS). Returns B5's, the sLSTM kernel's and
+    their backwards' launches inside ``local_map`` in (b)."""
     import os
     import tempfile
 
@@ -3324,6 +3360,7 @@ def mesh_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.dist import partition
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
     from repro_torch.launch import dryrun
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import moe as moe_lib
@@ -3364,14 +3401,21 @@ def mesh_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
     rg = dataclasses.replace(rg, n_layers=MESH_RG_LAYERS,
                              block_pattern=rg.resolved_block_pattern[:MESH_RG_LAYERS])
     gr = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=MESH_MOE_LAYERS)
+    xl = get_config("xlstm-125m")
+    xl = dataclasses.replace(xl, n_layers=MESH_XL_LAYERS,
+                             block_pattern=xl.resolved_block_pattern[:MESH_XL_LAYERS])
     n_rec = rg.resolved_block_pattern.count("rglru")
+    n_sl = xl.resolved_block_pattern.count("slstm")
     cases = (("qwen1.5-0.5b, full width and depth", qwen, {}),
              (f"recurrentgemma-2b, first {MESH_RG_LAYERS} layers", rg,
               {"rglru_scan": 2 * n_rec, "rglru_scan_bwd": n_rec}),
-             (f"granite-moe-1b-a400m, first {MESH_MOE_LAYERS} layers", gr, {}))
+             (f"granite-moe-1b-a400m, first {MESH_MOE_LAYERS} layers", gr, {}),
+             (f"xlstm-125m, first {MESH_XL_LAYERS} blocks", xl,
+              {"slstm_scan": 2 * n_sl, "slstm_scan_bwd": n_sl}))
+    all_ops = (flash_ops, decode_ops, scan_ops, slstm_ops)
     det = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
-    b5 = {"rglru_scan": 0, "rglru_scan_bwd": 0}
+    b5 = {"rglru_scan": 0, "rglru_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
     torch.cuda.set_device(0)  # the rank's card, before the mesh's communicator
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
@@ -3404,7 +3448,7 @@ def mesh_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
                 if cfg.is_moe:
                     route = moe_lib.moe_route(mesh_ctx(mesh, cfg), cfg, TRAIN_B, TRAIN_S)
                     check(route[0] == "a2a", f"{label}: MoE route {route}")
-                for ops in (flash_ops, decode_ops, scan_ops):
+                for ops in all_ops:
                     ops.reset_launches()
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
@@ -3413,8 +3457,7 @@ def mesh_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
                 new, met = _dtensor_full(new), _dtensor_full(met)
                 torch.cuda.synchronize()
                 step_s = time.perf_counter() - t1
-                launches = {k: v for ops in (flash_ops, decode_ops, scan_ops)
-                            for k, v in ops.LAUNCHES.items() if v}
+                launches = {k: v for ops in all_ops for k, v in ops.LAUNCHES.items() if v}
                 check(launches == want, f"{label}: mesh step launched {launches}, not {want}")
                 for k in b5:
                     b5[k] += launches.get(k, 0)
@@ -4076,6 +4119,311 @@ def _launch_text(torch, flops, blocks, per_sm, registers, local_bytes):
             f"a SM, {blocks} blocks in {blocks / (sms * max(per_sm, 1)):.2f} waves")
 
 
+# Phase 23: xLSTM training. xlstm-125m at full width and depth (12 blocks,
+# six mLSTM and six sLSTM, d_model 768), phase 19's recipe (bf16 parameters,
+# float32 AdamW moments, remat, TRAIN_B x TRAIN_S SyntheticLM tokens from
+# TRAIN_SEED, the cosine schedule) over XL_TRAIN_STEPS steps through the
+# Trainer; every sLSTM block's time loop in the slstm_scan kernel and its
+# backward in slstm_scan_bwd. The float32 check runs the first
+# XL_CHECK_LAYERS blocks (two mLSTM, two sLSTM).
+XL_TRAIN_STEPS, XL_CHECK_LAYERS = 10, 4
+# slstm_scan_bwd against its plain version on the card: every gradient
+# within SLSTM_BWD_TOL of its max-abs, NaN where the plain version has NaN.
+# On the CPU at (8, 512, 768) the plain version (``slstm_scan_bwd_ref``, the
+# kernel's twin) differs from autograd through the plain loop by at most
+# 1.02e-6 of a gradient's max-abs (``rw``'s, a sum over B S rows), only the
+# order of sums differing; the kernel's products sum in yet another order.
+# Ten times the twin's own difference leaves room for that.
+SLSTM_BWD_TOL = 1e-5
+
+
+def slstm_loops(slstm_ops):
+    """The sLSTM time loop's plain versions, forward and backward, as the
+    wrapper calls them: (module, attribute) pairs for ``PlainOnCard``."""
+    return ((slstm_ops, "slstm_scan_ref"), (slstm_ops, "slstm_scan_bwd_ref"))
+
+
+def slstm_bwd_inputs(torch, gen, B, S, d, rw=None, state=None):
+    """The backward kernel's arguments on the card: the gradients of hs and of
+    the final state N(0, 1), and the gates, rw and entering state of
+    ``slstm_inputs`` with the forward's saved steps."""
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+
+    args = slstm_inputs(torch, gen, B, S, d, rw, state)
+    saved = slstm_scan_ref(*args, save=True)[5:]
+    grads = [torch.randn(B, S, d, device="cuda", generator=gen)] + [
+        torch.randn(B, d, device="cuda", generator=gen) for _ in range(4)]
+    return [*grads, *args[1:7], args[8], *saved]
+
+
+def slstm_bwd_error(torch, what, got, want) -> float:
+    """The kernel's (dzx, dix, dfx, dox, dc0, dn0, dh0, dm0) against the
+    plain version's: NaN in the same places, each within ``SLSTM_BWD_TOL``
+    of its max-abs. Returns the max abs error over the finite entries."""
+    err = 0.0
+    for name, g, w in zip(("dzx", "dix", "dfx", "dox", "dc0", "dn0", "dh0", "dm0"), got, want):
+        check(g.shape == w.shape and torch.equal(torch.isnan(g), torch.isnan(w)),
+              f"{what}: {name}'s shape or NaNs differ from the plain version's")
+        finite = ~torch.isnan(w)
+        if not finite.any():
+            continue
+        diff = float((g - w)[finite].abs().max())
+        scale = float(w[finite].abs().max())
+        check(diff <= SLSTM_BWD_TOL * max(scale, 1e-30),
+              f"{what}: {name} differs from the plain version by {diff:.3e} of max-abs "
+              f"{scale:.3e} (tolerance {SLSTM_BWD_TOL:g} of it)")
+        err = max(err, diff)
+    return err
+
+
+def time_slstm_bwd(torch, slstm_ops, bwd_ref, args, what, layout, plain_ms=None):
+    """``slstm_scan_bwd`` on ``args`` in ``layout``: against its plain
+    version, then timed beside its bound, its serial floor (the same launch
+    without the arithmetic: the grid barriers, or the cluster's dz_pre
+    exchange) and the plain version (timed unless ``plain_ms`` is given).
+    No single PyTorch call computes it (library_ms null). Returns (err, ms,
+    plain_ms, bound, None, floor_ms)."""
+    from repro_torch.launch.timing import time_cuda
+
+    B, S, d = args[5].shape
+    err = slstm_bwd_error(torch, f"slstm_scan_bwd {what} ({layout} layout)",
+                          slstm_ops.slstm_scan_bwd(*args, layout=layout), bwd_ref(*args))
+    ms = time_cuda(lambda: slstm_ops.slstm_scan_bwd(*args, layout=layout))
+    floor_ms = time_cuda(lambda: slstm_ops.bwd_serial_floor(*args, layout=layout))
+    if plain_ms is None:
+        plain_ms = time_cuda(lambda: bwd_ref(*args), reps=3)
+    # Read once: dhs, ix, fx, ox and the four saved steps (B, S, d), rw, the
+    # entering c, n, m and the final state's four gradients; written once:
+    # dzx, dix, dfx, dox and the entering state's four gradients.
+    n_bytes = (12 * B * S * d + d * d + 11 * B * d) * 4
+    flops = 2 * B * S * d * d  # dz_pre,t @ rw^T every step
+    bound = _bound(flops / FP32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    print(f"  slstm_scan_bwd {what} B={B} S={S} d={d} float32, {layout} layout: {ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} "
+          f"MB; {100 * bound[0] / ms:.1f}% of it), serial floor {floor_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; library_ms null; max abs error {err:.3e}")
+    return err, ms, plain_ms, bound, None, floor_ms
+
+
+def slstm_bwd_checks(torch, B, S, d):
+    """Phase 23 (c): ``slstm_scan_bwd`` against its plain version on the
+    card in both layouts at (B, S, d) from a fresh state and from a
+    prompt's, at ``SLSTM_EDGES`` and with a NaN in one gate, reruns equal
+    bit for bit; timed in both layouts at (B, S, d). Returns (max abs
+    error, {layout: timing}, the plan's layout)."""
+    from repro_torch.kernels.slstm_scan import kernel as slstm_kernel
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref, slstm_scan_ref
+
+    before = dict(slstm_ops.LAUNCHES)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    fresh = slstm_bwd_inputs(torch, gen, B, S, d)
+    rw = fresh[8]
+    attrs = slstm_kernel.device_attributes()
+    coop = slstm_kernel.launch_plan(B, d, backward=True)
+    clu = slstm_ops.plan(B, S, d, slstm_ops.device(), "cluster")
+    chosen = slstm_ops.plan(B, S, d, slstm_ops.device())["layout"]
+    print(f"  slstm_scan_bwd at B={B} S={S} d={d}: the plan takes the {chosen} layout; cluster "
+          f"layout {clu['clusters']} clusters of C = {clu['C']} blocks (R = {clu['R']} rows, rows "
+          f"{clu['width']} of rw a block in registers), {attrs['bwd_registers']} registers, "
+          f"{attrs['bwd_local_bytes']} local (spilled) bytes a thread (the forward's "
+          f"{attrs['registers']}); cooperative layout {coop['grid']} blocks, rw^T "
+          f"{'in shared memory' if coop['rw_resident'] else 'in global memory'}, "
+          f"{coop['registers']} registers, {coop['local_bytes']} local bytes")
+    check(attrs["bwd_local_bytes"] == 0 and coop["local_bytes"] == 0,
+          "the backward kernel spills registers")
+    timings, plain = {}, None
+    for layout in slstm_ops.LAYOUTS:
+        timings[layout] = time_slstm_bwd(torch, slstm_ops, slstm_scan_bwd_ref, fresh,
+                                         "fresh state", layout, plain)
+        plain = timings[layout][2]
+    err = max(t[0] for t in timings.values())
+    left = slstm_scan_ref(*slstm_inputs(torch, gen, B, S, d, rw))[1:]
+    cases = [("from the state a prompt left", slstm_bwd_inputs(torch, gen, B, S, d, rw, left))]
+    cases += [(label, slstm_bwd_inputs(torch, gen, b, s, w)) for label, b, s, w in SLSTM_EDGES]
+    args = slstm_inputs(torch, gen, 2, 6, 100)
+    args[2][1, 2, 7] = float("nan")  # one forget-gate pre-activation
+    nan = [torch.randn(2, 6, 100, device="cuda", generator=gen), None, None, None, None,
+           *args[1:7], args[8], *slstm_scan_ref(*args, save=True)[5:]]
+    cases.append(("a NaN in one gate", nan))
+    for label, case in cases:
+        want = slstm_scan_bwd_ref(*case)
+        nans = int(torch.isnan(want[0]).sum())
+        check(label != "a NaN in one gate" or 0 < nans < want[0].numel(),
+              "the NaN case made no NaN, or nothing but NaN")
+        case_err, took = each_layout(
+            torch, slstm_ops, f"slstm_scan_bwd {label}", case[5].shape[2],
+            lambda layout, case=case: slstm_ops.slstm_scan_bwd(*case, layout=layout),
+            lambda what, got, want=want: slstm_bwd_error(torch, what, got, want))
+        err = max(err, case_err)
+        print(f"  slstm_scan_bwd {label}, (B, S, d) {tuple(case[5].shape)}: within "
+              f"{SLSTM_BWD_TOL:g} of max-abs of its plain version, reruns equal ({', '.join(took)})"
+              + (f", NaN in the same {nans} of dzx's outputs" if nans else ""))
+    slstm_ops.LAUNCHES.update(before)  # the comparison's launches are not the path's
+    return err, timings, chosen
+
+
+def xlstm_train_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
+    """Phase 23: train xlstm-125m at full width and depth through the
+    ``Trainer``, its sLSTM blocks through ``slstm_scan`` and ``slstm_scan_bwd``
+    with the exact launch counts and no plain loop on the card; one profiled
+    step; one float32 step of its first XL_CHECK_LAYERS blocks against the
+    CPU; ``slstm_scan_bwd`` against its plain version, timed. Returns (the
+    training run's launches of both kernels, the backward's max abs error,
+    its timings by layout, the plan's layout)."""
+    import tempfile
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    from repro_torch.launch.profile_serve import profile_phase
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import model_flops
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("xlstm-125m")
+    kinds = cfg.resolved_block_pattern
+    n_slstm = kinds.count("slstm")
+    print(f"[23] training {cfg.name} at full width and depth ({cfg.n_layers} blocks, "
+          f"{kinds.count('mlstm')} mLSTM and {n_slstm} sLSTM, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}), {cfg.param_dtype} parameters, float32 AdamW moments, remat; "
+          f"{TRAIN_B} x {TRAIN_S} tokens a step; {smi}")
+    t_phase = time.perf_counter()
+    opt = adamw.AdamWConfig(lr=TRAIN_LR)
+    step = make_train_step(cfg, opt, device="cuda", remat=True,
+                           lr_fn=adamw.cosine_schedule(TRAIN_LR, TRAIN_WARMUP, XL_TRAIN_STEPS))
+    walls = []
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        float(out[1]["loss"])
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    def init_state():
+        params = M.init_params(cfg, seed=TRAIN_SEED, device="cuda")
+        return {"params": params, "opt": adamw.init_opt_state(params, opt)}
+
+    # (a) XL_TRAIN_STEPS steps through the Trainer ----------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    all_ops = (flash_ops, decode_ops, scan_ops, slstm_ops)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_xlstm_train_") as tmp:
+        data = _Stream(SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=TRAIN_SEED))
+        trainer = Trainer(TrainerConfig(total_steps=XL_TRAIN_STEPS, ckpt_dir=tmp,
+                                        ckpt_every=10 ** 9, keep=1, log_every=XL_TRAIN_STEPS),
+                          timed, init_state, data, log=logs.append)
+        for ops in all_ops:
+            ops.reset_launches()
+        t0 = time.perf_counter()
+        with PlainOnCard(flash_ops, decode_ops, *slstm_loops(slstm_ops)) as plain:
+            out = trainer.run()
+        wall["xlstm_train_s"] = time.perf_counter() - t0
+        launches = {k: v for ops in all_ops for k, v in ops.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # Remat: each sLSTM block's time loop runs in the forward and again in
+    # the recompute of its repeat, its backward once; no attention kernel.
+    want = dict(flash_attention=0, decode_attention=0, rglru_scan=0, rglru_scan_bwd=0,
+                slstm_scan=2 * n_slstm * XL_TRAIN_STEPS, slstm_scan_bwd=n_slstm * XL_TRAIN_STEPS)
+    check(launches == want, f"xLSTM training launched {launches}, not {want}")
+    check(plain.calls == 0, f"a plain attention version or sLSTM loop ran on the card "
+                            f"{plain.calls} times")
+    losses = out["losses"]
+    check(out["final_step"] == XL_TRAIN_STEPS and len(losses) == XL_TRAIN_STEPS
+          and all(map(math.isfinite, losses)), f"xLSTM training: {out['final_step']} steps, "
+          f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    trained = out["state"]
+    n_params = sum(t.numel() for t in leaves(trained["params"]))
+    del out, trainer
+    step_s = statistics.median(walls[2:XL_TRAIN_STEPS])
+    tokens = TRAIN_B * TRAIN_S
+    flops = model_flops(cfg, ShapeConfig("train", TRAIN_S, TRAIN_B, "train"))
+    for line in logs:
+        print(f"  {line}")
+    print(f"  {n_params / 1e6:.1f} M parameters; loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{XL_TRAIN_STEPS} steps: " + " ".join(f"{x:.3f}" for x in losses))
+    print(f"  step wall {step_s * 1e3:.1f} ms (median of steps 3-{XL_TRAIN_STEPS}; first "
+          f"{walls[0] * 1e3:.1f} ms), {tokens / step_s:,.0f} tokens/s; 6 N D = "
+          f"{flops / 1e12:.3f} TFLOP a step, {flops / step_s / 1e12:.2f} TFLOP/s achieved "
+          f"({100 * flops / step_s / BF16_FLOPS_PER_S:.2f}% of the bf16 peak at 700 W); peak "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches} (slstm_scan twice and "
+          f"slstm_scan_bwd once an sLSTM block a step), the plain sLSTM loop and its plain "
+          f"backward 0 times on the card; {wall['xlstm_train_s']:.2f} s; {smi}")
+    wall["xlstm_train_step_ms"] = step_s * 1e3
+    wall["xlstm_train_peak_gib"] = peak / 2**30
+
+    # (a') one profiled step of the trained state --------------------------------
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=TRAIN_SEED).batch_at(XL_TRAIN_STEPS)
+    prof = profile_phase(lambda: step(trained, batch), top=64, kernels={})
+    busy_ms = prof["device_busy_s"] * 1e3
+    fwd = [t for t in prof["top"] if "slstm_scan" in t["name"] and "bwd" not in t["name"]]
+    bwd = [t for t in prof["top"] if "slstm_scan_bwd" in t["name"]]
+    print(f"  one profiled step: wall {prof['wall_s'] * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * prof['busy_share']:.1f}%), {prof['launches']} device activities; slstm_scan "
+          f"{sum(t['device_ms'] for t in fwd):.3f} ms x{sum(t['calls'] for t in fwd)}, "
+          f"slstm_scan_bwd {sum(t['device_ms'] for t in bwd):.3f} ms "
+          f"x{sum(t['calls'] for t in bwd)}; top: " + "; ".join(
+              f"{t['name'][:40]} {t['device_ms']:.2f} ms x{t['calls']}" for t in prof["top"][:5]))
+    wall["xlstm_train_busy_share"] = prof["busy_share"]
+    del trained
+    torch.cuda.empty_cache()
+
+    # (b) float32, the first XL_CHECK_LAYERS blocks: one step on the card and the CPU
+    t0 = time.perf_counter()
+    c32 = dataclasses.replace(cfg, n_layers=XL_CHECK_LAYERS,
+                              block_pattern=kinds[:XL_CHECK_LAYERS], dtype="float32",
+                              param_dtype="float32")
+    p_cpu = M.init_params(c32, seed=TRAIN_SEED + 1, device="cpu")
+    batch32 = SyntheticLM(c32.vocab_size, 128, 2, seed=TRAIN_SEED + 1).batch_at(0)
+    res = {}
+    slstm_ops.reset_launches()
+    for dev in ("cpu", "cuda"):
+        p = _map_leaves(p_cpu, lambda t, d=dev: t.to(d))
+        res[dev] = make_train_step(c32, opt, device=dev)(
+            {"params": p, "opt": adamw.init_opt_state(p, opt)}, batch32)
+        del p
+    n32 = c32.resolved_block_pattern.count("slstm")
+    check(slstm_ops.LAUNCHES == {"slstm_scan": n32, "slstm_scan_bwd": n32},
+          f"the float32 step launched {slstm_ops.LAUNCHES}")
+    (cpu, m_cpu), (card, m_card) = res["cpu"], res["cuda"]
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    norm_rel = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) / float(
+        m_cpu["grad_norm"])
+    d_cpu = torch.cat([(x - y).flatten() for x, y in zip(leaves(cpu["params"]), leaves(p_cpu))])
+    d_card = torch.cat([(x.cpu() - y).flatten()
+                        for x, y in zip(leaves(card["params"]), leaves(p_cpu))])
+    upd_rel = float((d_card - d_cpu).norm() / d_cpu.norm())
+    flips = int(((d_card > 0) != (d_cpu > 0)).sum())
+    check(loss_rel <= F32_LOSS_REL and norm_rel <= F32_NORM_REL and upd_rel <= F32_UPDATE_REL,
+          f"xLSTM float32 step, card vs CPU: loss {loss_rel:.2e}, grad norm {norm_rel:.2e}, "
+          f"update {upd_rel:.2e} (relative)")
+    print(f"  float32, {c32.n_layers} blocks ({', '.join(c32.resolved_block_pattern)}), 2 x 128 "
+          f"tokens, one step card vs CPU: loss {float(m_card['loss']):.6f} vs "
+          f"{float(m_cpu['loss']):.6f} ({loss_rel:.2e} relative, <= {F32_LOSS_REL:g}), grad norm "
+          f"{norm_rel:.2e} (<= {F32_NORM_REL:g}), update {upd_rel:.2e} in l2 "
+          f"(<= {F32_UPDATE_REL:g}); {flips} of {d_cpu.numel()} updates of opposite sign; "
+          f"{n32} slstm_scan and {n32} slstm_scan_bwd launches on the card; "
+          f"{time.perf_counter() - t0:.2f} s")
+    wall["xlstm_train_f32_check_s"] = time.perf_counter() - t0
+    del res, cpu, card, p_cpu, d_cpu, d_card
+    torch.cuda.empty_cache()
+
+    # (c) slstm_scan_bwd against its plain version, and timed ----------------------
+    t0 = time.perf_counter()
+    err, timings, chosen = slstm_bwd_checks(torch, TRAIN_B, TRAIN_S, cfg.d_model)
+    wall["slstm_bwd_kernel_s"] = time.perf_counter() - t0
+    wall["phase_23_s"] = time.perf_counter() - t_phase
+    print(f"  phase 23 wall {wall['phase_23_s']:.1f} s")
+    return ({k: launches[k] for k in ("slstm_scan", "slstm_scan_bwd")}, err, timings, chosen)
+
+
 def _bound(op_s, byte_s):
     """(ms, what bounds it): the larger of the operations' and the bytes' times."""
     return (max(op_s, byte_s) * 1e3, "operations" if op_s >= byte_s else "bytes")
@@ -4089,6 +4437,7 @@ def _record(name, source, replaces, launches, max_err, timing):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "core").is_dir():
         print("chip_smoke: run from the root of a checkout (src/repro_torch is missing)",
               file=sys.stderr)
@@ -4620,6 +4969,9 @@ def main() -> int:
                            bwd_timing[0], bwd_timing))
     print(f"  rglru_scan_bwd: {rg_train['rglru_scan_bwd']} launches in phase 20, "
           f"{mesh_b5['rglru_scan_bwd']} in phase 21 (local_map)")
+    slstm_rec = next(rec for rec in records if rec["name"] == "slstm_scan")
+    print(f"  slstm_scan: {mesh_b5['slstm_scan']} launches in phase 21 (local_map)")
+    slstm_rec["launches"] += mesh_b5["slstm_scan"]
     # [22] wide clusters: the scheduler's kernels past their one-block layouts --------
     from repro_torch.kernels.policy_scan import ops as policy_ops
 
@@ -4630,6 +4982,26 @@ def main() -> int:
             rec["wide_cluster"] = {"launches": launches, **timing}
             print(f"  {rec['name']}: {launches} launches in phase 22 (wide clusters)")
             rec["launches"] += launches
+    # [23] xLSTM training through slstm_scan and its backward kernel ------------------
+    xl_train, bwd_err, bwd_times, bwd_layout = xlstm_train_phase(
+        torch, M, flash_ops, decode_ops, scan_ops, wall, smi)
+    print(f"  slstm_scan: {xl_train['slstm_scan']} launches in phase 23 (training xlstm-125m)")
+    slstm_rec["launches"] += xl_train["slstm_scan"]
+    # The backward: no TPU kernel; it replaces autograd through the reference's
+    # lax.scan. Top level: the training shape in the plan's layout; ``layouts``
+    # both layouts with their serial floors.
+    rec = _record("slstm_scan_bwd", kernel_src.format("slstm_scan"),
+                  "src/repro/models/xlstm.py:312",
+                  xl_train["slstm_scan_bwd"] + mesh_b5["slstm_scan_bwd"], bwd_err,
+                  bwd_times[bwd_layout][:5])
+    rec.update(shape=f"B={TRAIN_B} S={TRAIN_S} d=768 float32", layout=bwd_layout,
+               serial_floor_ms=bwd_times[bwd_layout][5],
+               layouts={layout: {"ms": t[1], "serial_floor_ms": t[5]}
+                        for layout, t in bwd_times.items()})
+    records.append(rec)
+    print(f"  slstm_scan_bwd: {xl_train['slstm_scan_bwd']} launches in phase 23, "
+          f"{mesh_b5['slstm_scan_bwd']} in phase 21 (local_map)")
+    wall["total_s"] = time.perf_counter() - t_start
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 
     print(json.dumps({"kernels": records}))

@@ -1,5 +1,6 @@
 // sLSTM recurrence for Hopper (sm_90a): the whole time loop of one sLSTM
-// block call in one launch, in one of two layouts.
+// block call in one launch, in one of two layouts, and its backward, also
+// in one launch.
 //
 // No TPU kernel stands behind it. It replaces the time loop of
 // src/repro/models/xlstm.py::slstm_block, an XLA lax.scan (:293-312), which
@@ -12,7 +13,9 @@
 //   i'  = exp(ix_t - m_t),     f' = exp(lf + m_{t-1} - m_t)
 //   c_t = f' c_{t-1} + i' z,   n_t = f' n_{t-1} + i'
 //   h_t = sigmoid(ox_t) c_t / max(n_t, 1)
-// hs[:, t] = h_t, and the state after the last step.
+// hs[:, t] = h_t, and the state after the last step. For training the
+// forward also saves every step's c_t, n_t, m_t and z (the save pointers
+// set; serving passes null and runs as before).
 //
 // Layout: zx, ix, fx, ox and hs (B, S, d), rw (d, d), the states (B, d), all
 // float32 and contiguous.
@@ -86,10 +89,37 @@
 // decode step), where loading 144 KiB of rw a block costs the cluster layout
 // more than the step itself.
 //
-// Each layout has a serial floor (serial_floor 1): the same launch with the
-// arithmetic removed. The cooperative floor is its S - 1 grid barriers; the
-// cluster floor its h exchange (the mbarrier waits and the st.async stores,
-// one read of h a lane).
+// The backward (slstm_scan_bwd_cluster_kernel, slstm_scan_bwd_kernel)
+// replaces autograd through the same lax.scan (the reference's jax.grad of
+// slstm_block, :312). It runs t = S-1 .. 0 from the saved c, n, m, z, the
+// gradients dhs of every output and those of the state after the last step
+// (any of them null: zero), and writes dzx_t (the gradient of z's
+// pre-activation, dz_pre,t), dix_t, dfx_t, dox_t and, at the end, the
+// entering state's gradients. ref.py's slstm_scan_bwd_ref is its CPU twin
+// and gives the formulae; each product, sum and quotient rounds on its own in
+// the twin's order. Its serial part is dh_{t-1} = dhs_{t-1} + dz_pre,t @
+// rw^T: the forward's product with rw^T in the place of rw. So the backward
+// keeps the forward's two layouts: in the cluster layout block c holds rows
+// J of rw (its columns of rw^T) in registers and dz_pre,t goes by st.async
+// into every block's shared memory, counted on its mbarrier, double-buffered,
+// exactly as h_t does forward; the cooperative layout stages dz_pre,t+1 from
+// dzx[:, t+1] after a grid barrier. The lane that owns (row, column) carries
+// dc, dn and dm in registers (cluster layout; the cooperative layout in the
+// output state, as the forward carries c, n, m) and loads a step ahead what
+// needs no gradient: the gates, dhs, z, c, n, m of step t - 1 and the state
+// of step t - 2. What needs no gradient of step t (the exponentials, the
+// clamp, sigmoid) is computed while dz_pre,t+1 is on its way; the chain from
+// dh_t to dz_pre,t is an add, a division, three products and a sum, and the
+// rest of the step runs after dz_pre,t has been sent. One exchange more after
+// step 0 gives the entering h's gradient. The gradient of rw, sum over rows
+// and steps of h_{t-1}^T dz_pre,t, is one matrix product after the launch
+// (the caller's). Bound: operations, as the forward's (the same 2 B S d^2
+// FLOP of products); ~151 MB moved at (8, 512, 768).
+//
+// Each layout and direction has a serial floor (serial_floor 1): the same
+// launch with the arithmetic removed. The cooperative floor is its grid
+// barriers; the cluster floor its exchange (the mbarrier waits and the
+// st.async stores, one read of the buffer a lane).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -134,6 +164,10 @@ struct Args {
   float* n;
   float* h;
   float* m;
+  float* cs;  // every step's c, n, m, z (B, S, d) for the backward, or all null
+  float* ns;
+  float* ms;
+  float* zs;
   int64_t B, S, d;
   int groups;       // column groups of kCols, ceil(d / kCols)
   int chunk;        // k staged at once
@@ -156,11 +190,46 @@ struct ClusterArgs {
   float* n;
   float* h;
   float* m;
+  float* cs;  // as Args
+  float* ns;
+  float* ms;
+  float* zs;
   int64_t B, S;
   int d;
   int C;  // blocks a cluster (column slices)
   int R;  // rows a cluster, at most kMaxClusterRows (lane l of a warp owns row l % 8)
   int W;  // ceil(d / C) rounded up to 4: a slice's width (the last block's: the rest)
+};
+
+// The backward's operands, both layouts (each reads its own plan's fields).
+struct BwdArgs {
+  const float* dhs;  // (B, S, d), or null: zero
+  const float* dcT;  // the state after the last step's gradients (B, d), each null: zero
+  const float* dnT;
+  const float* dhT;
+  const float* dmT;
+  const float* ix;
+  const float* fx;
+  const float* ox;
+  const float* rw;
+  const float* c0;  // the entering state
+  const float* n0;
+  const float* m0;
+  const float* cs;  // the forward's saved c, n, m, z of every step (B, S, d)
+  const float* ns;
+  const float* ms;
+  const float* zs;
+  float* dzx;  // (B, S, d)
+  float* dix;
+  float* dfx;
+  float* dox;
+  float* dc;  // the entering state's gradients (B, d)
+  float* dn;
+  float* dh;
+  float* dm;
+  int64_t B, S, d;
+  int groups, chunk, rows, rw_resident;  // the cooperative layout's plan
+  int C, R, W;                           // the cluster layout's
 };
 
 struct Plan {
@@ -182,6 +251,153 @@ __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
+// d log_sigmoid(x) / dx as torch's log_sigmoid_backward: with z = exp(-|x|),
+// 1 - z / (1 + z) below 0, z / (1 + z) from 0.
+__device__ __forceinline__ float log_sigmoid_grad(float x) {
+  const float z = expf(-fabsf(x));
+  const float s = __fdiv_rn(z, __fadd_rn(1.0f, z));
+  return x < 0.0f ? __fsub_rn(1.0f, s) : s;
+}
+
+// What a backward step needs of the forward and no gradient: from the gates
+// and the saved values of steps t and t - 1.
+struct StepTerms {
+  float o, lfm, i_p, f_p, nd, qnn, zz, lsg;
+};
+
+__device__ __forceinline__ StepTerms step_terms(float ix, float fx, float ox, float c, float n,
+                                                float m, float z, float m_prev) {
+  StepTerms k;
+  k.o = sigmoid(ox);
+  k.lfm = __fadd_rn(log_sigmoid(fx), m_prev);
+  k.i_p = expf(__fsub_rn(ix, m));
+  k.f_p = expf(__fsub_rn(k.lfm, m));
+  k.nd = max_nan(n, 1.0f);
+  k.qnn = __fdiv_rn(__fdiv_rn(__fmul_rn(k.o, c), k.nd), k.nd);  // (o c / nd) / nd
+  k.zz = __fsub_rn(1.0f, __fmul_rn(z, z));
+  k.lsg = log_sigmoid_grad(fx);
+  return k;
+}
+
+// The chain of a backward step: dz_pre,t from g = dh_t and the carried dc;
+// leaves dq and dc' for the rest.
+__device__ __forceinline__ float step_chain(const StepTerms& k, float g, float dc, float& dq,
+                                            float& dcp) {
+  dq = __fdiv_rn(g, k.nd);
+  dcp = __fadd_rn(dc, __fmul_rn(dq, k.o));
+  return __fmul_rn(__fmul_rn(dcp, k.i_p), k.zz);
+}
+
+// The rest of a backward step, after dz_pre,t has gone: the gate gradients
+// (dix, dfx, dox) and the carried dc, dn, dm for step t - 1. The max's
+// gradient splits as torch.maximum's backward: half to each side at a tie,
+// all to both where either is NaN; max(n, 1)'s goes to n where n >= 1.
+__device__ __forceinline__ void step_rest(const StepTerms& k, float g, float dq, float dcp,
+                                          float ix, float c, float z, float c_prev, float n_prev,
+                                          float n, float& dc, float& dn, float& dm, float& dix,
+                                          float& dfx, float& dox) {
+  const float dnp = __fadd_rn(dn, n >= 1.0f ? __fmul_rn(-g, k.qnn) : 0.0f);
+  dox = __fmul_rn(__fmul_rn(__fmul_rn(dq, c), __fsub_rn(1.0f, k.o)), k.o);
+  const float di = __fadd_rn(__fmul_rn(dcp, z), dnp);
+  const float df = __fadd_rn(__fmul_rn(dcp, c_prev), __fmul_rn(dnp, n_prev));
+  dc = __fmul_rn(dcp, k.f_p);
+  dn = __fmul_rn(dnp, k.f_p);
+  const float gi = __fmul_rn(di, k.i_p);
+  const float gf = __fmul_rn(df, k.f_p);
+  const float dmt = __fsub_rn(__fsub_rn(dm, gi), gf);
+  const float half = k.lfm == ix ? __fmul_rn(dmt, 0.5f) : dmt;
+  dix = __fadd_rn(gi, k.lfm > ix ? 0.0f : half);
+  dm = __fadd_rn(gf, k.lfm < ix ? 0.0f : half);
+  dfx = __fmul_rn(dm, k.lsg);
+}
+
+// The block's groups of kCols columns of M into rw_s[group][kCols][d]: M =
+// rw (kT false, the forward's h_{t-1} @ rw) or rw^T (kT true, the backward's
+// dz_pre,t @ rw^T); zeros past d.
+template <bool kT>
+__device__ __forceinline__ void load_columns(float* rw_s, const float* rw, int64_t d,
+                                             int my_groups) {
+  const int64_t total = static_cast<int64_t>(my_groups) * kCols * d;
+  for (int64_t e = threadIdx.x; e < total; e += kThreads) {
+    const int64_t k = e % d;
+    const int64_t q = e / d;
+    const int64_t j = (blockIdx.x + (q / kCols) * gridDim.x) * static_cast<int64_t>(kCols) +
+                      q % kCols;
+    rw_s[e] = j < d ? __ldg(kT ? rw + j * d + k : rw + k * d + j) : 0.0f;
+  }
+}
+
+// The cooperative layout's products of one item (row rl of the rows r0 ..
+// r0 + rows, the kCols columns of M from j0, the block's group gi): x's row
+// b at xp + b * xstride, staged into x_s chunk by chunk (once for all items
+// of a step where one chunk holds d: `first` marks the items' first pass,
+// uniform over the block); lane l sums k = l mod 32, and after a butterfly
+// every lane holds every column's sum (a + b == b + a). M as load_columns.
+template <bool kT>
+__device__ __forceinline__ void coop_dots(const float* xp, int64_t xstride, int64_t r0, int rows,
+                                          bool first, bool active, int rl, int gi, int64_t j0,
+                                          int lane, float* x_s, const float* rw_s, const float* rw,
+                                          bool rw_resident, int chunk, int64_t d,
+                                          float (&acc)[kCols]) {
+#pragma unroll
+  for (int q = 0; q < kCols; ++q) acc[q] = 0.0f;
+  const int64_t n_chunks = (d + chunk - 1) / chunk;
+  for (int64_t ch = 0; ch < n_chunks; ++ch) {
+    const int64_t k0 = ch * chunk;
+    const int len = static_cast<int>(d - k0 < chunk ? d - k0 : chunk);
+    if (n_chunks > 1 || first) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < rows * len; e += kThreads) {
+        const int rr = e / len;
+        const int kk = e - rr * len;
+        x_s[rr * chunk + kk] = __ldcg(xp + (r0 + rr) * xstride + k0 + kk);
+      }
+      __syncthreads();
+    }
+    if (active) {
+      const float* xrow = x_s + rl * chunk;
+      if (rw_resident) {
+        const float* w = rw_s + static_cast<int64_t>(gi) * kCols * d + k0;
+        for (int kk = lane; kk < len; kk += 32) {
+          const float hv = xrow[kk];
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) acc[q] = fmaf(hv, w[q * d + kk], acc[q]);
+        }
+      } else {
+        for (int kk = lane; kk < len; kk += 32) {
+          const float hv = xrow[kk];
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) {
+            const float wq = j0 + q < d ? __ldg(kT ? rw + (j0 + q) * d + k0 + kk
+                                                   : rw + (k0 + kk) * d + j0 + q)
+                                        : 0.0f;
+            acc[q] = fmaf(hv, wq, acc[q]);
+          }
+        }
+      }
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        acc[q] = __fadd_rn(acc[q], __shfl_xor_sync(0xffffffffu, acc[q], off));
+      }
+    }
+  }
+}
+
+// Lane q < kCols's column of a butterfly's sums.
+__device__ __forceinline__ float lane_column(const float (&acc)[kCols], int lane) {
+  float dot = acc[0];
+#pragma unroll
+  for (int q = 1; q < kCols; ++q) {
+    if (lane == q) dot = acc[q];
+  }
+  return dot;
+}
+
 template <bool kFloor>
 __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
@@ -197,18 +413,7 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(Args a) {
   const int lane = threadIdx.x % 32;
   // Groups blockIdx.x, blockIdx.x + gridDim.x, ...; gridDim.x <= groups.
   const int my_groups = (a.groups - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
-
-  if (a.rw_resident) {
-    const int64_t total = static_cast<int64_t>(my_groups) * kCols * d;
-    for (int64_t e = threadIdx.x; e < total; e += kThreads) {
-      const int64_t k = e % d;
-      const int64_t q = e / d;
-      const int64_t j = (blockIdx.x + (q / kCols) * gridDim.x) * static_cast<int64_t>(kCols) +
-                        q % kCols;
-      rw_s[e] = j < d ? __ldg(a.rw + k * d + j) : 0.0f;
-    }
-  }
-  const int64_t n_chunks = (d + a.chunk - 1) / a.chunk;
+  if (a.rw_resident) load_columns<false>(rw_s, a.rw, d, my_groups);
 
   for (int64_t t = 0; t < S; ++t) {
     // h_{t-1}: row b at hp + b * hstride.
@@ -235,58 +440,10 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(Args a) {
           ox_v = __ldg(a.ox + gidx);
         }
         float acc[kCols];
-#pragma unroll
-        for (int q = 0; q < kCols; ++q) acc[q] = 0.0f;
-        for (int64_t ch = 0; ch < n_chunks; ++ch) {
-          const int64_t k0 = ch * a.chunk;
-          const int len = static_cast<int>(d - k0 < a.chunk ? d - k0 : a.chunk);
-          if (n_chunks > 1 || base == 0) {
-            __syncthreads();
-            for (int e = threadIdx.x; e < rows * len; e += kThreads) {
-              const int rr = e / len;
-              const int kk = e - rr * len;
-              h_s[rr * a.chunk + kk] = __ldcg(hp + (r0 + rr) * hstride + k0 + kk);
-            }
-            __syncthreads();
-          }
-          if (active) {
-            const float* hrow = h_s + rl * a.chunk;
-            if (a.rw_resident) {
-              const float* w = rw_s + static_cast<int64_t>(gi) * kCols * d + k0;
-              for (int kk = lane; kk < len; kk += 32) {
-                const float hv = hrow[kk];
-#pragma unroll
-                for (int q = 0; q < kCols; ++q) acc[q] = fmaf(hv, w[q * d + kk], acc[q]);
-              }
-            } else {
-              for (int kk = lane; kk < len; kk += 32) {
-                const float hv = hrow[kk];
-                const float* w = a.rw + (k0 + kk) * d + j0;
-#pragma unroll
-                for (int q = 0; q < kCols; ++q) {
-                  const float wq = j0 + q < d ? __ldg(w + q) : 0.0f;
-                  acc[q] = fmaf(hv, wq, acc[q]);
-                }
-              }
-            }
-          }
-        }
-        if (active) {
-          // Butterfly: every lane ends with the same sums (a + b == b + a).
-#pragma unroll
-          for (int q = 0; q < kCols; ++q) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-              acc[q] = __fadd_rn(acc[q], __shfl_xor_sync(0xffffffffu, acc[q], off));
-            }
-          }
-        }
+        coop_dots<false>(hp, hstride, r0, rows, base == 0, active, rl, gi, j0, lane, h_s, rw_s,
+                         a.rw, a.rw_resident, a.chunk, d, acc);
         if (owner) {
-          float dot = acc[0];
-#pragma unroll
-          for (int q = 1; q < kCols; ++q) {
-            if (lane == q) dot = acc[q];
-          }
+          const float dot = lane_column(acc, lane);
           const int64_t sidx = b * d + j;
           const float c_prev = t == 0 ? a.c0[sidx] : a.c[sidx];
           const float n_prev = t == 0 ? a.n0[sidx] : a.n[sidx];
@@ -305,10 +462,101 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(Args a) {
           a.n[sidx] = n_new;
           a.m[sidx] = m_new;
           if (t + 1 == S) a.h[sidx] = h_new;
+          if (a.cs) {
+            a.cs[gidx] = c_new;
+            a.ns[gidx] = n_new;
+            a.ms[gidx] = m_new;
+            a.zs[gidx] = z;
+          }
         }
       }
     }
     if (t + 1 < S) grid.sync();  // hs[:, t] whole before any block reads it
+  }
+}
+
+// The backward in the cooperative layout: iteration s runs step t = S-1-s
+// (its products read dz_pre,t+1 from dzx[:, t+1], written in iteration s - 1),
+// and iteration S the products alone: dz_pre,0 @ rw^T, the entering h's
+// gradient. dc, dn, dm carry in the output state.
+template <bool kFloor>
+__global__ void __launch_bounds__(kThreads) slstm_scan_bwd_kernel(BwdArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int64_t B = a.B, S = a.S, d = a.d;
+  if (kFloor) {  // the serial floor: the launch and its barriers, no arithmetic
+    for (int64_t s = 0; s < S; ++s) grid.sync();
+    return;
+  }
+  extern __shared__ float smem[];
+  float* x_s = smem;                                           // [rows][chunk]
+  float* rw_s = smem + static_cast<size_t>(a.rows) * a.chunk;  // [my_groups][kCols][d]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int my_groups = (a.groups - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  if (a.rw_resident) load_columns<true>(rw_s, a.rw, d, my_groups);
+
+  for (int64_t s = 0; s <= S; ++s) {
+    const int64_t t = S - 1 - s;
+    const float* xp = a.dzx + (t + 1) * d;  // dz_pre,t+1 of row b at xp + b * S * d (s > 0)
+    for (int64_t r0 = 0; r0 < B; r0 += a.rows) {
+      const int rows = static_cast<int>(B - r0 < a.rows ? B - r0 : a.rows);
+      const int items = rows * my_groups;
+      for (int base = 0; base < items; base += kWarps) {  // uniform across the block
+        const int item = base + warp;
+        const bool active = item < items;
+        const int rl = active ? item % rows : 0;
+        const int gi = active ? item / rows : 0;
+        const int64_t b = r0 + rl;
+        const int64_t j0 = (blockIdx.x + static_cast<int64_t>(gi) * gridDim.x) * kCols;
+        const int64_t j = j0 + lane;
+        const bool owner = active && lane < kCols && j < d;
+        const int64_t sidx = b * d + j;
+        const int64_t gidx = (b * S + t) * d + j;
+        float ix = 0.0f, fx = 0.0f, ox = 0.0f, gin = 0.0f, c = 0.0f, n = 0.0f, m = 0.0f,
+              z = 0.0f, c_prev = 0.0f, n_prev = 0.0f, m_prev = 0.0f;
+        if (owner && s < S) {  // independent of the gradient: issued before the staging
+          ix = __ldg(a.ix + gidx);
+          fx = __ldg(a.fx + gidx);
+          ox = __ldg(a.ox + gidx);
+          if (a.dhs) gin = __ldg(a.dhs + gidx);
+          c = __ldg(a.cs + gidx);
+          n = __ldg(a.ns + gidx);
+          m = __ldg(a.ms + gidx);
+          z = __ldg(a.zs + gidx);
+          c_prev = t > 0 ? __ldg(a.cs + gidx - d) : a.c0[sidx];
+          n_prev = t > 0 ? __ldg(a.ns + gidx - d) : a.n0[sidx];
+          m_prev = t > 0 ? __ldg(a.ms + gidx - d) : a.m0[sidx];
+        }
+        float acc[kCols];
+        if (s > 0) {
+          coop_dots<true>(xp, S * d, r0, rows, base == 0, active, rl, gi, j0, lane, x_s, rw_s,
+                          a.rw, a.rw_resident, a.chunk, d, acc);
+        }
+        if (!owner) continue;
+        const float dot = s > 0 ? lane_column(acc, lane) : 0.0f;
+        if (s == S) {
+          a.dh[sidx] = dot;
+          continue;
+        }
+        // dh_t = dhs_t + (the final h's gradient at t = S-1, else dz_pre,t+1 @ rw^T).
+        const float carry = s == 0 ? (a.dhT ? a.dhT[sidx] : 0.0f) : dot;
+        float dc = s == 0 ? (a.dcT ? a.dcT[sidx] : 0.0f) : a.dc[sidx];
+        float dn = s == 0 ? (a.dnT ? a.dnT[sidx] : 0.0f) : a.dn[sidx];
+        float dm = s == 0 ? (a.dmT ? a.dmT[sidx] : 0.0f) : a.dm[sidx];
+        const StepTerms k = step_terms(ix, fx, ox, c, n, m, z, m_prev);
+        const float g = a.dhs ? __fadd_rn(gin, carry) : carry;
+        float dq, dcp, dix, dfx, dox;
+        a.dzx[gidx] = step_chain(k, g, dc, dq, dcp);
+        step_rest(k, g, dq, dcp, ix, c, z, c_prev, n_prev, n, dc, dn, dm, dix, dfx, dox);
+        a.dix[gidx] = dix;
+        a.dfx[gidx] = dfx;
+        a.dox[gidx] = dox;
+        a.dc[sidx] = dc;
+        a.dn[sidx] = dn;
+        a.dm[sidx] = dm;
+      }
+    }
+    if (s < S) grid.sync();  // dzx[:, t] whole before any block reads it
   }
 }
 
@@ -356,8 +604,9 @@ __device__ __forceinline__ void st_async4(unsigned addr, const float (&v)[4], un
 }
 
 // Dynamic shared bytes of a cluster-layout block: two mbarriers (16 bytes)
-// and h double-buffered [2][R][kMaxClusterD] (every row padded to the
-// kernel's widest, zeros past d: a lane's loads need no bound), float32.
+// and h (dz_pre in the backward) double-buffered [2][R][kMaxClusterD] (every
+// row padded to the kernel's widest, zeros past d: a lane's loads need no
+// bound), float32.
 __host__ __device__ inline size_t cluster_smem(int R) {
   return 16 + 8 * static_cast<size_t>(R) * kMaxClusterD;
 }
@@ -411,6 +660,54 @@ __device__ __forceinline__ void cluster_dots(const float* hr, int lane,
 #pragma unroll
     for (int off = 4; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
     sum[rr] = v;
+  }
+}
+
+// Row r's sum of this lane's column over the buffer's nr rows (hc: row 0),
+// two rows a pass.
+__device__ __forceinline__ float cluster_row_dot(const float* hc, int nr, int r, int lane,
+                                                 const float (&w)[kWarpCols][kLaneK]) {
+  float dot = 0.0f;
+  int rr = 0;
+  for (; rr + 2 <= nr; rr += 2) {
+    float sum[2];
+    cluster_dots<2>(hc + rr * kMaxClusterD, lane, w, sum);
+    if (r == rr) dot = sum[0];
+    if (r == rr + 1) dot = sum[1];
+  }
+  if (rr < nr) {
+    float sum[1];
+    cluster_dots<1>(hc + rr * kMaxClusterD, lane, w, sum);
+    if (r == rr) dot = sum[0];
+  }
+  return dot;
+}
+
+// The warp's 4 columns (from c0 + 4 warp) of every row into every block's
+// buffer at shared address `buf`, this one's too: one 16-byte store a (row,
+// block) spread over the lanes, each value shuffled from the lane that holds
+// it (8 q + row), each landing counted on the receiver's mbarrier `bar`.
+__device__ __forceinline__ void cluster_send(float v_lane, unsigned buf, unsigned bar, int C,
+                                             int nr, int c0, int wc, int warp, int lane) {
+  const int cols = wc - warp * kWarpCols < kWarpCols ? wc - warp * kWarpCols : kWarpCols;
+  const int pairs = C * nr;
+  for (int e0 = 0; e0 < pairs; e0 += 32) {
+    const int e = e0 + lane;
+    const int rr = e / C, p = e - rr * C;
+    float v[kWarpCols];
+#pragma unroll
+    for (int q = 0; q < kWarpCols; ++q) {
+      v[q] = __shfl_sync(0xffffffffu, v_lane, 8 * q + (rr & 7));
+    }
+    if (e < pairs) {
+      const unsigned la = buf + 4u * (rr * kMaxClusterD + c0 + warp * kWarpCols);
+      const unsigned rb = mapa(bar, p);
+      if (cols == kWarpCols) {
+        st_async4(mapa(la, p), v, rb);
+      } else {
+        for (int q = 0; q < cols; ++q) st_async(mapa(la + 4u * q, p), v[q], rb);
+      }
+    }
   }
 }
 
@@ -515,24 +812,9 @@ __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_cluster_kernel(Cluste
     // done: h_{t+1} is sent only once all of h_t arrived, and this block
     // sends its part of h_t after its reads.
     const float* hc = hbuf + cur * R * dp;
-    float dot = 0.0f;
-    if (kFloor) {
-      // The floor keeps one read of h_{t-1} a lane, so the step still waits on it.
-      dot = hc[(mine ? r : 0) * dp + (mine ? c0 + jl : c0)];
-    } else {
-      int rr = 0;
-      for (; rr + 2 <= nr; rr += 2) {
-        float sum[2];
-        cluster_dots<2>(hc + rr * dp, lane, w, sum);
-        if (r == rr) dot = sum[0];
-        if (r == rr + 1) dot = sum[1];
-      }
-      if (rr < nr) {
-        float sum[1];
-        cluster_dots<1>(hc + rr * dp, lane, w, sum);
-        if (r == rr) dot = sum[0];
-      }
-    }
+    // The floor keeps one read of h_{t-1} a lane, so the step still waits on it.
+    const float dot = kFloor ? hc[(mine ? r : 0) * dp + (mine ? c0 + jl : c0)]
+                             : cluster_row_dot(hc, nr, r, lane, w);
     float h_new = dot;
     if (!kFloor && mine) {
       const float z = tanhf(__fadd_rn(zx_t, dot));
@@ -541,34 +823,18 @@ __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_cluster_kernel(Cluste
       m = m_new;
       h_new = __fdiv_rn(__fmul_rn(og, c), n_div);
       h = h_new;
-      a.hs[((r0 + r) * S + t) * d + c0 + jl] = h_new;
+      const int64_t g = ((r0 + r) * S + t) * d + c0 + jl;
+      a.hs[g] = h_new;
+      if (a.cs) {
+        a.cs[g] = c;
+        a.ns[g] = n;
+        a.ms[g] = m;
+        a.zs[g] = z;
+      }
     }
     if (t + 1 < S) {
-      // h_t into every block's buffer, this one's too: the warp's 4 columns
-      // of a row in one 16-byte store, the (row, peer) pairs spread over the
-      // lanes, each value shuffled from the lane that holds it (8 q + row).
-      const unsigned hn = h_u32 + 4u * (cur ^ 1) * R * dp;
-      const unsigned bar_n = bars + 8 * (cur ^ 1);
-      const int cols = wc - warp * kWarpCols < kWarpCols ? wc - warp * kWarpCols : kWarpCols;
-      const int pairs = C * nr;
-      for (int e0 = 0; e0 < pairs; e0 += 32) {
-        const int e = e0 + lane;
-        const int rr = e / C, p = e - rr * C;
-        float v[kWarpCols];
-#pragma unroll
-        for (int q = 0; q < kWarpCols; ++q) {
-          v[q] = __shfl_sync(0xffffffffu, h_new, 8 * q + (rr & 7));
-        }
-        if (e < pairs) {
-          const unsigned la = hn + 4u * (rr * dp + c0 + warp * kWarpCols);
-          const unsigned rb = mapa(bar_n, p);
-          if (cols == kWarpCols) {
-            st_async4(mapa(la, p), v, rb);
-          } else {
-            for (int q = 0; q < cols; ++q) st_async(mapa(la + 4u * q, p), v[q], rb);
-          }
-        }
-      }
+      cluster_send(h_new, h_u32 + 4u * (cur ^ 1) * R * dp, bars + 8 * (cur ^ 1), C, nr, c0, wc,
+                   warp, lane);
     }
   }
   if (!kFloor && mine) {
@@ -580,7 +846,163 @@ __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_cluster_kernel(Cluste
   cluster.sync();  // no block leaves while a peer may still write into it
 }
 
-int make_plan(int device, int64_t B, int64_t d, Plan* p) {
+// The backward in the cluster layout. Block c holds rows J (its slice) of
+// rw, that is rw^T's columns J, in registers as the forward holds rw's:
+// lane l of warp w owns row l % 8 and column j = c0 + 4 w + l / 8 and
+// computes dh_{t-1}[j] = sum_k dz_pre,t[k] rw[j][k]. Iteration s runs step
+// t = S-1-s; dz_pre,t goes into buffer (s + 1) & 1 of every block, and a
+// last wait after the loop gives the entering h's gradient.
+template <bool kFloor>
+__global__ void __launch_bounds__(kCThreads, 1) slstm_scan_bwd_cluster_kernel(BwdArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int d = static_cast<int>(a.d), W = a.W, R = a.R, C = a.C;
+  constexpr int dp = kMaxClusterD;
+  const int64_t S = a.S;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x / C) * R;
+  const int nr = static_cast<int>(a.B - r0 < R ? a.B - r0 : R);
+  const int c0 = rank * W < d ? rank * W : d;
+  const int wc = (d - c0 < W ? d - c0 : W);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r = lane & 7;
+  const int jl = warp * kWarpCols + (lane >> 3);
+  const bool mine = r < nr && jl < wc;
+  const bool reader = warp * kWarpCols < wc;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned bars = smem_u32(smem_raw);                        // [2] mbarriers
+  float* xbuf = reinterpret_cast<float*>(smem_raw + 16);           // [2][R][kMaxClusterD]
+  const unsigned x_u32 = smem_u32(xbuf);
+  const unsigned phase_bytes = 4u * nr * d;  // all of dz_pre,t's rows, from every block
+
+  float w[kWarpCols][kLaneK];  // rw[c0 + 4 warp + q][k], k = 4 lane + 128 i + e at [q][4 i + e]
+  if (!kFloor) {
+#pragma unroll
+    for (int i = 0; i < kLaneK; ++i) {
+      const int k = 4 * lane + 128 * (i / 4) + i % 4;
+#pragma unroll
+      for (int q = 0; q < kWarpCols; ++q) {
+        const int j = warp * kWarpCols + q;
+        w[q][i] = (k < d && j < wc) ? __ldg(a.rw + static_cast<int64_t>(c0 + j) * d + k) : 0.0f;
+      }
+    }
+  }
+  for (int e = threadIdx.x; e < 2 * R * dp; e += kCThreads) xbuf[e] = 0.0f;  // padding stays 0
+  if (threadIdx.x == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(bars, phase_bytes);
+    mbar_expect(bars + 8, phase_bytes);
+  }
+  // This lane's carried gradients; the values of its step t: gates, dhs, z,
+  // c, n, m, and the state of step t - 1 (cp, np, mp: the entering state at
+  // t = 0), each loaded a step ahead.
+  const int64_t sidx = (r0 + r) * d + c0 + jl;
+  const int64_t g0 = (r0 + r) * S * d + c0 + jl;  // (row, step 0, column)
+  float dc = 0.0f, dn = 0.0f, dm = 0.0f, carry = 0.0f;
+  float ix = 0.0f, fx = 0.0f, ox = 0.0f, gin = 0.0f, z = 0.0f, c = 0.0f, n = 0.0f, m = 0.0f;
+  float cp = 0.0f, np = 0.0f, mp = 0.0f;
+  if (!kFloor && mine) {
+    if (a.dcT) dc = a.dcT[sidx];
+    if (a.dnT) dn = a.dnT[sidx];
+    if (a.dmT) dm = a.dmT[sidx];
+    if (a.dhT) carry = a.dhT[sidx];
+    const int64_t g = g0 + (S - 1) * d;
+    ix = __ldg(a.ix + g);
+    fx = __ldg(a.fx + g);
+    ox = __ldg(a.ox + g);
+    if (a.dhs) gin = __ldg(a.dhs + g);
+    z = __ldg(a.zs + g);
+    c = __ldg(a.cs + g);
+    n = __ldg(a.ns + g);
+    m = __ldg(a.ms + g);
+    cp = S > 1 ? __ldg(a.cs + g - d) : a.c0[sidx];
+    np = S > 1 ? __ldg(a.ns + g - d) : a.n0[sidx];
+    mp = S > 1 ? __ldg(a.ms + g - d) : a.m0[sidx];
+  }
+  cluster.sync();  // every block runs, its buffers and mbarriers ready, before any peer writes
+
+  for (int64_t s = 0; s < S; ++s) {
+    if (!reader) continue;
+    const int64_t t = S - 1 - s;
+    const int cur = static_cast<int>(s & 1);
+    // What needs no gradient, while dz_pre,t+1 is on its way.
+    StepTerms k{};
+    if (!kFloor && mine) k = step_terms(ix, fx, ox, c, n, m, z, mp);
+    // Step t - 1's values: its gates, dhs and z, and the state of step t - 2.
+    float nix = 0.0f, nfx = 0.0f, nox = 0.0f, ngin = 0.0f, nz = 0.0f;
+    float ncp = 0.0f, nnp = 0.0f, nmp = 0.0f;
+    if (!kFloor && mine && t > 0) {
+      const int64_t g = g0 + (t - 1) * d;
+      nix = __ldg(a.ix + g);
+      nfx = __ldg(a.fx + g);
+      nox = __ldg(a.ox + g);
+      if (a.dhs) ngin = __ldg(a.dhs + g);
+      nz = __ldg(a.zs + g);
+      ncp = t > 1 ? __ldg(a.cs + g - d) : a.c0[sidx];
+      nnp = t > 1 ? __ldg(a.ns + g - d) : a.n0[sidx];
+      nmp = t > 1 ? __ldg(a.ms + g - d) : a.m0[sidx];
+    }
+    if (s > 0) {  // dz_pre,t+1: the (s - 1) / 2-th phase of this buffer's mbarrier
+      mbar_wait(bars + 8 * cur, static_cast<unsigned>((s - 1) >> 1) & 1u);
+      if (threadIdx.x == 0) mbar_expect(bars + 8 * cur, phase_bytes);
+      const float* xc = xbuf + cur * R * dp;
+      carry = kFloor ? xc[(mine ? r : 0) * dp + (mine ? c0 + jl : c0)]
+                     : cluster_row_dot(xc, nr, r, lane, w);
+    }
+    float da = carry;
+    float dq = 0.0f, dcp = 0.0f, g = 0.0f;
+    if (!kFloor && mine) {
+      g = a.dhs ? __fadd_rn(gin, carry) : carry;
+      da = step_chain(k, g, dc, dq, dcp);
+      a.dzx[g0 + t * d] = da;
+    }
+    // Every block sends its part of dz_pre,t after its reads of this buffer.
+    cluster_send(da, x_u32 + 4u * (cur ^ 1) * R * dp, bars + 8 * (cur ^ 1), C, nr, c0, wc, warp,
+                 lane);
+    if (!kFloor && mine) {
+      float dix, dfx, dox;
+      step_rest(k, g, dq, dcp, ix, c, z, cp, np, n, dc, dn, dm, dix, dfx, dox);
+      const int64_t gt = g0 + t * d;
+      a.dix[gt] = dix;
+      a.dfx[gt] = dfx;
+      a.dox[gt] = dox;
+    }
+    ix = nix;
+    fx = nfx;
+    ox = nox;
+    gin = ngin;
+    z = nz;
+    c = cp;
+    n = np;
+    m = mp;
+    cp = ncp;
+    np = nnp;
+    mp = nmp;
+  }
+  if (reader) {  // dz_pre,0 @ rw^T: the entering h's gradient
+    const int cur = static_cast<int>(S & 1);
+    mbar_wait(bars + 8 * cur, static_cast<unsigned>((S - 1) >> 1) & 1u);
+    const float* xc = xbuf + cur * R * dp;
+    const float dh = kFloor ? xc[(mine ? r : 0) * dp + (mine ? c0 + jl : c0)]
+                            : cluster_row_dot(xc, nr, r, lane, w);
+    if (!kFloor && mine) {
+      a.dc[sidx] = dc;
+      a.dn[sidx] = dn;
+      a.dh[sidx] = dh;
+      a.dm[sidx] = dm;
+    }
+  }
+  cluster.sync();  // no block leaves while a peer may still write into it
+}
+
+// The cooperative plan of `kernel` (its floor `floor_kernel` shares it) at
+// (B, d): the grid, column groups, the staging, rw's residence, the shared
+// bytes, and the occupancy that every block's residence needs.
+int make_plan(int device, int64_t B, int64_t d, const void* kernel, const void* floor_kernel,
+              Plan* p) {
   int coop = 0, smem_optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&p->sms, cudaDevAttrMultiProcessorCount,
@@ -602,15 +1024,13 @@ int make_plan(int device, int64_t B, int64_t d, Plan* p) {
   const size_t rw_bytes = static_cast<size_t>(p->groups_per_block) * kCols * d * sizeof(float);
   p->rw_resident = h_bytes + rw_bytes <= static_cast<size_t>(smem_optin);
   p->smem = h_bytes + (p->rw_resident ? rw_bytes : 0);
-  err = cudaFuncSetAttribute(slstm_scan_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(p->smem));
   if (err == cudaSuccess) err = cudaFuncSetAttribute(
-      slstm_scan_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p->smem));
+      floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p->smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->blocks_per_sm, slstm_scan_kernel<false>,
-                                                      kThreads, p->smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->blocks_per_sm, kernel, kThreads,
+                                                      p->smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Every block must be resident for grid.sync(): at most one a SM here.
   if (p->blocks_per_sm < 1 || p->grid > p->blocks_per_sm * p->sms) {
@@ -619,16 +1039,26 @@ int make_plan(int device, int64_t B, int64_t d, Plan* p) {
   return 0;
 }
 
-// The cluster kernel's attributes for a launch of `smem` dynamic bytes, and
+const void* forward_kernel(bool floor) {
+  return floor ? reinterpret_cast<const void*>(slstm_scan_kernel<true>)
+               : reinterpret_cast<const void*>(slstm_scan_kernel<false>);
+}
+
+const void* backward_kernel(bool floor) {
+  return floor ? reinterpret_cast<const void*>(slstm_scan_bwd_kernel<true>)
+               : reinterpret_cast<const void*>(slstm_scan_bwd_kernel<false>);
+}
+
+// A cluster kernel's attributes for a launch of `smem` dynamic bytes, and
 // its launch configuration: `clusters` clusters of C blocks.
-template <bool kFloor>
-cudaError_t cluster_config(int C, size_t smem, int64_t clusters, cudaStream_t stream,
-                           cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
-  cudaError_t err = cudaFuncSetAttribute(slstm_scan_cluster_kernel<kFloor>,
-                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, int C, size_t smem, int64_t clusters,
+                           cudaStream_t stream, cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                         1);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(
-      slstm_scan_cluster_kernel<kFloor>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = C;
@@ -644,28 +1074,33 @@ cudaError_t cluster_config(int C, size_t smem, int64_t clusters, cudaStream_t st
   return cudaSuccess;
 }
 
-template <bool kFloor>
-int launch_cluster(int device, const ClusterArgs& a, cudaStream_t stream) {
-  if (a.C < 1 || a.C > kMaxCluster || a.R < 1 || a.R > kMaxClusterRows || a.d > kMaxClusterD ||
-      a.W > kMaxWidth) {
+// Launches `kernel` (either direction, its arguments `a`) in clusters of C
+// blocks over ceil(B / R) groups of rows.
+template <typename Kernel, typename A>
+int launch_cluster(int device, Kernel kernel, const A& a, int64_t B, int64_t d, int C, int R,
+                   int W, cudaStream_t stream) {
+  if (C < 1 || C > kMaxCluster || R < 1 || R > kMaxClusterRows || d > kMaxClusterD ||
+      W > kMaxWidth) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int smem_optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                            device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = cluster_smem(a.R);
-  const int64_t clusters = (a.B + a.R - 1) / a.R;
-  if (smem > static_cast<size_t>(smem_optin) || clusters * a.C > 0x7fffffffLL) {
+  const size_t smem = cluster_smem(R);
+  const int64_t clusters = (B + R - 1) / R;
+  if (smem > static_cast<size_t>(smem_optin) || clusters * C > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  err = cluster_config<kFloor>(a.C, smem, clusters, stream, &attr, &cfg);
-  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, slstm_scan_cluster_kernel<kFloor>, a);
+  err = cluster_config(kernel, C, smem, clusters, stream, &attr, &cfg);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+int slice_width(int64_t d, int C) { return static_cast<int>(((d + C - 1) / C + 3) / 4 * 4); }
 
 }  // namespace
 
@@ -675,36 +1110,46 @@ int launch_cluster(int device, const ClusterArgs& a, cudaStream_t stream) {
 // 1: the same launch, its barriers and, in the cluster layout, the h
 // exchange alone). Inputs zx, ix, fx, ox (B, S, d), rw (d, d) and the
 // entering state c0, n0, h0, m0 (B, d); outputs hs (B, S, d) and the state
-// c, n, h, m (B, d), all float32, contiguous, the outputs apart from the
-// inputs. Returns a cudaError_t code: 0 on success (cudaErrorNotSupported
-// where the device has no cooperative launch, cudaErrorCooperativeLaunchTooLarge
-// where the cooperative grid cannot be resident, cudaErrorInvalidValue for a
-// cluster plan the kernel cannot take). Empty inputs launch nothing.
+// c, n, h, m (B, d), and, where cs is not null, every step's c, n, m and z
+// into cs, ns, ms, zs (B, S, d; all four or none); all float32, contiguous,
+// the outputs apart from the inputs. Returns a cudaError_t code: 0 on
+// success (cudaErrorNotSupported where the device has no cooperative launch,
+// cudaErrorCooperativeLaunchTooLarge where the cooperative grid cannot be
+// resident, cudaErrorInvalidValue for a cluster plan the kernel cannot
+// take). Empty inputs launch nothing.
 extern "C" int slstm_scan_launch(int device, const void* zx, const void* ix, const void* fx,
                                  const void* ox, const void* rw, const void* c0, const void* n0,
                                  const void* h0, const void* m0, void* hs, void* c, void* n,
-                                 void* h, void* m, long long B, long long S, long long d,
-                                 int layout, int C, int R, int serial_floor, void* stream) {
+                                 void* h, void* m, void* cs, void* ns, void* ms, void* zs,
+                                 long long B, long long S, long long d, int layout, int C, int R,
+                                 int serial_floor, void* stream) {
   if (B <= 0 || S <= 0 || d <= 0) return 0;
+  if ((cs == nullptr) != (ns == nullptr) || (cs == nullptr) != (ms == nullptr) ||
+      (cs == nullptr) != (zs == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (layout == kLayoutCluster) {
     if (C < 1 || d > kMaxClusterD) return static_cast<int>(cudaErrorInvalidValue);
+    const int W = slice_width(d, C);
     const ClusterArgs a{static_cast<const float*>(zx), static_cast<const float*>(ix),
                         static_cast<const float*>(fx), static_cast<const float*>(ox),
                         static_cast<const float*>(rw), static_cast<const float*>(c0),
                         static_cast<const float*>(n0), static_cast<const float*>(h0),
                         static_cast<const float*>(m0), static_cast<float*>(hs),
                         static_cast<float*>(c), static_cast<float*>(n), static_cast<float*>(h),
-                        static_cast<float*>(m), B, S, static_cast<int>(d), C, R,
-                        static_cast<int>(((d + C - 1) / C + 3) / 4 * 4)};
-    return serial_floor ? launch_cluster<true>(device, a, st)
-                        : launch_cluster<false>(device, a, st);
+                        static_cast<float*>(m), static_cast<float*>(cs), static_cast<float*>(ns),
+                        static_cast<float*>(ms), static_cast<float*>(zs), B, S,
+                        static_cast<int>(d), C, R, W};
+    return serial_floor
+               ? launch_cluster(device, slstm_scan_cluster_kernel<true>, a, B, d, C, R, W, st)
+               : launch_cluster(device, slstm_scan_cluster_kernel<false>, a, B, d, C, R, W, st);
   }
   if (layout != kLayoutCooperative) return static_cast<int>(cudaErrorInvalidValue);
   Plan p{};
-  int status = make_plan(device, B, d, &p);
+  int status = make_plan(device, B, d, forward_kernel(false), forward_kernel(true), &p);
   if (status != 0) return status;
   Args a{static_cast<const float*>(zx), static_cast<const float*>(ix),
          static_cast<const float*>(fx), static_cast<const float*>(ox),
@@ -712,11 +1157,69 @@ extern "C" int slstm_scan_launch(int device, const void* zx, const void* ix, con
          static_cast<const float*>(n0), static_cast<const float*>(h0),
          static_cast<const float*>(m0), static_cast<float*>(hs), static_cast<float*>(c),
          static_cast<float*>(n), static_cast<float*>(h), static_cast<float*>(m),
-         B, S, d, p.groups, p.chunk, p.rows, p.rw_resident};
+         static_cast<float*>(cs), static_cast<float*>(ns), static_cast<float*>(ms),
+         static_cast<float*>(zs), B, S, d, p.groups, p.chunk, p.rows, p.rw_resident};
   void* params[] = {&a};
-  const void* fn = serial_floor ? reinterpret_cast<const void*>(slstm_scan_kernel<true>)
-                         : reinterpret_cast<const void*>(slstm_scan_kernel<false>);
-  err = cudaLaunchCooperativeKernel(fn, dim3(p.grid), dim3(kThreads), params, p.smem, st);
+  err = cudaLaunchCooperativeKernel(forward_kernel(serial_floor), dim3(p.grid), dim3(kThreads),
+                                    params, p.smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the backward on `stream` (no synchronisation) in `layout`, as
+// slstm_scan_launch launches the forward (serial_floor 1: the same launch,
+// its barriers or its dz_pre exchange alone). Inputs: the gradients dhs (B,
+// S, d) and dcT, dnT, dhT, dmT (B, d) of the forward's outputs, each of them
+// null for zero; ix, fx, ox (B, S, d), rw (d, d), the entering state c0, n0,
+// m0 (B, d) and the forward's saved cs, ns, ms, zs (B, S, d). Outputs dzx,
+// dix, dfx, dox (B, S, d) and the entering state's gradients dc, dn, dh, dm
+// (B, d). All float32 and contiguous. Returns a cudaError_t code as
+// slstm_scan_launch does. Empty inputs launch nothing.
+extern "C" int slstm_scan_bwd_launch(int device, const void* dhs, const void* dcT,
+                                     const void* dnT, const void* dhT, const void* dmT,
+                                     const void* ix, const void* fx, const void* ox,
+                                     const void* rw, const void* c0, const void* n0,
+                                     const void* m0, const void* cs, const void* ns,
+                                     const void* ms, const void* zs, void* dzx, void* dix,
+                                     void* dfx, void* dox, void* dc, void* dn, void* dh, void* dm,
+                                     long long B, long long S, long long d, int layout, int C,
+                                     int R, int serial_floor, void* stream) {
+  if (B <= 0 || S <= 0 || d <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  BwdArgs a{static_cast<const float*>(dhs), static_cast<const float*>(dcT),
+            static_cast<const float*>(dnT), static_cast<const float*>(dhT),
+            static_cast<const float*>(dmT), static_cast<const float*>(ix),
+            static_cast<const float*>(fx), static_cast<const float*>(ox),
+            static_cast<const float*>(rw), static_cast<const float*>(c0),
+            static_cast<const float*>(n0), static_cast<const float*>(m0),
+            static_cast<const float*>(cs), static_cast<const float*>(ns),
+            static_cast<const float*>(ms), static_cast<const float*>(zs),
+            static_cast<float*>(dzx), static_cast<float*>(dix), static_cast<float*>(dfx),
+            static_cast<float*>(dox), static_cast<float*>(dc), static_cast<float*>(dn),
+            static_cast<float*>(dh), static_cast<float*>(dm), B, S, d,
+            0, 0, 0, 0, C, R, 0};
+  if (layout == kLayoutCluster) {
+    if (C < 1 || d > kMaxClusterD) return static_cast<int>(cudaErrorInvalidValue);
+    a.W = slice_width(d, C);
+    return serial_floor
+               ? launch_cluster(device, slstm_scan_bwd_cluster_kernel<true>, a, B, d, C, R, a.W,
+                                st)
+               : launch_cluster(device, slstm_scan_bwd_cluster_kernel<false>, a, B, d, C, R, a.W,
+                                st);
+  }
+  if (layout != kLayoutCooperative) return static_cast<int>(cudaErrorInvalidValue);
+  Plan p{};
+  int status = make_plan(device, B, d, backward_kernel(false), backward_kernel(true), &p);
+  if (status != 0) return status;
+  a.groups = p.groups;
+  a.chunk = p.chunk;
+  a.rows = p.rows;
+  a.rw_resident = p.rw_resident;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(backward_kernel(serial_floor), dim3(p.grid), dim3(kThreads),
+                                    params, p.smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -724,16 +1227,19 @@ extern "C" int slstm_scan_launch(int device, const void* zx, const void* ix, con
 // The cooperative layout's launch of a (B, d) call, into out[10]: grid,
 // column groups, groups a block, k chunk, staged rows, rw resident (0/1),
 // dynamic shared bytes, resident blocks a SM, registers and local (spilled)
-// bytes a thread.
-extern "C" int slstm_scan_plan(int device, long long B, long long d, long long* out) {
+// bytes a thread; of the forward (backward 0) or the backward (1).
+extern "C" int slstm_scan_plan(int device, long long B, long long d, int backward,
+                               long long* out) {
   if (B <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const void* kernel = backward ? backward_kernel(false) : forward_kernel(false);
   Plan p{};
-  int status = make_plan(device, B, d, &p);
+  int status = make_plan(device, B, d, kernel, backward ? backward_kernel(true)
+                                                        : forward_kernel(true), &p);
   if (status != 0) return status;
   cudaFuncAttributes attr{};
-  err = cudaFuncGetAttributes(&attr, slstm_scan_kernel<false>);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long vals[10] = {p.grid, p.groups, p.groups_per_block, p.chunk, p.rows,
                               p.rw_resident, static_cast<long long>(p.smem), p.blocks_per_sm,
@@ -743,12 +1249,12 @@ extern "C" int slstm_scan_plan(int device, long long B, long long d, long long* 
 }
 
 // The device's attributes that the cluster layout's plan reads, into
-// out[6 + kMaxCluster]: SMs, opt-in shared bytes a block, cooperative launch
-// (0/1), cluster launch (0/1), the cluster kernel's registers and local
-// (spilled) bytes a thread, then for C = 1 .. kMaxCluster the clusters of C
-// blocks the device holds at once at the opt-in shared bytes (0 where it
-// holds none; one block an SM in any case, as the kernel's registers allow no
-// more).
+// out[8 + kMaxCluster]: SMs, opt-in shared bytes a block, cooperative launch
+// (0/1), cluster launch (0/1), the forward cluster kernel's registers and
+// local (spilled) bytes a thread, the backward cluster kernel's, then for C =
+// 1 .. kMaxCluster the clusters of C blocks of the forward kernel the device
+// holds at once at the opt-in shared bytes (0 where it holds none; one block
+// an SM in any case, as the kernel's registers allow no more).
 extern "C" int slstm_scan_device(int device, long long* out) {
   cudaError_t err = cudaSetDevice(device);
   int vals[4] = {0, 0, 0, 0};
@@ -759,18 +1265,22 @@ extern "C" int slstm_scan_device(int device, long long* out) {
     err = cudaDeviceGetAttribute(&vals[i], keys[i], device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr{};
+  cudaFuncAttributes attr{}, bwd{};
   err = cudaFuncGetAttributes(&attr, slstm_scan_cluster_kernel<false>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&bwd, slstm_scan_bwd_cluster_kernel<false>);
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int i = 0; i < 4; ++i) out[i] = vals[i];
   out[4] = attr.numRegs;
   out[5] = static_cast<long long>(attr.localSizeBytes);
+  out[6] = bwd.numRegs;
+  out[7] = static_cast<long long>(bwd.localSizeBytes);
   for (int C = 1; C <= kMaxCluster; ++C) {
     int active = 0;
     if (vals[3]) {
       cudaLaunchAttribute la;
       cudaLaunchConfig_t cfg;
-      err = cluster_config<false>(C, static_cast<size_t>(vals[1]), C, nullptr, &la, &cfg);
+      err = cluster_config(slstm_scan_cluster_kernel<false>, C, static_cast<size_t>(vals[1]), C,
+                           nullptr, &la, &cfg);
       if (err == cudaSuccess) {
         err = cudaOccupancyMaxActiveClusters(&active, slstm_scan_cluster_kernel<false>, &cfg);
       }
@@ -779,7 +1289,7 @@ extern "C" int slstm_scan_device(int device, long long* out) {
         cudaGetLastError();  // a size the device refuses: none of it
       }
     }
-    out[5 + C] = active;
+    out[7 + C] = active;
   }
   return 0;
 }

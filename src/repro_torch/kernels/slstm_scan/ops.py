@@ -1,5 +1,5 @@
-"""Wrapper of the sLSTM recurrence kernel: checks, the layout plan, dispatch
-by device and launch counts.
+"""Wrapper of the sLSTM recurrence kernel and its backward: checks, the
+layout plan, dispatch by device, launch counts and the gradient.
 
 ``slstm_scan(zx, ix, fx, ox, rw, c, n, h, m)`` runs an sLSTM block's time
 loop (``repro.models.xlstm.slstm_block``'s ``lax.scan``) and returns
@@ -9,17 +9,25 @@ the last step. On CUDA tensors it launches the hand-written kernel
 on CPU tensors it runs the plain PyTorch version (``ref.py``). There is no
 fallback between the two or between the layouts: the layout is chosen
 before the launch, and a launch that fails raises. On meta tensors it only
-makes the outputs' shapes. The kernel has no backward: on CUDA tensors that
-require grad under grad mode it raises, and the training route runs the
-plain loop (``models.xlstm.slstm_block(train=True)``).
+makes the outputs' shapes.
+
+Under grad mode, where an input requires grad, the call goes through
+``_SLSTMScan``, a ``torch.autograd.Function``: its forward also saves every
+step's c, n, m and z, and its backward is ``slstm_scan_bwd``, on CUDA
+tensors the hand-written ``slstm_scan_bwd`` kernel (in the same source, in
+the layout ``plan`` names), on CPU tensors its plain version
+``ref.slstm_scan_bwd_ref``; then ``rw``'s gradient is one float32 matrix
+product over the B S rows of the previous outputs and dzx, at the caller's
+float32 matmul precision. On meta tensors both only make shapes.
 
 The layouts (the source's header says how each runs):
 
 - ``"cluster"``: one thread-block cluster of C blocks a group of up to
-  ``MAX_ROWS`` rows, block c holding ``rw[:, its columns]`` in registers,
-  h exchanged through distributed shared memory and waited for on an
-  mbarrier of each block: no barrier across clusters. It takes d up to
-  ``MAX_CLUSTER_D`` (48 columns a block at most, C up to 16).
+  ``MAX_ROWS`` rows, block c holding ``rw[:, its columns]`` (the backward:
+  ``rw[its rows, :]``) in registers, h (dz_pre) exchanged through
+  distributed shared memory and waited for on an mbarrier of each block: no
+  barrier across clusters. It takes d up to ``MAX_CLUSTER_D`` (48 columns a
+  block at most, C up to 16).
 - ``"cooperative"``: one cooperative launch over the whole card, a grid
   barrier a step; every shape.
 """
@@ -32,16 +40,17 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.slstm_scan.kernel import MAX_CLUSTER
-from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref, slstm_scan_ref
 
 __all__ = ["CLUSTER_MIN_STEPS", "LAUNCHES", "LAYOUTS", "MAX_CLUSTER_D",
-           "MAX_ROWS", "MAX_WIDTH", "Device", "cluster_size", "cluster_smem", "column_split",
-           "device", "plan", "reset_launches", "serial_floor", "slice_width", "slstm_scan"]
+           "MAX_ROWS", "MAX_WIDTH", "Device", "bwd_serial_floor", "cluster_size", "cluster_smem",
+           "column_split", "device", "plan", "reset_launches", "serial_floor", "slice_width",
+           "slstm_scan", "slstm_scan_bwd"]
 
-# Kernel launches since the last reset. Only a launch of the CUDA kernel
-# counts; the CPU path, empty inputs and the serial floor launch nothing
+# Kernel launches since the last reset. Only a launch of a CUDA kernel
+# counts; the CPU path, empty inputs and the serial floors launch nothing
 # that counts.
-LAUNCHES = {"slstm_scan": 0}
+LAUNCHES = {"slstm_scan": 0, "slstm_scan_bwd": 0}
 
 LAYOUTS = ("cluster", "cooperative")
 _LAYOUT_IDS = {"cooperative": 0, "cluster": 1}
@@ -207,7 +216,12 @@ def _device_index(t: torch.Tensor) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
-def _launch(zx, ix, fx, ox, rw, c, n, h, m, layout: str | None, floor: bool):
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(zx, ix, fx, ox, rw, c, n, h, m, layout: str | None, floor: bool,
+            save: bool = False):
     from repro_torch.kernels.slstm_scan.kernel import load_library
 
     B, S, d = zx.shape
@@ -215,16 +229,33 @@ def _launch(zx, ix, fx, ox, rw, c, n, h, m, layout: str | None, floor: bool):
     p = plan(B, S, d, device(index), layout)
     hs = torch.empty_like(zx)
     out = [torch.empty_like(c) for _ in range(4)]
+    saved = [torch.empty_like(zx) for _ in range(4)] if save else [None] * 4
     err = load_library().slstm_scan_launch(
         index, *(t.data_ptr() for t in (zx, ix, fx, ox, rw, c, n, h, m)),
-        hs.data_ptr(), *(t.data_ptr() for t in out), B, S, d, _LAYOUT_IDS[p["layout"]],
-        p.get("C", 0), p.get("R", 0), int(floor),
+        hs.data_ptr(), *(t.data_ptr() for t in out), *(_ptr(t) for t in saved), B, S, d,
+        _LAYOUT_IDS[p["layout"]], p.get("C", 0), p.get("R", 0), int(floor),
         torch.cuda.current_stream(zx.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"slstm_scan kernel launch ({p['layout']} layout) failed with CUDA "
                            f"error {err}")
-    return hs, *out
+    return (hs, *out, *saved) if save else (hs, *out)
+
+
+def _forward(zx, ix, fx, ox, rw, c, n, h, m, layout: str | None, save: bool):
+    """The time loop on zx's device, checked: (hs, c, n, h, m) and, with
+    ``save``, every step's c, n, m, z."""
+    if zx.device.type == "meta":
+        return (torch.empty_like(zx), *(torch.empty_like(t) for t in (c, n, h, m)),
+                *(torch.empty_like(zx) for _ in range(4 * save)))
+    if zx.device.type == "cpu":
+        return slstm_scan_ref(zx, ix, fx, ox, rw, c, n, h, m, save=save)
+    if zx.numel() == 0:  # no step, no row or no feature: nothing to launch
+        return (torch.empty_like(zx), *(t.clone() for t in (c, n, h, m)),
+                *(torch.empty_like(zx) for _ in range(4 * save)))
+    out = _launch(zx, ix, fx, ox, rw, c, n, h, m, layout, floor=False, save=save)
+    LAUNCHES["slstm_scan"] += 1
+    return out
 
 
 def slstm_scan(zx: torch.Tensor, ix: torch.Tensor, fx: torch.Tensor, ox: torch.Tensor,
@@ -236,22 +267,14 @@ def slstm_scan(zx: torch.Tensor, ix: torch.Tensor, fx: torch.Tensor, ox: torch.T
     matrix (d, d); c, n, h, m: the entering state (B, d). All float32,
     contiguous, on one device. ``layout`` forces the kernel's layout (one of
     ``LAYOUTS``; ``plan`` chooses by default); a layout that cannot take the
-    shape raises on every device.
+    shape raises on every device. Differentiable with respect to every
+    input (``_SLSTMScan``).
     """
     _check(zx, ix, fx, ox, rw, c, n, h, m)
     _check_layout(layout, zx.shape[2])
-    if zx.device.type == "meta":
-        return torch.empty_like(zx), *(torch.empty_like(t) for t in (c, n, h, m))
-    if zx.device.type == "cpu":
-        return slstm_scan_ref(zx, ix, fx, ox, rw, c, n, h, m)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (zx, ix, fx, ox, rw, c, n, h, m)):
-        raise RuntimeError("the slstm_scan kernel has no backward: a CUDA input requires grad; "
-                           "training runs the plain loop (slstm_block(train=True))")
-    if zx.numel() == 0:  # no step, no row or no feature: nothing to launch
-        return torch.empty_like(zx), *(t.clone() for t in (c, n, h, m))
-    hs, *state = _launch(zx, ix, fx, ox, rw, c, n, h, m, layout, floor=False)
-    LAUNCHES["slstm_scan"] += 1
-    return hs, *state
+        return _SLSTMScan.apply(zx, ix, fx, ox, rw, c, n, h, m, layout)
+    return _forward(zx, ix, fx, ox, rw, c, n, h, m, layout, save=False)
 
 
 def serial_floor(zx, ix, fx, ox, rw, c, n, h, m, layout: str | None = None) -> None:
@@ -266,3 +289,127 @@ def serial_floor(zx, ix, fx, ox, rw, c, n, h, m, layout: str | None = None) -> N
         raise ValueError(f"the serial floor runs on CUDA tensors, not {zx.device}")
     if zx.numel():
         _launch(zx, ix, fx, ox, rw, c, n, h, m, layout, floor=True)
+
+
+_GRADS = ("dhs", "dc", "dn", "dh", "dm")
+_SAVED = ("cs", "ns", "ms", "zs")
+
+
+def _check_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved) -> None:
+    if ix.ndim != 3:
+        raise ValueError(f"ix must be (B, S, d), got {tuple(ix.shape)}")
+    B, _, d = ix.shape
+    steps = {"ix": ix, "fx": fx, "ox": ox, **dict(zip(_SAVED, saved)), "dhs": grads[0]}
+    state = {"c0": c0, "n0": n0, "m0": m0, **dict(zip(_GRADS[1:], grads[1:]))}
+    named = {**steps, "rw": rw, **state}
+    for name, t in named.items():
+        if t is None:
+            continue
+        want = (tuple(ix.shape) if name in steps else (d, d) if name == "rw" else (B, d))
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"slstm_scan_bwd takes float32 tensors; {name} is {t.dtype}")
+        if t.device != ix.device:
+            raise ValueError(f"{name} lies on {t.device}, ix on {ix.device}: one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ix.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"slstm_scan_bwd runs on cpu, cuda or meta tensors, not {ix.device}")
+
+
+def _launch_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved, layout: str | None, floor: bool):
+    from repro_torch.kernels.slstm_scan.kernel import load_library
+
+    B, S, d = ix.shape
+    index = _device_index(ix)
+    p = plan(B, S, d, device(index), layout)
+    gates = [torch.empty_like(ix) for _ in range(4)]
+    state = [torch.empty_like(c0) for _ in range(4)]
+    err = load_library().slstm_scan_bwd_launch(
+        index, *(_ptr(t) for t in grads),
+        *(t.data_ptr() for t in (ix, fx, ox, rw, c0, n0, m0, *saved)),
+        *(t.data_ptr() for t in gates + state), B, S, d, _LAYOUT_IDS[p["layout"]],
+        p.get("C", 0), p.get("R", 0), int(floor), torch.cuda.current_stream(ix.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"slstm_scan_bwd kernel launch ({p['layout']} layout) failed with "
+                           f"CUDA error {err}")
+    return (*gates, *state)
+
+
+def slstm_scan_bwd(dhs, dc, dn, dh, dm, ix, fx, ox, rw, c0, n0, m0, cs, ns, ms, zs,
+                   layout: str | None = None):
+    """The time loop's backward but for ``rw``'s gradient: (dzx, dix, dfx,
+    dox (B, S, d), dc0, dn0, dh0, dm0 (B, d)); dzx is the gradient of z's
+    pre-activation, dz_pre.
+
+    dhs (B, S, d) and dc, dn, dh, dm (B, d): the gradients of the outputs
+    hs and the state after the last step, each None for zero; ix, fx, ox
+    (B, S, d), rw (d, d), the entering state c0, n0, m0 (B, d) and the
+    forward's saved c, n, m, z of every step (``slstm_scan_ref(...,
+    save=True)``'s last four). All float32, contiguous, on one device. On
+    CUDA tensors the kernel (one launch, counted) in ``layout`` (``plan``'s
+    by default), on CPU tensors ``ref.slstm_scan_bwd_ref``, on meta tensors
+    shapes only.
+    """
+    grads, saved = (dhs, dc, dn, dh, dm), (cs, ns, ms, zs)
+    _check_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved)
+    _check_layout(layout, ix.shape[2])
+    if ix.device.type == "meta":
+        return (*(torch.empty_like(ix) for _ in range(4)), *(torch.empty_like(c0) for _ in range(4)))
+    if ix.device.type == "cpu":
+        return slstm_scan_bwd_ref(*grads, ix, fx, ox, rw, c0, n0, m0, *saved)
+    if ix.numel() == 0:  # no step: the entering state's gradients are the final state's
+        return (*(torch.empty_like(ix) for _ in range(4)),
+                *(torch.zeros_like(c0) if g is None else g.clone() for g in grads[1:]))
+    out = _launch_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved, layout, floor=False)
+    LAUNCHES["slstm_scan_bwd"] += 1
+    return out
+
+
+def bwd_serial_floor(dhs, dc, dn, dh, dm, ix, fx, ox, rw, c0, n0, m0, cs, ns, ms, zs,
+                     layout: str | None = None) -> None:
+    """The backward kernel's serial floor on these CUDA inputs in
+    ``layout`` (the plan's by default): the same launch with the arithmetic
+    removed, its S barriers (cooperative) or its dz_pre exchange (cluster)
+    alone. Timed beside the kernel; not counted as a launch of it."""
+    grads, saved = (dhs, dc, dn, dh, dm), (cs, ns, ms, zs)
+    _check_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved)
+    _check_layout(layout, ix.shape[2])
+    if ix.device.type != "cuda":
+        raise ValueError(f"the serial floor runs on CUDA tensors, not {ix.device}")
+    if ix.numel():
+        _launch_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved, layout, floor=True)
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """The time loop with its hand-written backward. The forward saves every
+    step's c, n, m, z beside its inputs and hs; an output's gradient that
+    autograd does not pass (None) counts as zero."""
+
+    @staticmethod
+    def forward(ctx, zx, ix, fx, ox, rw, c, n, h, m, layout):
+        hs, c_out, n_out, h_out, m_out, *saved = _forward(zx, ix, fx, ox, rw, c, n, h, m, layout,
+                                                          save=True)
+        ctx.save_for_backward(ix, fx, ox, rw, c, n, h, m, hs, *saved)
+        ctx.layout = layout
+        ctx.set_materialize_grads(False)
+        return hs, c_out, n_out, h_out, m_out
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        ix, fx, ox, rw, c0, n0, h0, m0, hs, *saved = ctx.saved_tensors
+        grads = (None if g is None else g.contiguous() for g in (dhs, dc, dn, dh, dm))
+        dzx, dix, dfx, dox, dc0, dn0, dh0, dm0 = slstm_scan_bwd(*grads, ix, fx, ox, rw, c0, n0,
+                                                                 m0, *saved, layout=ctx.layout)
+        need = ctx.needs_input_grad
+        drw = None
+        if need[4]:
+            # sum over rows and steps of h_{t-1}^T dz_pre,t: h_{-1} is the
+            # entering h, then every step's output but the last.
+            B, S, d = ix.shape
+            prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+            drw = prev.reshape(B * S, d).t() @ dzx.reshape(B * S, d)
+        out = (dzx, dix, dfx, dox, drw, dc0, dn0, dh0, dm0)
+        return (*(g if need[i] else None for i, g in enumerate(out)), None)

@@ -19,11 +19,12 @@ fails; the port raises a ``ValueError`` there and does not pad. A decode
 step (S == 1) is the one-token update.
 
 sLSTM (a recurrence through h_{t-1} that is not diagonal) runs its whole
-time loop, in both modes, in one launch of the hand-written
-``kernels/slstm_scan`` kernel on the card (the reference's ``lax.scan``;
-``_slstm_scan`` dispatches); on the CPU and on the training route
-(``train=True``, which needs autograd) it runs the plain loop of
-``kernels/slstm_scan/ref.py``.
+time loop in one launch of the hand-written ``kernels/slstm_scan`` kernel
+on the card (the reference's ``lax.scan``; ``_slstm_scan`` dispatches), on
+the CPU the plain loop of ``kernels/slstm_scan/ref.py``. Under autograd
+(training) the same call goes through the kernel package's
+``torch.autograd.Function``, whose backward is the hand-written
+``slstm_scan_bwd`` kernel on the card and its plain version on the CPU.
 
 The mLSTM recurrence is eager torch ops. Both are float32 throughout, with
 the reference's stabilisers and its -1e30 mask fill. Both blocks return a
@@ -39,7 +40,6 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
-from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MeshCtx, dense, per_shard, init_dense, rms_norm
 
@@ -259,12 +259,11 @@ def init_slstm_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype)
     }
 
 
-def _slstm_scan(zx, ix, fx, ox, rw, st: SLSTMState, train: bool = False):
+def _slstm_scan(zx, ix, fx, ox, rw, st: SLSTMState):
     """The time loop. Gate inputs (B, S, d) float32, ``rw`` (d, d) float32.
     Returns (h (B, S, d), state after the last step). Meta tensors: shapes
-    only; the training route (``train``): the plain loop, which autograd
-    differentiates; otherwise ``slstm_ops.slstm_scan``: the kernel on CUDA
-    tensors, the plain loop on CPU tensors."""
+    only; otherwise ``slstm_ops.slstm_scan``: the kernel on CUDA tensors,
+    the plain loop on CPU tensors, each with its backward under autograd."""
     if zx.device.type == "meta":
         # Shapes only (the dry-run, where a meta operation costs a Python
         # call): every step's product and update at once, the operations
@@ -279,17 +278,17 @@ def _slstm_scan(zx, ix, fx, ox, rw, st: SLSTMState, train: bool = False):
         c_all, n_all = f_p * c[:, None] + i_p * zt, f_p * n[:, None] + i_p
         hs = o * c_all / n_all.clamp_min(1.0)
         return hs, SLSTMState(c=c_all[:, -1], n=n_all[:, -1], h=hs[:, -1], m=m_all[:, -1])
-    scan = slstm_scan_ref if train else slstm_ops.slstm_scan
-    hs, c, n, h, m = scan(zx, ix, fx, ox, rw, *(t.contiguous() for t in (st.c, st.n, st.h, st.m)))
+    hs, c, n, h, m = slstm_ops.slstm_scan(zx, ix, fx, ox, rw,
+                                          *(t.contiguous() for t in (st.c, st.n, st.h, st.m)))
     return hs, SLSTMState(c=c, n=n, h=h, m=m)
 
 
-def _slstm_scan_local(ctx: MeshCtx, zx, ix, fx, ox, rw, st: SLSTMState, train: bool = False):
+def _slstm_scan_local(ctx: MeshCtx, zx, ix, fx, ox, rw, st: SLSTMState):
     """``_slstm_scan`` over a mesh: the time loop on each rank's batch
     shard through ``local_map``, the gates' features and the recurrent
     matrix whole on every rank (the recurrence mixes every feature each
-    step); the loop then dispatches local operations, not DTensor ones
-    (on the card the kernel, on the training route the plain loop)."""
+    step); the loop then dispatches local operations, not DTensor ones (on
+    the card the kernel, and under autograd its backward kernel)."""
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
 
@@ -298,7 +297,7 @@ def _slstm_scan_local(ctx: MeshCtx, zx, ix, fx, ox, rw, st: SLSTMState, train: b
     rep_pl = list(ctx.placements(rw.shape, (None, None)))
 
     def body(zx, ix, fx, ox, rw, c, n, h, m):
-        hs, out = _slstm_scan(zx, ix, fx, ox, rw, SLSTMState(c=c, n=n, h=h, m=m), train)
+        hs, out = _slstm_scan(zx, ix, fx, ox, rw, SLSTMState(c=c, n=n, h=h, m=m))
         return hs, out.c, out.n, out.h, out.m
 
     # The recurrent matrix's gradient is each rank's sum over its own batch
@@ -322,15 +321,16 @@ def slstm_block(
     ctx: MeshCtx = MeshCtx(),
     train: bool = False,
 ) -> tuple[torch.Tensor, SLSTMState | None]:
-    """``train``: the training route, whose time loop autograd
-    differentiates (the plain loop; the kernel has no backward)."""
+    """``train``: the training route, which the model passes to every
+    block; the sLSTM time loop takes the same call on both routes, and
+    autograd differentiates it through the kernel's backward."""
     B = x.shape[0]
     zx, ix, fx, ox = (dense(p[w], x).float() for w in ("w_z", "w_i", "w_f", "w_o"))
     rw = p["r_z"]["w"].float()
     st = state if state is not None else init_slstm_state(B, cfg, device=x.device)
     if ctx.mesh is None:
-        hs, new_state = _slstm_scan(zx, ix, fx, ox, rw, st, train)
+        hs, new_state = _slstm_scan(zx, ix, fx, ox, rw, st)
     else:
-        hs, new_state = _slstm_scan_local(ctx, zx, ix, fx, ox, rw, st, train)
+        hs, new_state = _slstm_scan_local(ctx, zx, ix, fx, ox, rw, st)
     out = ctx.shard_tokens(hs.to(x.dtype))
     return dense(p["w_out"], out), (new_state if state is not None else None)

@@ -10,8 +10,9 @@ computed. S = 12 and 512, from a zero state and from the state a 12-token
 prompt left: every output and state within atol = rtol = 1e-5 (the
 tolerance of ``tests/test_torch_xlstm.py``). The dispatcher
 (``models.xlstm._slstm_scan``) on CPU tensors is ``ref.py`` bit for bit and
-launches nothing; the wrapper refuses wrong shapes, types and devices by
-name. The layout plan (``ops.plan``) is checked against the H100's
+launches nothing; the training route goes through the autograd Function
+(its gradients: ``tests/test_torch_slstm_scan_grad.py``); the wrapper
+refuses wrong shapes, types and devices by name. The layout plan (``ops.plan``) is checked against the H100's
 attributes: which layout, cluster size C and rows R each shape gets, and
 that every column split covers each column once. The kernel itself runs
 only on the card: ``tests/test_torch_slstm_scan_cuda.py``.
@@ -35,6 +36,7 @@ from repro_torch.models import xlstm
 TOL = dict(atol=1e-5, rtol=1e-5)
 CTX = MeshCtx(mesh=None)
 B = 2
+NO_LAUNCH = {"slstm_scan": 0, "slstm_scan_bwd": 0}
 
 
 @pytest.fixture(scope="module")
@@ -101,24 +103,38 @@ def test_dispatcher_on_the_cpu_is_the_plain_version(block, S):
     want = slstm_scan_ref(*args)
     for got, exp in zip((hs, state.c, state.n, state.h, state.m), want):
         assert torch.equal(got, exp)
-    assert slstm_ops.LAUNCHES == {"slstm_scan": 0}
+    assert slstm_ops.LAUNCHES == NO_LAUNCH
 
 
-def test_training_route_is_the_plain_loop_and_differentiable(block):
-    """``slstm_block(train=True)`` runs the loop (autograd's route); its
-    output equals the serving route's on the CPU, and gradients reach the
-    recurrent matrix."""
+def test_training_route_is_the_plain_loop_and_differentiable(block, monkeypatch):
+    """``slstm_block(train=True)`` goes through ``_SLSTMScan`` (its node in
+    the autograd graph); its output equals the serving route's, and its
+    gradients (``r_z``, a gate's weight, x) equal autograd through the plain
+    loop within 1e-5."""
     _, p = block
     cfg = get_config("xlstm-125m").reduced()
     tp = {k: {kk: torch.from_numpy(np.array(v)) for kk, v in d.items()} for k, d in p.items()}
-    tp["r_z"]["w"].requires_grad_(True)
-    x = torch.from_numpy(_x(5, 12, cfg.d_model))
-    y_train, _ = xlstm.slstm_block(tp, x, cfg, train=True)
+    wrt = [tp["r_z"]["w"].requires_grad_(True), tp["w_f"]["w"].requires_grad_(True),
+           torch.from_numpy(_x(5, 12, cfg.d_model)).requires_grad_(True)]
+    y_train, _ = xlstm.slstm_block(tp, wrt[2], cfg, train=True)
     with torch.no_grad():
-        y_serve, _ = xlstm.slstm_block(tp, x, cfg)
+        y_serve, _ = xlstm.slstm_block(tp, wrt[2], cfg)
     assert torch.equal(y_train.detach(), y_serve)
-    (grad,) = torch.autograd.grad(y_train.square().sum(), tp["r_z"]["w"])
-    assert grad.shape == (cfg.d_model, cfg.d_model) and bool(grad.abs().sum() > 0)
+    nodes, seen = [y_train.grad_fn], set()
+    while nodes:
+        node = nodes.pop()
+        if node is not None and node not in seen:
+            seen.add(node)
+            nodes.extend(f for f, _ in node.next_functions)
+    assert "_SLSTMScanBackward" in {type(node).__name__ for node in seen}
+    grads = torch.autograd.grad(y_train.square().sum(), wrt)
+    monkeypatch.setattr(slstm_ops, "slstm_scan", lambda *a, layout=None: slstm_scan_ref(*a))
+    y_plain, _ = xlstm.slstm_block(tp, wrt[2], cfg, train=True)
+    want = torch.autograd.grad(y_plain.square().sum(), wrt)
+    for got, exp in zip(grads, want):
+        assert bool(exp.abs().sum() > 0)
+        np.testing.assert_allclose(got.numpy(), exp.numpy(), **TOL)
+    assert slstm_ops.LAUNCHES == NO_LAUNCH
 
 
 def test_meta_tensors_make_shapes_only():
@@ -164,7 +180,7 @@ def test_wrapper_refuses_by_name(case):
     slstm_ops.reset_launches()
     with pytest.raises(exc, match=match):
         slstm_ops.slstm_scan(*make())
-    assert slstm_ops.LAUNCHES == {"slstm_scan": 0}
+    assert slstm_ops.LAUNCHES == NO_LAUNCH
 
 
 def test_wrapper_takes_cpu_tensors_without_a_launch():
@@ -173,7 +189,7 @@ def test_wrapper_takes_cpu_tensors_without_a_launch():
     got = slstm_ops.slstm_scan(*args)
     for g, w in zip(got, slstm_scan_ref(*args)):
         assert torch.equal(g, w)
-    assert slstm_ops.LAUNCHES == {"slstm_scan": 0}
+    assert slstm_ops.LAUNCHES == NO_LAUNCH
 
 
 # The H100 80GB HBM3's attributes as ``kernel.device_attributes`` reads them
@@ -266,7 +282,7 @@ def test_wrapper_refuses_a_forced_layout_by_name(layout, d, match):
     slstm_ops.reset_launches()
     with pytest.raises(ValueError, match=match):
         slstm_ops.slstm_scan(*_good(d=d), layout=layout)
-    assert slstm_ops.LAUNCHES == {"slstm_scan": 0}
+    assert slstm_ops.LAUNCHES == NO_LAUNCH
 
 
 @pytest.mark.parametrize("layout", list(slstm_ops.LAYOUTS))

@@ -3,9 +3,10 @@
 At reduced configs in float32, from one state (``params_from_jax`` and
 ``opt_state_from_jax``) and one numpy batch:
 
-* ``torch.autograd.grad`` of ``loss_fn`` against ``jax.grad`` for qwen1.5
-  and granite-moe, leaf by leaf, with and without remat: 1e-4 relative to
-  each leaf's largest gradient;
+* ``torch.autograd.grad`` of ``loss_fn`` against ``jax.grad`` for qwen1.5,
+  granite-moe and xlstm (its sLSTM blocks through the ``slstm_scan``
+  Function's backward), leaf by leaf, with and without remat: 1e-4
+  relative to each leaf's largest gradient;
 * one ``make_train_step`` step against the reference's (new parameters,
   m, v, grad norm, lr; 1e-5), then three steps of the cosine schedule.
 """
@@ -29,9 +30,14 @@ from torch_train_common import TOL, close_trees as _close_trees, tokens as _toke
 
 GRAD_REL = 1e-4
 CTX = MeshCtx(mesh=None)
+# Leaves whose gradient is exactly 0. An sLSTM block's input-gate bias adds
+# one constant to every step's i, which the stabiliser m absorbs from a
+# fresh state (m_0 = i_0 moves with it, and i', f' are differences from m):
+# both packages return rounding noise there (~1e-10).
+ZERO_GRADS = {"xlstm-125m": lambda path: path[-2:] == ("w_i", "b")}
 
 
-@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "granite-moe-1b-a400m", "xlstm-125m"])
 def test_grad_matches_jax(name):
     jcfg, cfg, tree = _tree(name)
     tokens = _tokens(cfg, 12)
@@ -43,7 +49,7 @@ def test_grad_matches_jax(name):
         loss = M.loss_fn(params, cfg, {"tokens": tokens}, device="cpu", remat=remat)
         grads = torch.autograd.grad(loss, flat)
         _close_trees(unflatten(params, list(grads)), jax.tree.map(np.asarray, jgrad), cfg,
-                     rel=GRAD_REL)
+                     rel=GRAD_REL, zero=ZERO_GRADS.get(name, lambda path: False))
 
 
 def _jax_state(tree, jcfg, opt):

@@ -40,14 +40,20 @@ def tokens(cfg, S, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
 
 
-def close_trees(port, ref_np, cfg, rel=None):
-    """Every leaf of the port's tree against the reference's (numpy, stacked)."""
+def close_trees(port, ref_np, cfg, rel=None, zero=lambda path: False):
+    """Every leaf of the port's tree against the reference's (numpy, stacked).
+    A leaf where ``zero(path)`` holds is a gradient that is exactly 0 (both
+    sides rounding noise): each side within ``rel`` of the tree's largest
+    leaf."""
     want = dict(leaves_with_path(params_from_jax(ref_np, cfg, device="cpu")))
     got = dict(leaves_with_path(port))
     assert got.keys() == want.keys()
+    largest = max(float(w.abs().max()) for w in want.values())
     for path, g in got.items():
         w = want[path].numpy()
-        if rel is None:
+        if zero(path):
+            assert max(float(np.abs(w).max()), float(g.detach().abs().max())) <= rel * largest, path
+        elif rel is None:
             np.testing.assert_allclose(g.detach().numpy(), w, **TOL, err_msg=str(path))
         else:
             scale = max(float(np.abs(w).max()), 1e-30)
