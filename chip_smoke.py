@@ -263,8 +263,8 @@ Phases (each raises on failure; nothing is caught):
    layers (exactly 4 B5 and 2 ``rglru_scan_bwd`` launches, inside
    ``local_map``), of granite-moe-1b-a400m's first 2 layers (the
    ``a2a`` route) and of xlstm-125m's first 2 blocks (exactly 2
-   ``slstm_scan`` and 1 ``slstm_scan_bwd`` launches, inside
-   ``local_map``), each through ``make_train_step(mesh=...)`` on DTensors
+   ``slstm_scan``, 1 ``slstm_scan_bwd`` and 1 ``slstm_scan_bwd_rest``
+   launches, inside ``local_map``), each through ``make_train_step(mesh=...)`` on DTensors
    and equal bit for bit to the mesh-less step from the same state and
    batch; the group is destroyed after the phase;
 22. wide clusters (``WIDE_COUNTS``: the paper's three types at 91 x 20/70/90,
@@ -301,12 +301,14 @@ Phases (each raises on failure; nothing is caught):
    occupied machines, each beside the dense count over every machine;
    policy_scan's serial floor, ``SERIAL_ADD_CYCLES`` a dependent add, too);
 23. xLSTM training (``slstm_scan`` under its ``torch.autograd.Function``,
-   whose backward is the ``slstm_scan_bwd`` kernel): (a) xlstm-125m at full
+   whose backward is the ``slstm_scan_bwd`` kernels: in the cluster layout
+   a loop and a rest pass): (a) xlstm-125m at full
    width and depth (12 blocks, six mLSTM and six sLSTM, d_model 768), bf16
    parameters, float32 moments, remat, 8 x 512 ``SyntheticLM`` tokens a
    step, 10 steps of the cosine schedule through the ``Trainer``: the loss
-   falls, exactly 12 ``slstm_scan`` and 6 ``slstm_scan_bwd`` launches a step
-   (the forward and remat's recompute; the backward), no B3, B4 or B5, the
+   falls, exactly 12 ``slstm_scan``, 6 ``slstm_scan_bwd`` and 6
+   ``slstm_scan_bwd_rest`` launches a step (the forward and remat's
+   recompute; the backward's loop and rest), no B3, B4 or B5, the
    plain sLSTM loop and its plain backward never on the card; the step wall
    (median of steps 3-10), tokens/s, peak memory, and one profiled step's
    device busy; (b) one float32 step (TF32 off) of its first 4 blocks (two
@@ -317,13 +319,17 @@ Phases (each raises on failure; nothing is caught):
    fresh state and from a prompt's, at ``SLSTM_EDGES`` and with a NaN in
    one gate (NaN where the plain version has it; reruns equal bit for
    bit), timed in both layouts beside its bound, its serial floor (the
-   dz_pre exchange alone) and its plain version.
+   dz_pre exchange alone, phased by row in the cluster layout) and its
+   plain version; the cluster layout's loop and rest pass timed apart and
+   each held to its own plain version, and the previous revision's kernel
+   timed and compared bit for bit where a copy lies at
+   ``PARENT_SLSTM_SOURCE``.
 
 Every phase's wall and the whole run's are printed at the end. The reference's results for
 phases 3-5, 12, 14 and 18 are constants below; ``tests/test_torch_multitenant_golden.py``
 and ``tests/test_torch_multitenant_runtime_golden.py`` recompute phase 12's,
 ``tests/test_torch_paper_*.py`` phase 14's and phase 18's.
-The last lines are the ``{"kernels": [...]}`` record (ten kernels; B1, B2,
+The last lines are the ``{"kernels": [...]}`` record (eleven kernels; B1, B2,
 cut_traffic and policy_scan carry phase 22's shapes and times under
 ``wide_cluster``, cut_traffic's 8 100-machine shape under its
 ``mid_cluster``, and the four kernels its launches;
@@ -339,7 +345,9 @@ launches and each timed shape, qwen2-vl-72b's its timed shape;
 prefill in the plan's layout at top level, a decode step in its plan's
 layout and both layouts' times and serial floors in its own keys;
 ``slstm_scan_bwd`` its launches in phases 21 and 23, the training shape in
-the plan's layout at top level and both layouts under ``layouts``), the
+the plan's layout at top level (the whole call, its loop and rest pass
+apart), both layouts under ``layouts``; ``slstm_scan_bwd_rest`` the
+cluster layout's rest kernel alone, its launches in phases 21 and 23), the
 card's ``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": ...}``.
 Without a CUDA device, or away from the repository, it exits non-zero and
@@ -2527,7 +2535,8 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
     with PlainOnCard(flash_ops, decode_ops, *loops) as plain:
         xl_launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, P, G,
                                 dict(flash_attention=0, decode_attention=0, rglru_scan=0,
-                                     rglru_scan_bwd=0, slstm_scan=n_slstm * G, slstm_scan_bwd=0),
+                                     rglru_scan_bwd=0, slstm_scan=n_slstm * G, slstm_scan_bwd=0,
+                                     slstm_scan_bwd_rest=0),
                                 wall)
     check(plain.calls == 0, f"a plain attention version or the plain sLSTM loop ran on the card "
                             f"{plain.calls} times")
@@ -2573,7 +2582,7 @@ def xlstm_whisper_phase(torch, F, M, serve, flash_ops, decode_ops, scan_ops, fla
         launches = serve_run(torch, lm_ops, M, serve, cfg, params, B, Pw, G,
                              dict(flash_attention=cfg.encoder_layers + 2 * L,
                                   decode_attention=2 * L * (G - 1), rglru_scan=0, rglru_scan_bwd=0,
-                                  slstm_scan=0, slstm_scan_bwd=0), wall)
+                                  slstm_scan=0, slstm_scan_bwd=0, slstm_scan_bwd_rest=0), wall)
     check(plain.calls == 0, f"a plain attention version ran on the card {plain.calls} times")
     print(f"  {cfg.encoder_layers} encoder layers over {S_enc} stub frames (d_model "
           f"{cfg.d_model}) + {L} decoder layers, vocab {cfg.vocab_size} padded to "
@@ -3411,11 +3420,12 @@ def mesh_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
               {"rglru_scan": 2 * n_rec, "rglru_scan_bwd": n_rec}),
              (f"granite-moe-1b-a400m, first {MESH_MOE_LAYERS} layers", gr, {}),
              (f"xlstm-125m, first {MESH_XL_LAYERS} blocks", xl,
-              {"slstm_scan": 2 * n_sl, "slstm_scan_bwd": n_sl}))
+              {"slstm_scan": 2 * n_sl, "slstm_scan_bwd": n_sl, "slstm_scan_bwd_rest": n_sl}))
     all_ops = (flash_ops, decode_ops, scan_ops, slstm_ops)
     det = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
-    b5 = {"rglru_scan": 0, "rglru_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
+    b5 = {"rglru_scan": 0, "rglru_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0,
+          "slstm_scan_bwd_rest": 0}
     torch.cuda.set_device(0)  # the rank's card, before the mesh's communicator
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
@@ -3505,6 +3515,8 @@ MID_COUNTS = (900, 3150, 4050)
 # REV:src/repro_torch/kernels/cut_traffic/csrc/cut_traffic.cu``; where it
 # exists, phase 22 builds it and times it at the 8 100-machine shape.
 PARENT_CUT_SOURCE = ROOT / "build" / "parent" / "cut_traffic.cu"
+# A copy of the previous revision's sLSTM source, timed in phase 23 where it lies.
+PARENT_SLSTM_SOURCE = ROOT / "build" / "parent" / "slstm_scan.cu"
 
 
 def scan_problem(torch, np, device, seed, B, P_, W, counts, m):
@@ -4138,9 +4150,12 @@ SLSTM_BWD_TOL = 1e-5
 
 
 def slstm_loops(slstm_ops):
-    """The sLSTM time loop's plain versions, forward and backward, as the
-    wrapper calls them: (module, attribute) pairs for ``PlainOnCard``."""
-    return ((slstm_ops, "slstm_scan_ref"), (slstm_ops, "slstm_scan_bwd_ref"))
+    """The sLSTM time loop's plain versions, forward and backward (whole,
+    and the cluster layout's loop and rest pass), as the wrapper calls
+    them: (module, attribute) pairs for ``PlainOnCard``."""
+    return tuple((slstm_ops, name) for name in ("slstm_scan_ref", "slstm_scan_bwd_ref",
+                                                 "slstm_scan_bwd_chain_ref",
+                                                 "slstm_scan_bwd_rest_ref"))
 
 
 def slstm_bwd_inputs(torch, gen, B, S, d, rw=None, state=None):
@@ -4205,12 +4220,102 @@ def time_slstm_bwd(torch, slstm_ops, bwd_ref, args, what, layout, plain_ms=None)
     return err, ms, plain_ms, bound, None, floor_ms
 
 
+# The rest pass's operations a (row, column) a step, each product, sum,
+# quotient, comparison and transcendental one: step_terms 21, step_chain 3
+# (its dz_pre unused), step_rest 21.
+SLSTM_REST_OPS = 45
+
+
+def time_slstm_bwd_parts(torch, slstm_ops, args, whole_ms):
+    """The cluster layout's two kernels apart on ``args``: the loop
+    (``slstm_scan_bwd_chain``) against ``slstm_scan_bwd_chain_ref`` and the
+    rest pass (``slstm_scan_bwd_rest``) on the loop's dh_t against
+    ``slstm_scan_bwd_rest_ref`` on the same dh_t (each within
+    ``SLSTM_BWD_TOL`` of every output's max-abs), each timed; the rest
+    pass beside its own bound and plain version; and the previous
+    revision's kernel (``PARENT_SLSTM_SOURCE``, where a copy lies) timed
+    and its outputs compared bit for bit with the call's. Returns {loop_ms,
+    rest: (err, ms, plain_ms, bound, None), parent_ms, parent_equal}."""
+    from repro_torch.kernels.slstm_scan.ref import (slstm_scan_bwd_chain_ref,
+                                                     slstm_scan_bwd_rest_ref)
+    from repro_torch.launch.timing import time_cuda
+
+    B, S, d = args[5].shape
+    chain = slstm_ops.slstm_scan_bwd_chain(*args)
+    loop_err = slstm_bwd_error(torch, "slstm_scan_bwd's loop", chain,
+                               slstm_scan_bwd_chain_ref(*args))
+    rest_args = (chain[1], *args[1:3], args[4], *args[5:8], *args[9:])
+    rest_err = slstm_bwd_error(torch, "slstm_scan_bwd's rest pass",
+                               slstm_ops.slstm_scan_bwd_rest(*rest_args),
+                               slstm_scan_bwd_rest_ref(*rest_args))
+    loop_ms = time_cuda(lambda: slstm_ops.slstm_scan_bwd_chain(*args))
+    rest_ms = time_cuda(lambda: slstm_ops.slstm_scan_bwd_rest(*rest_args))
+    rest_plain = time_cuda(lambda: slstm_scan_bwd_rest_ref(*rest_args), reps=3)
+    # Read once: dh_t, ix, fx, ox, cs, ns, ms, zs (B, S, d), the entering c,
+    # n, m and the final dc, dn, dm; written once: dix, dfx, dox and the
+    # entering dc, dn, dm.
+    n_bytes = (11 * B * S * d + 9 * B * d) * 4
+    ops = SLSTM_REST_OPS * B * S * d
+    rest_bound = _bound(ops / FP32_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S)
+    parent = parent_slstm_bwd(torch)
+    parent_ms = parent_equal = None
+    if parent is not None:
+        got, old = slstm_ops.slstm_scan_bwd(*args, layout="cluster"), parent(args)
+        parent_equal = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                           for x, y in zip(got, old))
+        parent_ms = time_cuda(lambda: parent(args))
+    print(f"  slstm_scan_bwd's two kernels apart, cluster layout: the loop {loop_ms:.4f} ms "
+          f"(within {SLSTM_BWD_TOL:g} of max-abs of its plain version, max abs error "
+          f"{loop_err:.3e}), the rest pass {rest_ms:.4f} ms (bound {rest_bound[0]:.4f} ms by "
+          f"{rest_bound[1]}, {n_bytes / 1e6:.2f} MB; {100 * rest_bound[0] / rest_ms:.1f}% of it; "
+          f"plain {rest_plain:.4f} ms; max abs error {rest_err:.3e}); the call {whole_ms:.4f} ms; "
+          + (f"the previous revision's kernel {parent_ms:.4f} ms, its outputs "
+             f"{'equal bit for bit' if parent_equal else 'NOT equal bit for bit'} to the call's"
+             if parent is not None else "the previous revision's kernel not timed (no copy at "
+                                        "PARENT_SLSTM_SOURCE)"))
+    return {"loop_ms": loop_ms, "loop_err": loop_err,
+            "rest": (rest_err, rest_ms, rest_plain, rest_bound, None),
+            "parent_ms": parent_ms, "parent_equal": parent_equal}
+
+
+def parent_slstm_bwd(torch):
+    """The cluster-layout backward of ``PARENT_SLSTM_SOURCE`` (the entry of
+    commit 8326434,
+    built on first use) as a call on ``slstm_scan_bwd``'s arguments, or None
+    where no copy is there."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+
+    if not PARENT_SLSTM_SOURCE.exists():
+        return None
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib = _build.load_library(PARENT_SLSTM_SOURCE, "slstm_scan_bwd_launch",
+                              [i32] + [p] * 24 + [i64] * 3 + [i32] * 4 + [p])
+
+    def run(args):
+        B, S, d = args[5].shape
+        plan = slstm_ops.plan(B, S, d, slstm_ops.device(), "cluster")
+        out = [torch.empty_like(args[5]) for _ in range(4)] + [
+            torch.empty_like(args[9]) for _ in range(4)]
+        err = lib.slstm_scan_bwd_launch(
+            0, *(None if t is None else t.data_ptr() for t in args),
+            *(t.data_ptr() for t in out), B, S, d, 1, plan["C"], plan["R"], 0,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent slstm_scan_bwd kernel failed with CUDA error {err}")
+        return out
+
+    return run
+
+
 def slstm_bwd_checks(torch, B, S, d):
     """Phase 23 (c): ``slstm_scan_bwd`` against its plain version on the
     card in both layouts at (B, S, d) from a fresh state and from a
     prompt's, at ``SLSTM_EDGES`` and with a NaN in one gate, reruns equal
-    bit for bit; timed in both layouts at (B, S, d). Returns (max abs
-    error, {layout: timing}, the plan's layout)."""
+    bit for bit; timed in both layouts at (B, S, d), the cluster layout's
+    two kernels apart (``time_slstm_bwd_parts``). Returns (max abs error,
+    {layout: timing}, the plan's layout, the parts)."""
     from repro_torch.kernels.slstm_scan import kernel as slstm_kernel
     from repro_torch.kernels.slstm_scan import ops as slstm_ops
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref, slstm_scan_ref
@@ -4224,20 +4329,24 @@ def slstm_bwd_checks(torch, B, S, d):
     clu = slstm_ops.plan(B, S, d, slstm_ops.device(), "cluster")
     chosen = slstm_ops.plan(B, S, d, slstm_ops.device())["layout"]
     print(f"  slstm_scan_bwd at B={B} S={S} d={d}: the plan takes the {chosen} layout; cluster "
-          f"layout {clu['clusters']} clusters of C = {clu['C']} blocks (R = {clu['R']} rows, rows "
-          f"{clu['width']} of rw a block in registers), {attrs['bwd_registers']} registers, "
-          f"{attrs['bwd_local_bytes']} local (spilled) bytes a thread (the forward's "
-          f"{attrs['registers']}); cooperative layout {coop['grid']} blocks, rw^T "
-          f"{'in shared memory' if coop['rw_resident'] else 'in global memory'}, "
-          f"{coop['registers']} registers, {coop['local_bytes']} local bytes")
-    check(attrs["bwd_local_bytes"] == 0 and coop["local_bytes"] == 0,
-          "the backward kernel spills registers")
+          f"layout {clu['clusters']} clusters of C = {clu['C']} blocks (R = {clu['R']} rows, "
+          f"one exchange phase of {clu['phase_bytes']} bytes a row, {clu['bwd_smem_bytes']} "
+          f"shared bytes a block, rows {clu['width']} of rw a block in registers), its loop "
+          f"{attrs['bwd_registers']} registers, {attrs['bwd_local_bytes']} local (spilled) bytes "
+          f"a thread (the forward's {attrs['registers']}), its rest pass "
+          f"{attrs['rest_registers']} and {attrs['rest_local_bytes']}; cooperative layout "
+          f"{coop['grid']} blocks, rw^T in {'shared' if coop['rw_resident'] else 'global'} "
+          f"memory, {coop['registers']} registers, {coop['local_bytes']} local bytes")
+    check(attrs["bwd_local_bytes"] == 0 and attrs["rest_local_bytes"] == 0
+          and coop["local_bytes"] == 0, "the backward kernel spills registers")
     timings, plain = {}, None
     for layout in slstm_ops.LAYOUTS:
         timings[layout] = time_slstm_bwd(torch, slstm_ops, slstm_scan_bwd_ref, fresh,
                                          "fresh state", layout, plain)
         plain = timings[layout][2]
     err = max(t[0] for t in timings.values())
+    parts = time_slstm_bwd_parts(torch, slstm_ops, fresh, timings["cluster"][1])
+    err = max(err, parts["loop_err"])
     left = slstm_scan_ref(*slstm_inputs(torch, gen, B, S, d, rw))[1:]
     cases = [("from the state a prompt left", slstm_bwd_inputs(torch, gen, B, S, d, rw, left))]
     cases += [(label, slstm_bwd_inputs(torch, gen, b, s, w)) for label, b, s, w in SLSTM_EDGES]
@@ -4260,7 +4369,7 @@ def slstm_bwd_checks(torch, B, S, d):
               f"{SLSTM_BWD_TOL:g} of max-abs of its plain version, reruns equal ({', '.join(took)})"
               + (f", NaN in the same {nans} of dzx's outputs" if nans else ""))
     slstm_ops.LAUNCHES.update(before)  # the comparison's launches are not the path's
-    return err, timings, chosen
+    return err, timings, chosen, parts
 
 
 def xlstm_train_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
@@ -4269,8 +4378,9 @@ def xlstm_train_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
     with the exact launch counts and no plain loop on the card; one profiled
     step; one float32 step of its first XL_CHECK_LAYERS blocks against the
     CPU; ``slstm_scan_bwd`` against its plain version, timed. Returns (the
-    training run's launches of both kernels, the backward's max abs error,
-    its timings by layout, the plan's layout)."""
+    training run's launches of the three kernels, the backward's max abs
+    error, its timings by layout, the plan's layout, the cluster layout's
+    two kernels apart)."""
     import tempfile
 
     from repro_torch._tree import leaves
@@ -4330,7 +4440,8 @@ def xlstm_train_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
     # Remat: each sLSTM block's time loop runs in the forward and again in
     # the recompute of its repeat, its backward once; no attention kernel.
     want = dict(flash_attention=0, decode_attention=0, rglru_scan=0, rglru_scan_bwd=0,
-                slstm_scan=2 * n_slstm * XL_TRAIN_STEPS, slstm_scan_bwd=n_slstm * XL_TRAIN_STEPS)
+                slstm_scan=2 * n_slstm * XL_TRAIN_STEPS, slstm_scan_bwd=n_slstm * XL_TRAIN_STEPS,
+                slstm_scan_bwd_rest=n_slstm * XL_TRAIN_STEPS)
     check(launches == want, f"xLSTM training launched {launches}, not {want}")
     check(plain.calls == 0, f"a plain attention version or sLSTM loop ran on the card "
                             f"{plain.calls} times")
@@ -4353,8 +4464,9 @@ def xlstm_train_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
           f"{walls[0] * 1e3:.1f} ms), {tokens / step_s:,.0f} tokens/s; 6 N D = "
           f"{flops / 1e12:.3f} TFLOP a step, {flops / step_s / 1e12:.2f} TFLOP/s achieved "
           f"({100 * flops / step_s / BF16_FLOPS_PER_S:.2f}% of the bf16 peak at 700 W); peak "
-          f"memory {peak / 2**30:.2f} GiB; launches {launches} (slstm_scan twice and "
-          f"slstm_scan_bwd once an sLSTM block a step), the plain sLSTM loop and its plain "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches} (slstm_scan twice, "
+          f"slstm_scan_bwd and its rest once an sLSTM block a step), the plain sLSTM loop and "
+          f"its plain "
           f"backward 0 times on the card; {wall['xlstm_train_s']:.2f} s; {smi}")
     wall["xlstm_train_step_ms"] = step_s * 1e3
     wall["xlstm_train_peak_gib"] = peak / 2**30
@@ -4364,12 +4476,14 @@ def xlstm_train_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
     prof = profile_phase(lambda: step(trained, batch), top=64, kernels={})
     busy_ms = prof["device_busy_s"] * 1e3
     fwd = [t for t in prof["top"] if "slstm_scan" in t["name"] and "bwd" not in t["name"]]
-    bwd = [t for t in prof["top"] if "slstm_scan_bwd" in t["name"]]
+    bwd = [t for t in prof["top"] if "slstm_scan_bwd" in t["name"] and "rest" not in t["name"]]
+    rest = [t for t in prof["top"] if "slstm_scan_bwd_rest" in t["name"]]
     print(f"  one profiled step: wall {prof['wall_s'] * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * prof['busy_share']:.1f}%), {prof['launches']} device activities; slstm_scan "
           f"{sum(t['device_ms'] for t in fwd):.3f} ms x{sum(t['calls'] for t in fwd)}, "
           f"slstm_scan_bwd {sum(t['device_ms'] for t in bwd):.3f} ms "
-          f"x{sum(t['calls'] for t in bwd)}; top: " + "; ".join(
+          f"x{sum(t['calls'] for t in bwd)}, its rest {sum(t['device_ms'] for t in rest):.3f} ms "
+          f"x{sum(t['calls'] for t in rest)}; top: " + "; ".join(
               f"{t['name'][:40]} {t['device_ms']:.2f} ms x{t['calls']}" for t in prof["top"][:5]))
     wall["xlstm_train_busy_share"] = prof["busy_share"]
     del trained
@@ -4390,7 +4504,8 @@ def xlstm_train_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
             {"params": p, "opt": adamw.init_opt_state(p, opt)}, batch32)
         del p
     n32 = c32.resolved_block_pattern.count("slstm")
-    check(slstm_ops.LAUNCHES == {"slstm_scan": n32, "slstm_scan_bwd": n32},
+    check(slstm_ops.LAUNCHES == {"slstm_scan": n32, "slstm_scan_bwd": n32,
+                                 "slstm_scan_bwd_rest": n32},
           f"the float32 step launched {slstm_ops.LAUNCHES}")
     (cpu, m_cpu), (card, m_card) = res["cpu"], res["cuda"]
     loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
@@ -4409,7 +4524,7 @@ def xlstm_train_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
           f"{float(m_cpu['loss']):.6f} ({loss_rel:.2e} relative, <= {F32_LOSS_REL:g}), grad norm "
           f"{norm_rel:.2e} (<= {F32_NORM_REL:g}), update {upd_rel:.2e} in l2 "
           f"(<= {F32_UPDATE_REL:g}); {flips} of {d_cpu.numel()} updates of opposite sign; "
-          f"{n32} slstm_scan and {n32} slstm_scan_bwd launches on the card; "
+          f"{n32} slstm_scan, {n32} slstm_scan_bwd and {n32} of its rest launches on the card; "
           f"{time.perf_counter() - t0:.2f} s")
     wall["xlstm_train_f32_check_s"] = time.perf_counter() - t0
     del res, cpu, card, p_cpu, d_cpu, d_card
@@ -4417,11 +4532,12 @@ def xlstm_train_phase(torch, M, flash_ops, decode_ops, scan_ops, wall, smi):
 
     # (c) slstm_scan_bwd against its plain version, and timed ----------------------
     t0 = time.perf_counter()
-    err, timings, chosen = slstm_bwd_checks(torch, TRAIN_B, TRAIN_S, cfg.d_model)
+    err, timings, chosen, parts = slstm_bwd_checks(torch, TRAIN_B, TRAIN_S, cfg.d_model)
     wall["slstm_bwd_kernel_s"] = time.perf_counter() - t0
     wall["phase_23_s"] = time.perf_counter() - t_phase
     print(f"  phase 23 wall {wall['phase_23_s']:.1f} s")
-    return ({k: launches[k] for k in ("slstm_scan", "slstm_scan_bwd")}, err, timings, chosen)
+    return ({k: launches[k] for k in ("slstm_scan", "slstm_scan_bwd", "slstm_scan_bwd_rest")}, err,
+            timings, chosen, parts)
 
 
 def _bound(op_s, byte_s):
@@ -4474,9 +4590,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_modules = (kernel, cut_kernel, flash_kernel, decode_kernel, scan_kernel,
                       scan_policy_kernel, slstm_kernel)
-    with ThreadPoolExecutor(len(kernel_modules) + 1) as pool:  # one nvcc per source, all at once
+    with ThreadPoolExecutor(len(kernel_modules) + 2) as pool:  # one nvcc per source, all at once
         builds = [pool.submit(k.load_library) for k in kernel_modules]
         builds.append(pool.submit(parent_cut_kernel, torch))  # phase 22's, where a copy lies
+        builds.append(pool.submit(parent_slstm_bwd, torch))  # phase 23's, where a copy lies
         for build in builds:
             build.result()
     wall["build_s"] = time.perf_counter() - t0
@@ -4487,10 +4604,11 @@ def main() -> int:
         for line in info.get("log", "").splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  ptxas: {line.strip()}")
-    if PARENT_CUT_SOURCE.exists():
-        info = build_info(PARENT_CUT_SOURCE)
-        print(f"  built the copy {PARENT_CUT_SOURCE.relative_to(ROOT)} in "
-              f"{info.get('seconds', 0.0):.2f} s (phase 22 times it)")
+    for copy, phase in ((PARENT_CUT_SOURCE, 22), (PARENT_SLSTM_SOURCE, 23)):
+        if copy.exists():
+            info = build_info(copy)
+            print(f"  built the copy {copy.relative_to(ROOT)} in {info.get('seconds', 0.0):.2f} s "
+                  f"(phase {phase} times it)")
     print(f"  all seven built in {wall['build_s']:.2f} s")
 
     # [2] kernel against its plain version on the card ---------------------
@@ -4983,24 +5101,34 @@ def main() -> int:
             print(f"  {rec['name']}: {launches} launches in phase 22 (wide clusters)")
             rec["launches"] += launches
     # [23] xLSTM training through slstm_scan and its backward kernel ------------------
-    xl_train, bwd_err, bwd_times, bwd_layout = xlstm_train_phase(
+    xl_train, bwd_err, bwd_times, bwd_layout, bwd_parts = xlstm_train_phase(
         torch, M, flash_ops, decode_ops, scan_ops, wall, smi)
     print(f"  slstm_scan: {xl_train['slstm_scan']} launches in phase 23 (training xlstm-125m)")
     slstm_rec["launches"] += xl_train["slstm_scan"]
     # The backward: no TPU kernel; it replaces autograd through the reference's
-    # lax.scan. Top level: the training shape in the plan's layout; ``layouts``
-    # both layouts with their serial floors.
+    # lax.scan. Top level: the training shape in the plan's layout (the whole
+    # call; in the cluster layout its loop and rest pass apart); ``layouts``
+    # both layouts with their serial floors. Its rest kernel's own record:
+    # the cluster layout's rest pass alone.
+    shape = f"B={TRAIN_B} S={TRAIN_S} d=768 float32"
     rec = _record("slstm_scan_bwd", kernel_src.format("slstm_scan"),
                   "src/repro/models/xlstm.py:312",
                   xl_train["slstm_scan_bwd"] + mesh_b5["slstm_scan_bwd"], bwd_err,
                   bwd_times[bwd_layout][:5])
-    rec.update(shape=f"B={TRAIN_B} S={TRAIN_S} d=768 float32", layout=bwd_layout,
-               serial_floor_ms=bwd_times[bwd_layout][5],
+    rec.update(shape=shape, layout=bwd_layout, serial_floor_ms=bwd_times[bwd_layout][5],
+               loop_ms=bwd_parts["loop_ms"], rest_ms=bwd_parts["rest"][1],
+               parent_ms=bwd_parts["parent_ms"], parent_equal=bwd_parts["parent_equal"],
                layouts={layout: {"ms": t[1], "serial_floor_ms": t[5]}
                         for layout, t in bwd_times.items()})
     records.append(rec)
+    rest = _record("slstm_scan_bwd_rest", rec["source"], rec["replaces"],
+                   xl_train["slstm_scan_bwd_rest"] + mesh_b5["slstm_scan_bwd_rest"],
+                   bwd_parts["rest"][0], bwd_parts["rest"])
+    rest.update(shape=shape, layout="cluster")
+    records.append(rest)
     print(f"  slstm_scan_bwd: {xl_train['slstm_scan_bwd']} launches in phase 23, "
-          f"{mesh_b5['slstm_scan_bwd']} in phase 21 (local_map)")
+          f"{mesh_b5['slstm_scan_bwd']} in phase 21 (local_map); slstm_scan_bwd_rest: "
+          f"{xl_train['slstm_scan_bwd_rest']} and {mesh_b5['slstm_scan_bwd_rest']}")
     wall["total_s"] = time.perf_counter() - t_start
     print("  wall: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items()))
 

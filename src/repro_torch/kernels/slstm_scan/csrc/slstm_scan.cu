@@ -1,6 +1,7 @@
 // sLSTM recurrence for Hopper (sm_90a): the whole time loop of one sLSTM
-// block call in one launch, in one of two layouts, and its backward, also
-// in one launch.
+// block call in one launch, in one of two layouts, and its backward (one
+// launch in the cooperative layout, a loop and a rest pass in the cluster
+// layout).
 //
 // No TPU kernel stands behind it. It replaces the time loop of
 // src/repro/models/xlstm.py::slstm_block, an XLA lax.scan (:293-312), which
@@ -89,37 +90,60 @@
 // decode step), where loading 144 KiB of rw a block costs the cluster layout
 // more than the step itself.
 //
-// The backward (slstm_scan_bwd_cluster_kernel, slstm_scan_bwd_kernel)
-// replaces autograd through the same lax.scan (the reference's jax.grad of
-// slstm_block, :312). It runs t = S-1 .. 0 from the saved c, n, m, z, the
-// gradients dhs of every output and those of the state after the last step
-// (any of them null: zero), and writes dzx_t (the gradient of z's
-// pre-activation, dz_pre,t), dix_t, dfx_t, dox_t and, at the end, the
+// The backward replaces autograd through the same lax.scan (the
+// reference's jax.grad of slstm_block, :312). It runs t = S-1 .. 0 from the
+// saved c, n, m, z, the gradients dhs of every output and those of the
+// state after the last step (any of them null: zero), and writes dzx_t (the
+// gradient of z's pre-activation, dz_pre,t), dix_t, dfx_t, dox_t and the
 // entering state's gradients. ref.py's slstm_scan_bwd_ref is its CPU twin
-// and gives the formulae; each product, sum and quotient rounds on its own in
-// the twin's order. Its serial part is dh_{t-1} = dhs_{t-1} + dz_pre,t @
-// rw^T: the forward's product with rw^T in the place of rw. So the backward
-// keeps the forward's two layouts: in the cluster layout block c holds rows
-// J of rw (its columns of rw^T) in registers and dz_pre,t goes by st.async
-// into every block's shared memory, counted on its mbarrier, double-buffered,
-// exactly as h_t does forward; the cooperative layout stages dz_pre,t+1 from
-// dzx[:, t+1] after a grid barrier. The lane that owns (row, column) carries
-// dc, dn and dm in registers (cluster layout; the cooperative layout in the
-// output state, as the forward carries c, n, m) and loads a step ahead what
-// needs no gradient: the gates, dhs, z, c, n, m of step t - 1 and the state
-// of step t - 2. What needs no gradient of step t (the exponentials, the
-// clamp, sigmoid) is computed while dz_pre,t+1 is on its way; the chain from
-// dh_t to dz_pre,t is an add, a division, three products and a sum, and the
-// rest of the step runs after dz_pre,t has been sent. One exchange more after
-// step 0 gives the entering h's gradient. The gradient of rw, sum over rows
-// and steps of h_{t-1}^T dz_pre,t, is one matrix product after the launch
-// (the caller's). Bound: operations, as the forward's (the same 2 B S d^2
-// FLOP of products); ~151 MB moved at (8, 512, 768).
+// and gives the formulae; each product, sum and quotient rounds on its own
+// in the twin's order. Its only serial dependence runs through the chain
+//   dh_t = dhs_t + dz_pre,t+1 @ rw^T -> dq = dh_t / max(n_t, 1)
+//   -> dc' = dc + dq o -> dz_pre,t = dc' i' (1 - z_t^2),  dc <- dc' f',
+// the forward's product with rw^T in the place of rw; dn, dm and the gate
+// gradients hang off it and feed nothing back into it. The layouts:
+//
+// Cluster layout: two kernels, one after the other. The loop
+// (slstm_scan_bwd_cluster_kernel) holds the chain and nothing else: block c
+// holds rows J of rw (its columns of rw^T) in registers, the lane that owns
+// (row, column) carries dc and loads a step ahead what the chain reads (the
+// gates, dhs, z, n, m), computes the chain's terms (o, i', f', max(n, 1),
+// 1 - z^2) while dz_pre,t+1 is on its way, and stores dzx_t and dh_t (gs, a
+// scratch the wrapper allocates). The exchange is phased by row: each row
+// of the cluster has its own double buffer and its own pair of mbarriers,
+// each phase expecting that row's 4 d bytes, and each row is sent apart. A
+// warp waits for the rows two at a time and sums both rows' products
+// together (their loads and products interleaved): on an H100 80GB HBM3 at
+// 700 W the loop at (8, 512, 768) took 0.7007 ms so, where taking the rows
+// in turn (wait, products, chain and send of one row, then the next) took
+// 0.7887 and waiting each row just before its own products 0.7351
+// (launch/slstm_bwd_split.py --orders): one row's products and
+// reduce-scatter alone leave the warps too little to interleave. The
+// invariant of the forward holds row by row: no block writes a row's buffer
+// before every reader of it is done, since dz_pre,t[r] is sent only once
+// all of dz_pre,t+1[r] has arrived, and each block sends its part after its
+// own reads of that buffer. One wait more after step 0 gives the entering
+// h's gradient. The rest (slstm_scan_bwd_rest_kernel) then runs
+// over t = S-1 .. 0 from gs: dc, dn and dm are recurrences of one column and
+// wait on no exchange; a block's producer warps compute the steps' terms a
+// chunk ahead in parallel and one warp runs the recurrences, each value
+// rounded as the cooperative kernel's step_terms, step_chain and step_rest
+// round it, so every output keeps its bits.
+//
+// Cooperative layout (slstm_scan_bwd_kernel): the whole step in one
+// kernel, dz_pre,t+1 staged from dzx[:, t+1] after a grid barrier, dc, dn,
+// dm carried in the output state; it serves d past 768 and short calls.
+//
+// The gradient of rw, sum over rows and steps of h_{t-1}^T dz_pre,t, is one
+// matrix product after the launch (the caller's). Bound: operations, as the
+// forward's (the same 2 B S d^2 FLOP of products); ~154 MB of operands at
+// (8, 512, 768), and the cluster layout moves 2 x 12.6 MB more through gs.
 //
 // Each layout and direction has a serial floor (serial_floor 1): the same
 // launch with the arithmetic removed. The cooperative floor is its grid
 // barriers; the cluster floor its exchange (the mbarrier waits and the
-// st.async stores, one read of the buffer a lane).
+// st.async stores, one read of the buffer a lane; in the backward's loop
+// phased by row).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -227,6 +251,7 @@ struct BwdArgs {
   float* dn;
   float* dh;
   float* dm;
+  float* gs;  // every step's dh_t (B, S, d): the cluster loop's output, its rest pass's input
   int64_t B, S, d;
   int groups, chunk, rows, rw_resident;  // the cooperative layout's plan
   int C, R, W;                           // the cluster layout's
@@ -260,55 +285,104 @@ __device__ __forceinline__ float log_sigmoid_grad(float x) {
 }
 
 // What a backward step needs of the forward and no gradient: from the gates
-// and the saved values of steps t and t - 1.
-struct StepTerms {
-  float o, lfm, i_p, f_p, nd, qnn, zz, lsg;
+// and the saved values of steps t and t - 1. ChainTerms: what the chain from
+// dh_t to dz_pre,t (and the carried dc) reads; StepTerms adds the rest's.
+struct ChainTerms {
+  float o, lfm, i_p, f_p, nd, zz;
 };
 
-__device__ __forceinline__ StepTerms step_terms(float ix, float fx, float ox, float c, float n,
-                                                float m, float z, float m_prev) {
-  StepTerms k;
+struct StepTerms : ChainTerms {
+  float qnn, lsg;
+};
+
+__device__ __forceinline__ ChainTerms chain_terms(float ix, float fx, float ox, float n, float m,
+                                                  float z, float m_prev) {
+  ChainTerms k;
   k.o = sigmoid(ox);
   k.lfm = __fadd_rn(log_sigmoid(fx), m_prev);
   k.i_p = expf(__fsub_rn(ix, m));
   k.f_p = expf(__fsub_rn(k.lfm, m));
   k.nd = max_nan(n, 1.0f);
-  k.qnn = __fdiv_rn(__fdiv_rn(__fmul_rn(k.o, c), k.nd), k.nd);  // (o c / nd) / nd
   k.zz = __fsub_rn(1.0f, __fmul_rn(z, z));
+  return k;
+}
+
+__device__ __forceinline__ StepTerms step_terms(float ix, float fx, float ox, float c, float n,
+                                                float m, float z, float m_prev) {
+  StepTerms k;
+  static_cast<ChainTerms&>(k) = chain_terms(ix, fx, ox, n, m, z, m_prev);
+  k.qnn = __fdiv_rn(__fdiv_rn(__fmul_rn(k.o, c), k.nd), k.nd);  // (o c / nd) / nd
   k.lsg = log_sigmoid_grad(fx);
   return k;
 }
 
 // The chain of a backward step: dz_pre,t from g = dh_t and the carried dc;
 // leaves dq and dc' for the rest.
-__device__ __forceinline__ float step_chain(const StepTerms& k, float g, float dc, float& dq,
+__device__ __forceinline__ float step_chain(const ChainTerms& k, float g, float dc, float& dq,
                                             float& dcp) {
   dq = __fdiv_rn(g, k.nd);
   dcp = __fadd_rn(dc, __fmul_rn(dq, k.o));
   return __fmul_rn(__fmul_rn(dcp, k.i_p), k.zz);
 }
 
+// What the rest of a backward step reads that no carried gradient feeds,
+// from the step's terms, dh_t (g) and dq: dq o (dc's addend), n's addend
+// ([n >= 1] -dh_t qnn: max(n, 1)'s gradient goes to n where n >= 1), the
+// values the products read, and how lf + m_{t-1} compares with ix_t (none
+// of the three where either is NaN).
+struct RestTerms {
+  float dqo, a, z, c_prev, n_prev, f_p, i_p, lsg;
+  int tie;  // 1: lf + m_{t-1} > ix_t, 2: <, 4: ==
+};
+
+__device__ __forceinline__ RestTerms rest_terms(const StepTerms& k, float g, float dq, float ix,
+                                                float z, float c_prev, float n_prev, float n) {
+  RestTerms r;
+  r.dqo = __fmul_rn(dq, k.o);
+  r.a = n >= 1.0f ? __fmul_rn(-g, k.qnn) : 0.0f;
+  r.z = z;
+  r.c_prev = c_prev;
+  r.n_prev = n_prev;
+  r.f_p = k.f_p;
+  r.i_p = k.i_p;
+  r.lsg = k.lsg;
+  r.tie = (k.lfm > ix ? 1 : 0) | (k.lfm < ix ? 2 : 0) | (k.lfm == ix ? 4 : 0);
+  return r;
+}
+
+// dox_t, which no carried gradient feeds either.
+__device__ __forceinline__ float step_dox(const StepTerms& k, float dq, float c) {
+  return __fmul_rn(__fmul_rn(__fmul_rn(dq, c), __fsub_rn(1.0f, k.o)), k.o);
+}
+
+// The carried part of the rest of a backward step, from dc' (step_chain's):
+// the gate gradients dix, dfx and the carried dc, dn, dm for step t - 1.
+// The max's gradient splits as torch.maximum's backward: half to each side
+// at a tie, all to both where either is NaN.
+__device__ __forceinline__ void rest_carry(const RestTerms& r, float dcp, float& dc, float& dn,
+                                           float& dm, float& dix, float& dfx) {
+  const float dnp = __fadd_rn(dn, r.a);
+  const float di = __fadd_rn(__fmul_rn(dcp, r.z), dnp);
+  const float df = __fadd_rn(__fmul_rn(dcp, r.c_prev), __fmul_rn(dnp, r.n_prev));
+  dc = __fmul_rn(dcp, r.f_p);
+  dn = __fmul_rn(dnp, r.f_p);
+  const float gi = __fmul_rn(di, r.i_p);
+  const float gf = __fmul_rn(df, r.f_p);
+  const float dmt = __fsub_rn(__fsub_rn(dm, gi), gf);
+  const float half = (r.tie & 4) ? __fmul_rn(dmt, 0.5f) : dmt;
+  dix = __fadd_rn(gi, (r.tie & 1) ? 0.0f : half);
+  dm = __fadd_rn(gf, (r.tie & 2) ? 0.0f : half);
+  dfx = __fmul_rn(dm, r.lsg);
+}
+
 // The rest of a backward step, after dz_pre,t has gone: the gate gradients
-// (dix, dfx, dox) and the carried dc, dn, dm for step t - 1. The max's
-// gradient splits as torch.maximum's backward: half to each side at a tie,
-// all to both where either is NaN; max(n, 1)'s goes to n where n >= 1.
+// (dix, dfx, dox) and the carried dc, dn, dm for step t - 1.
 __device__ __forceinline__ void step_rest(const StepTerms& k, float g, float dq, float dcp,
                                           float ix, float c, float z, float c_prev, float n_prev,
                                           float n, float& dc, float& dn, float& dm, float& dix,
                                           float& dfx, float& dox) {
-  const float dnp = __fadd_rn(dn, n >= 1.0f ? __fmul_rn(-g, k.qnn) : 0.0f);
-  dox = __fmul_rn(__fmul_rn(__fmul_rn(dq, c), __fsub_rn(1.0f, k.o)), k.o);
-  const float di = __fadd_rn(__fmul_rn(dcp, z), dnp);
-  const float df = __fadd_rn(__fmul_rn(dcp, c_prev), __fmul_rn(dnp, n_prev));
-  dc = __fmul_rn(dcp, k.f_p);
-  dn = __fmul_rn(dnp, k.f_p);
-  const float gi = __fmul_rn(di, k.i_p);
-  const float gf = __fmul_rn(df, k.f_p);
-  const float dmt = __fsub_rn(__fsub_rn(dm, gi), gf);
-  const float half = k.lfm == ix ? __fmul_rn(dmt, 0.5f) : dmt;
-  dix = __fadd_rn(gi, k.lfm > ix ? 0.0f : half);
-  dm = __fadd_rn(gf, k.lfm < ix ? 0.0f : half);
-  dfx = __fmul_rn(dm, k.lsg);
+  dox = step_dox(k, dq, c);
+  rest_carry(rest_terms(k, g, dq, ix, z, c_prev, n_prev, n), dcp, dc, dn, dm, dix, dfx);
 }
 
 // The block's groups of kCols columns of M into rw_s[group][kCols][d]: M =
@@ -711,6 +785,35 @@ __device__ __forceinline__ void cluster_send(float v_lane, unsigned buf, unsigne
   }
 }
 
+// The backward's exchange, phased by row: each row of a cluster has its own
+// pair of buffers and of mbarriers. Dynamic shared bytes of a block: the
+// mbarriers ([2][R], 8 bytes each) and dz_pre ([2][R][kMaxClusterD], zeros
+// past d), float32.
+__host__ __device__ inline size_t cluster_bwd_smem(int R) {
+  return 16 * static_cast<size_t>(R) + 8 * static_cast<size_t>(R) * kMaxClusterD;
+}
+
+// Row r's value of the warp's 4 columns (from c0 + 4 warp; lane 8 q + r
+// holds column q's) into every block's row buffer at shared address `buf`,
+// this one's too: lane p < C stores one 16-byte st.async into block p,
+// counted on that block's mbarrier `bar` (row r's of the buffer).
+__device__ __forceinline__ void cluster_send_row(float v_lane, unsigned buf, unsigned bar, int C,
+                                                 int r, int c0, int wc, int warp, int lane) {
+  const int cols = wc - warp * kWarpCols < kWarpCols ? wc - warp * kWarpCols : kWarpCols;
+  float v[kWarpCols];
+#pragma unroll
+  for (int q = 0; q < kWarpCols; ++q) v[q] = __shfl_sync(0xffffffffu, v_lane, 8 * q + r);
+  if (lane < C) {
+    const unsigned la = buf + 4u * (c0 + warp * kWarpCols);
+    const unsigned rb = mapa(bar, lane);
+    if (cols == kWarpCols) {
+      st_async4(mapa(la, lane), v, rb);
+    } else {
+      for (int q = 0; q < cols; ++q) st_async(mapa(la + 4u * q, lane), v[q], rb);
+    }
+  }
+}
+
 template <bool kFloor>
 __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_cluster_kernel(ClusterArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -846,12 +949,56 @@ __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_cluster_kernel(Cluste
   cluster.sync();  // no block leaves while a peer may still write into it
 }
 
-// The backward in the cluster layout. Block c holds rows J (its slice) of
-// rw, that is rw^T's columns J, in registers as the forward holds rw's:
-// lane l of warp w owns row l % 8 and column j = c0 + 4 w + l / 8 and
-// computes dh_{t-1}[j] = sum_k dz_pre,t[k] rw[j][k]. Iteration s runs step
-// t = S-1-s; dz_pre,t goes into buffer (s + 1) & 1 of every block, and a
-// last wait after the loop gives the entering h's gradient.
+// The rows of one buffer of the backward's exchange (rows at xc + rr
+// kMaxClusterD, their mbarriers at bar0 + 8 rr), each at its phase of
+// parity `parity`, two at a time: lane row r's sum for its column (the
+// floor: one read of column `col` a lane, so the step still waits on it).
+// Where `rearm`, each mbarrier is armed for its next phase once waited for.
+// No block writes a row's buffer again before every reader of it is done:
+// dz_pre,t[rr] is sent only once all of dz_pre,t+1[rr] has arrived, and each
+// block sends its part after its own reads of that buffer.
+template <bool kFloor>
+__device__ __forceinline__ float bwd_row_dots(const float* xc, unsigned bar0, int nr,
+                                              unsigned parity, bool rearm, unsigned row_bytes,
+                                              int r, int col, int lane,
+                                              const float (&w)[kWarpCols][kLaneK]) {
+  float dot = 0.0f;
+  for (int rr = 0; rr < nr; rr += 2) {
+    const bool two = rr + 1 < nr;
+    const unsigned bar = bar0 + 8 * rr;
+    mbar_wait(bar, parity);
+    if (two) mbar_wait(bar + 8, parity);
+    if (rearm && threadIdx.x == 0) {
+      mbar_expect(bar, row_bytes);
+      if (two) mbar_expect(bar + 8, row_bytes);
+    }
+    if (kFloor) {
+      if (r == rr || r == rr + 1) dot = xc[(r < nr ? r : 0) * kMaxClusterD + col];
+    } else if (two) {
+      float sum[2];
+      cluster_dots<2>(xc + rr * kMaxClusterD, lane, w, sum);
+      if (r == rr) dot = sum[0];
+      if (r == rr + 1) dot = sum[1];
+    } else {
+      float sum[1];
+      cluster_dots<1>(xc + rr * kMaxClusterD, lane, w, sum);
+      if (r == rr) dot = sum[0];
+    }
+  }
+  return dot;
+}
+
+// The backward's loop in the cluster layout: the chain alone. Block c holds
+// rows J (its slice) of rw, that is rw^T's columns J, in registers as the
+// forward holds rw's: lane l of warp w owns row l % 8 and column j = c0 +
+// 4 w + l / 8 and computes dh_{t-1}[j] = sum_k dz_pre,t[k] rw[j][k].
+// Iteration s runs step t = S-1-s: every warp waits for the rows of
+// dz_pre,t+1 in buffer s & 1 two at a time and sums both rows' products
+// together (cluster_dots<2>), the owner lanes of every row run the chain
+// (dh_t, dq, dc', dz_pre,t, dc) and store dzx_t and dh_t, and the warp
+// sends each row of dz_pre,t into that row's buffer (s + 1) & 1 of every
+// block. A last wait after the loop gives the entering h's gradient. dn,
+// dm, the gate gradients and the entering c, n, m's are the rest kernel's.
 template <bool kFloor>
 __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_bwd_cluster_kernel(BwdArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -871,10 +1018,13 @@ __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_bwd_cluster_kernel(Bw
   const bool reader = warp * kWarpCols < wc;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const unsigned bars = smem_u32(smem_raw);                        // [2] mbarriers
-  float* xbuf = reinterpret_cast<float*>(smem_raw + 16);           // [2][R][kMaxClusterD]
+  // Row rr of buffer p: its mbarrier at bars + 8 (p R + rr), its floats at
+  // xbuf + (p R + rr) dp; each phase expects that row of dz_pre from every
+  // block (4 d bytes).
+  const unsigned bars = smem_u32(smem_raw);
+  float* xbuf = reinterpret_cast<float*>(smem_raw + 16 * R);
   const unsigned x_u32 = smem_u32(xbuf);
-  const unsigned phase_bytes = 4u * nr * d;  // all of dz_pre,t's rows, from every block
+  const unsigned row_bytes = 4u * d;
 
   float w[kWarpCols][kLaneK];  // rw[c0 + 4 warp + q][k], k = 4 lane + 128 i + e at [q][4 i + e]
   if (!kFloor) {
@@ -890,24 +1040,22 @@ __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_bwd_cluster_kernel(Bw
   }
   for (int e = threadIdx.x; e < 2 * R * dp; e += kCThreads) xbuf[e] = 0.0f;  // padding stays 0
   if (threadIdx.x == 0) {
-    mbar_init(bars);
-    mbar_init(bars + 8);
+    for (int i = 0; i < 2 * R; ++i) mbar_init(bars + 8 * i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect(bars, phase_bytes);
-    mbar_expect(bars + 8, phase_bytes);
+    for (int p = 0; p < 2; ++p) {
+      for (int rr = 0; rr < nr; ++rr) mbar_expect(bars + 8 * (p * R + rr), row_bytes);
+    }
   }
-  // This lane's carried gradients; the values of its step t: gates, dhs, z,
-  // c, n, m, and the state of step t - 1 (cp, np, mp: the entering state at
+  const int col = mine ? c0 + jl : c0;  // the column the floor reads
+  // This lane's carried dc and dh_t's carry; what the chain reads of its
+  // step t: gates, dhs, z, n, m, and m of step t - 1 (mp: the entering m at
   // t = 0), each loaded a step ahead.
   const int64_t sidx = (r0 + r) * d + c0 + jl;
   const int64_t g0 = (r0 + r) * S * d + c0 + jl;  // (row, step 0, column)
-  float dc = 0.0f, dn = 0.0f, dm = 0.0f, carry = 0.0f;
-  float ix = 0.0f, fx = 0.0f, ox = 0.0f, gin = 0.0f, z = 0.0f, c = 0.0f, n = 0.0f, m = 0.0f;
-  float cp = 0.0f, np = 0.0f, mp = 0.0f;
+  float dc = 0.0f, carry = 0.0f;
+  float ix = 0.0f, fx = 0.0f, ox = 0.0f, gin = 0.0f, z = 0.0f, n = 0.0f, m = 0.0f, mp = 0.0f;
   if (!kFloor && mine) {
     if (a.dcT) dc = a.dcT[sidx];
-    if (a.dnT) dn = a.dnT[sidx];
-    if (a.dmT) dm = a.dmT[sidx];
     if (a.dhT) carry = a.dhT[sidx];
     const int64_t g = g0 + (S - 1) * d;
     ix = __ldg(a.ix + g);
@@ -915,25 +1063,20 @@ __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_bwd_cluster_kernel(Bw
     ox = __ldg(a.ox + g);
     if (a.dhs) gin = __ldg(a.dhs + g);
     z = __ldg(a.zs + g);
-    c = __ldg(a.cs + g);
     n = __ldg(a.ns + g);
     m = __ldg(a.ms + g);
-    cp = S > 1 ? __ldg(a.cs + g - d) : a.c0[sidx];
-    np = S > 1 ? __ldg(a.ns + g - d) : a.n0[sidx];
     mp = S > 1 ? __ldg(a.ms + g - d) : a.m0[sidx];
   }
   cluster.sync();  // every block runs, its buffers and mbarriers ready, before any peer writes
 
-  for (int64_t s = 0; s < S; ++s) {
-    if (!reader) continue;
+  for (int64_t s = 0; s < S && reader; ++s) {
     const int64_t t = S - 1 - s;
     const int cur = static_cast<int>(s & 1);
-    // What needs no gradient, while dz_pre,t+1 is on its way.
-    StepTerms k{};
-    if (!kFloor && mine) k = step_terms(ix, fx, ox, c, n, m, z, mp);
-    // Step t - 1's values: its gates, dhs and z, and the state of step t - 2.
-    float nix = 0.0f, nfx = 0.0f, nox = 0.0f, ngin = 0.0f, nz = 0.0f;
-    float ncp = 0.0f, nnp = 0.0f, nmp = 0.0f;
+    // What the chain reads and needs no gradient, while dz_pre,t+1 is on
+    // its way; then step t - 1's values.
+    ChainTerms k{};
+    if (!kFloor && mine) k = chain_terms(ix, fx, ox, n, m, z, mp);
+    float nix = 0.0f, nfx = 0.0f, nox = 0.0f, ngin = 0.0f, nz = 0.0f, nn = 0.0f, nmp = 0.0f;
     if (!kFloor && mine && t > 0) {
       const int64_t g = g0 + (t - 1) * d;
       nix = __ldg(a.ix + g);
@@ -941,61 +1084,173 @@ __global__ void __launch_bounds__(kCThreads, 1) slstm_scan_bwd_cluster_kernel(Bw
       nox = __ldg(a.ox + g);
       if (a.dhs) ngin = __ldg(a.dhs + g);
       nz = __ldg(a.zs + g);
-      ncp = t > 1 ? __ldg(a.cs + g - d) : a.c0[sidx];
-      nnp = t > 1 ? __ldg(a.ns + g - d) : a.n0[sidx];
+      nn = __ldg(a.ns + g);
       nmp = t > 1 ? __ldg(a.ms + g - d) : a.m0[sidx];
     }
-    if (s > 0) {  // dz_pre,t+1: the (s - 1) / 2-th phase of this buffer's mbarrier
-      mbar_wait(bars + 8 * cur, static_cast<unsigned>((s - 1) >> 1) & 1u);
-      if (threadIdx.x == 0) mbar_expect(bars + 8 * cur, phase_bytes);
-      const float* xc = xbuf + cur * R * dp;
-      carry = kFloor ? xc[(mine ? r : 0) * dp + (mine ? c0 + jl : c0)]
-                     : cluster_row_dot(xc, nr, r, lane, w);
+    // dz_pre,t+1: the (s - 1) / 2-th phase of buffer s & 1's mbarriers.
+    if (s > 0) {
+      carry = bwd_row_dots<kFloor>(xbuf + cur * R * dp, bars + 8 * cur * R, nr,
+                                   static_cast<unsigned>((s - 1) >> 1) & 1u, true, row_bytes, r,
+                                   col, lane, w);
     }
     float da = carry;
-    float dq = 0.0f, dcp = 0.0f, g = 0.0f;
     if (!kFloor && mine) {
-      g = a.dhs ? __fadd_rn(gin, carry) : carry;
+      const float g = a.dhs ? __fadd_rn(gin, carry) : carry;
+      float dq, dcp;
       da = step_chain(k, g, dc, dq, dcp);
+      dc = __fmul_rn(dcp, k.f_p);
       a.dzx[g0 + t * d] = da;
+      a.gs[g0 + t * d] = g;
     }
-    // Every block sends its part of dz_pre,t after its reads of this buffer.
-    cluster_send(da, x_u32 + 4u * (cur ^ 1) * R * dp, bars + 8 * (cur ^ 1), C, nr, c0, wc, warp,
-                 lane);
-    if (!kFloor && mine) {
-      float dix, dfx, dox;
-      step_rest(k, g, dq, dcp, ix, c, z, cp, np, n, dc, dn, dm, dix, dfx, dox);
-      const int64_t gt = g0 + t * d;
-      a.dix[gt] = dix;
-      a.dfx[gt] = dfx;
-      a.dox[gt] = dox;
+    const int nxt = cur ^ 1;
+    for (int rr = 0; rr < nr; ++rr) {
+      cluster_send_row(da, x_u32 + 4u * (nxt * R + rr) * dp, bars + 8 * (nxt * R + rr), C, rr, c0,
+                       wc, warp, lane);
     }
     ix = nix;
     fx = nfx;
     ox = nox;
     gin = ngin;
     z = nz;
-    c = cp;
-    n = np;
+    n = nn;
     m = mp;
-    cp = ncp;
-    np = nnp;
     mp = nmp;
   }
   if (reader) {  // dz_pre,0 @ rw^T: the entering h's gradient
-    const int cur = static_cast<int>(S & 1);
-    mbar_wait(bars + 8 * cur, static_cast<unsigned>((S - 1) >> 1) & 1u);
-    const float* xc = xbuf + cur * R * dp;
-    const float dh = kFloor ? xc[(mine ? r : 0) * dp + (mine ? c0 + jl : c0)]
-                            : cluster_row_dot(xc, nr, r, lane, w);
-    if (!kFloor && mine) {
-      a.dc[sidx] = dc;
-      a.dn[sidx] = dn;
-      a.dh[sidx] = dh;
-      a.dm[sidx] = dm;
-    }
+    const int last = static_cast<int>(S & 1);
+    const float dh = bwd_row_dots<kFloor>(xbuf + last * R * dp, bars + 8 * last * R, nr,
+                                          static_cast<unsigned>((S - 1) >> 1) & 1u, false,
+                                          row_bytes, r, col, lane, w);
+    if (!kFloor && mine) a.dh[sidx] = dh;
   }
   cluster.sync();  // no block leaves while a peer may still write into it
+}
+
+// The rest of the backward in the cluster layout, after its loop, from its
+// dh_t (gs). dc, dn and dm are recurrences of one (row, column) each, so no
+// step waits on another column; but a step's terms (five exponentials or
+// logarithms, five quotients) outweigh its recurrences (some twenty
+// products and sums), so they run apart. A block takes kRestCols columns of
+// one row: kRestWarps producer warps compute the terms of a chunk of
+// kRestChunk steps (lane: column; each warp kRestItems steps), store dox_t
+// and leave what the recurrences read (RestTerms) in shared memory; one
+// warp more runs the recurrences over the previous chunk (dix_t, dfx_t, and
+// at the end the entering dc, dn, dm). Two buffers, one block barrier a
+// chunk. Each producer loads its next chunk's values before the barrier.
+// Every value rounds as in step_terms, step_chain and step_rest, so the
+// outputs keep the cooperative kernel's bits.
+constexpr int kRestCols = 16;                          // columns a block
+constexpr int kRestLaneSteps = 32 / kRestCols;         // steps a producer warp takes at once
+constexpr int kRestWarps = 8;
+constexpr int kRestChunk = 16;
+constexpr int kRestItems = kRestChunk / (kRestWarps * kRestLaneSteps);
+constexpr int kRestThreads = 32 * (kRestWarps + 1);
+
+// Step t's values of the (row, column) whose step 0 is at g0, and the state
+// of step t - 1 (at t = 0 the entering one, at sidx); nothing before step 0.
+struct RestIn {
+  float ix, fx, ox, g, z, c, n, m, cp, np, mp;
+};
+
+__device__ __forceinline__ RestIn rest_in(const BwdArgs& a, int64_t g0, int64_t sidx, int64_t t) {
+  RestIn v{};
+  if (t < 0) return v;
+  const int64_t g = g0 + t * a.d;
+  v.ix = __ldg(a.ix + g);
+  v.fx = __ldg(a.fx + g);
+  v.ox = __ldg(a.ox + g);
+  v.g = __ldg(a.gs + g);
+  v.z = __ldg(a.zs + g);
+  v.c = __ldg(a.cs + g);
+  v.n = __ldg(a.ns + g);
+  v.m = __ldg(a.ms + g);
+  v.cp = t > 0 ? __ldg(a.cs + g - a.d) : a.c0[sidx];
+  v.np = t > 0 ? __ldg(a.ns + g - a.d) : a.n0[sidx];
+  v.mp = t > 0 ? __ldg(a.ms + g - a.d) : a.m0[sidx];
+  return v;
+}
+
+__global__ void __launch_bounds__(kRestThreads) slstm_scan_bwd_rest_kernel(BwdArgs a) {
+  __shared__ float terms[2][8][kRestChunk][kRestCols];  // RestTerms' floats by field
+  __shared__ int ties[2][kRestChunk][kRestCols];
+  const int64_t S = a.S, d = a.d;
+  const int64_t col_blocks = (d + kRestCols - 1) / kRestCols;
+  const int64_t b = blockIdx.x / col_blocks;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int cl = lane % kRestCols;  // the lane's column; its producer step: u0 + lane / kRestCols
+  const int u0 = warp * kRestLaneSteps + lane / kRestCols;
+  const int64_t j = (blockIdx.x - b * col_blocks) * kRestCols + cl;
+  const bool col = j < d;
+  const bool chain = warp == kRestWarps && lane < kRestCols && col;  // runs the recurrences
+  const int64_t sidx = b * d + j;
+  const int64_t g0 = b * S * d + j;  // (row, step 0, column)
+  const int64_t chunks = (S + kRestChunk - 1) / kRestChunk;
+  // Chunk ch holds steps t = S-1 - ch kRestChunk - u, u < kRestChunk; a
+  // producer lane's item i is u = u0 + kRestWarps kRestLaneSteps i.
+  RestIn in[kRestItems];
+  if (warp < kRestWarps && col) {
+#pragma unroll
+    for (int i = 0; i < kRestItems; ++i) {
+      in[i] = rest_in(a, g0, sidx, S - 1 - u0 - kRestWarps * kRestLaneSteps * i);
+    }
+  }
+  float dc = 0.0f, dn = 0.0f, dm = 0.0f;
+  if (chain) {
+    if (a.dcT) dc = a.dcT[sidx];
+    if (a.dnT) dn = a.dnT[sidx];
+    if (a.dmT) dm = a.dmT[sidx];
+  }
+  for (int64_t ch = 0; ch <= chunks; ++ch) {
+    const int buf = static_cast<int>(ch & 1);
+    if (warp < kRestWarps) {
+      if (ch < chunks && col) {
+#pragma unroll
+        for (int i = 0; i < kRestItems; ++i) {
+          const int u = u0 + kRestWarps * kRestLaneSteps * i;
+          const int64_t t = S - 1 - ch * kRestChunk - u;
+          if (t >= 0) {
+            const RestIn& v = in[i];
+            const StepTerms k = step_terms(v.ix, v.fx, v.ox, v.c, v.n, v.m, v.z, v.mp);
+            const float dq = __fdiv_rn(v.g, k.nd);  // step_chain's
+            a.dox[g0 + t * d] = step_dox(k, dq, v.c);
+            const RestTerms r = rest_terms(k, v.g, dq, v.ix, v.z, v.cp, v.np, v.n);
+            const float f[8] = {r.dqo, r.a, r.z, r.c_prev, r.n_prev, r.f_p, r.i_p, r.lsg};
+#pragma unroll
+            for (int e = 0; e < 8; ++e) terms[buf][e][u][cl] = f[e];
+            ties[buf][u][cl] = r.tie;
+          }
+          in[i] = rest_in(a, g0, sidx, t - kRestChunk);  // this item of the next chunk
+        }
+      }
+    } else if (ch > 0 && chain) {  // the recurrences over the previous chunk
+      const int pb = buf ^ 1;
+      for (int u = 0; u < kRestChunk; ++u) {
+        const int64_t t = S - 1 - (ch - 1) * kRestChunk - u;
+        if (t < 0) break;
+        RestTerms r;
+        r.dqo = terms[pb][0][u][cl];
+        r.a = terms[pb][1][u][cl];
+        r.z = terms[pb][2][u][cl];
+        r.c_prev = terms[pb][3][u][cl];
+        r.n_prev = terms[pb][4][u][cl];
+        r.f_p = terms[pb][5][u][cl];
+        r.i_p = terms[pb][6][u][cl];
+        r.lsg = terms[pb][7][u][cl];
+        r.tie = ties[pb][u][cl];
+        float dix, dfx;
+        rest_carry(r, __fadd_rn(dc, r.dqo), dc, dn, dm, dix, dfx);
+        a.dix[g0 + t * d] = dix;
+        a.dfx[g0 + t * d] = dfx;
+      }
+    }
+    __syncthreads();  // chunk ch's terms whole; chunk ch - 1's buffer free
+  }
+  if (chain) {
+    a.dc[sidx] = dc;
+    a.dn[sidx] = dn;
+    a.dm[sidx] = dm;
+  }
 }
 
 // The cooperative plan of `kernel` (its floor `floor_kernel` shares it) at
@@ -1074,11 +1329,12 @@ cudaError_t cluster_config(Kernel kernel, int C, size_t smem, int64_t clusters,
   return cudaSuccess;
 }
 
-// Launches `kernel` (either direction, its arguments `a`) in clusters of C
-// blocks over ceil(B / R) groups of rows.
+// Launches `kernel` (either direction, its arguments `a`, `smem` dynamic
+// shared bytes a block) in clusters of C blocks over ceil(B / R) groups of
+// rows.
 template <typename Kernel, typename A>
 int launch_cluster(int device, Kernel kernel, const A& a, int64_t B, int64_t d, int C, int R,
-                   int W, cudaStream_t stream) {
+                   int W, size_t smem, cudaStream_t stream) {
   if (C < 1 || C > kMaxCluster || R < 1 || R > kMaxClusterRows || d > kMaxClusterD ||
       W > kMaxWidth) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1087,7 +1343,6 @@ int launch_cluster(int device, Kernel kernel, const A& a, int64_t B, int64_t d, 
   cudaError_t err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                            device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = cluster_smem(R);
   const int64_t clusters = (B + R - 1) / R;
   if (smem > static_cast<size_t>(smem_optin) || clusters * C > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1143,9 +1398,11 @@ extern "C" int slstm_scan_launch(int device, const void* zx, const void* ix, con
                         static_cast<float*>(m), static_cast<float*>(cs), static_cast<float*>(ns),
                         static_cast<float*>(ms), static_cast<float*>(zs), B, S,
                         static_cast<int>(d), C, R, W};
-    return serial_floor
-               ? launch_cluster(device, slstm_scan_cluster_kernel<true>, a, B, d, C, R, W, st)
-               : launch_cluster(device, slstm_scan_cluster_kernel<false>, a, B, d, C, R, W, st);
+    const size_t smem = cluster_smem(R);
+    return serial_floor ? launch_cluster(device, slstm_scan_cluster_kernel<true>, a, B, d, C, R,
+                                         W, smem, st)
+                        : launch_cluster(device, slstm_scan_cluster_kernel<false>, a, B, d, C, R,
+                                         W, smem, st);
   }
   if (layout != kLayoutCooperative) return static_cast<int>(cudaErrorInvalidValue);
   Plan p{};
@@ -1173,8 +1430,11 @@ extern "C" int slstm_scan_launch(int device, const void* zx, const void* ix, con
 // null for zero; ix, fx, ox (B, S, d), rw (d, d), the entering state c0, n0,
 // m0 (B, d) and the forward's saved cs, ns, ms, zs (B, S, d). Outputs dzx,
 // dix, dfx, dox (B, S, d) and the entering state's gradients dc, dn, dh, dm
-// (B, d). All float32 and contiguous. Returns a cudaError_t code as
-// slstm_scan_launch does. Empty inputs launch nothing.
+// (B, d). The cooperative layout writes them all. The cluster layout's loop
+// writes dzx, dh and every step's dh_t into gs (B, S, d); the rest
+// (slstm_scan_bwd_rest_launch, from gs) the others. All float32 and
+// contiguous. Returns a cudaError_t code as slstm_scan_launch does. Empty
+// inputs launch nothing.
 extern "C" int slstm_scan_bwd_launch(int device, const void* dhs, const void* dcT,
                                      const void* dnT, const void* dhT, const void* dmT,
                                      const void* ix, const void* fx, const void* ox,
@@ -1182,8 +1442,8 @@ extern "C" int slstm_scan_bwd_launch(int device, const void* dhs, const void* dc
                                      const void* m0, const void* cs, const void* ns,
                                      const void* ms, const void* zs, void* dzx, void* dix,
                                      void* dfx, void* dox, void* dc, void* dn, void* dh, void* dm,
-                                     long long B, long long S, long long d, int layout, int C,
-                                     int R, int serial_floor, void* stream) {
+                                     void* gs, long long B, long long S, long long d, int layout,
+                                     int C, int R, int serial_floor, void* stream) {
   if (B <= 0 || S <= 0 || d <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1198,16 +1458,19 @@ extern "C" int slstm_scan_bwd_launch(int device, const void* dhs, const void* dc
             static_cast<const float*>(ms), static_cast<const float*>(zs),
             static_cast<float*>(dzx), static_cast<float*>(dix), static_cast<float*>(dfx),
             static_cast<float*>(dox), static_cast<float*>(dc), static_cast<float*>(dn),
-            static_cast<float*>(dh), static_cast<float*>(dm), B, S, d,
+            static_cast<float*>(dh), static_cast<float*>(dm), static_cast<float*>(gs), B, S, d,
             0, 0, 0, 0, C, R, 0};
   if (layout == kLayoutCluster) {
-    if (C < 1 || d > kMaxClusterD) return static_cast<int>(cudaErrorInvalidValue);
+    if (C < 1 || d > kMaxClusterD || (!serial_floor && gs == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     a.W = slice_width(d, C);
+    const size_t smem = cluster_bwd_smem(R);
     return serial_floor
                ? launch_cluster(device, slstm_scan_bwd_cluster_kernel<true>, a, B, d, C, R, a.W,
-                                st)
+                                smem, st)
                : launch_cluster(device, slstm_scan_bwd_cluster_kernel<false>, a, B, d, C, R, a.W,
-                                st);
+                                smem, st);
   }
   if (layout != kLayoutCooperative) return static_cast<int>(cudaErrorInvalidValue);
   Plan p{};
@@ -1221,6 +1484,55 @@ extern "C" int slstm_scan_bwd_launch(int device, const void* dhs, const void* dc
   err = cudaLaunchCooperativeKernel(backward_kernel(serial_floor), dim3(p.grid), dim3(kThreads),
                                     params, p.smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the rest of the cluster layout's backward on `stream` (no
+// synchronisation): from every step's dh_t (gs, the loop's output) and the
+// state after the last step's gradients dcT, dnT, dmT (each null: zero),
+// with ix, fx, ox, the entering c0, n0, m0 and the saved cs, ns, ms, zs as
+// slstm_scan_bwd_launch takes them, writes dix, dfx, dox (B, S, d) and the
+// entering state's dc, dn, dm (B, d). One block a row's group of kRestCols
+// columns. Returns a cudaError_t code. Empty inputs launch nothing.
+extern "C" int slstm_scan_bwd_rest_launch(int device, const void* gs, const void* dcT,
+                                          const void* dnT, const void* dmT, const void* ix,
+                                          const void* fx, const void* ox, const void* c0,
+                                          const void* n0, const void* m0, const void* cs,
+                                          const void* ns, const void* ms, const void* zs,
+                                          void* dix, void* dfx, void* dox, void* dc, void* dn,
+                                          void* dm, long long B, long long S, long long d,
+                                          void* stream) {
+  if (B <= 0 || S <= 0 || d <= 0) return 0;
+  const int64_t blocks = B * ((d + kRestCols - 1) / kRestCols);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  BwdArgs a{};
+  a.dcT = static_cast<const float*>(dcT);
+  a.dnT = static_cast<const float*>(dnT);
+  a.dmT = static_cast<const float*>(dmT);
+  a.ix = static_cast<const float*>(ix);
+  a.fx = static_cast<const float*>(fx);
+  a.ox = static_cast<const float*>(ox);
+  a.c0 = static_cast<const float*>(c0);
+  a.n0 = static_cast<const float*>(n0);
+  a.m0 = static_cast<const float*>(m0);
+  a.cs = static_cast<const float*>(cs);
+  a.ns = static_cast<const float*>(ns);
+  a.ms = static_cast<const float*>(ms);
+  a.zs = static_cast<const float*>(zs);
+  a.gs = static_cast<float*>(const_cast<void*>(gs));
+  a.dix = static_cast<float*>(dix);
+  a.dfx = static_cast<float*>(dfx);
+  a.dox = static_cast<float*>(dox);
+  a.dc = static_cast<float*>(dc);
+  a.dn = static_cast<float*>(dn);
+  a.dm = static_cast<float*>(dm);
+  a.B = B;
+  a.S = S;
+  a.d = d;
+  slstm_scan_bwd_rest_kernel<<<static_cast<unsigned>(blocks), kRestThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1249,9 +1561,10 @@ extern "C" int slstm_scan_plan(int device, long long B, long long d, int backwar
 }
 
 // The device's attributes that the cluster layout's plan reads, into
-// out[8 + kMaxCluster]: SMs, opt-in shared bytes a block, cooperative launch
+// out[10 + kMaxCluster]: SMs, opt-in shared bytes a block, cooperative launch
 // (0/1), cluster launch (0/1), the forward cluster kernel's registers and
-// local (spilled) bytes a thread, the backward cluster kernel's, then for C =
+// local (spilled) bytes a thread, the backward cluster loop's, its rest
+// kernel's, then for C =
 // 1 .. kMaxCluster the clusters of C blocks of the forward kernel the device
 // holds at once at the opt-in shared bytes (0 where it holds none; one block
 // an SM in any case, as the kernel's registers allow no more).
@@ -1265,15 +1578,18 @@ extern "C" int slstm_scan_device(int device, long long* out) {
     err = cudaDeviceGetAttribute(&vals[i], keys[i], device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr{}, bwd{};
+  cudaFuncAttributes attr{}, bwd{}, rest{};
   err = cudaFuncGetAttributes(&attr, slstm_scan_cluster_kernel<false>);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&bwd, slstm_scan_bwd_cluster_kernel<false>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&rest, slstm_scan_bwd_rest_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int i = 0; i < 4; ++i) out[i] = vals[i];
   out[4] = attr.numRegs;
   out[5] = static_cast<long long>(attr.localSizeBytes);
   out[6] = bwd.numRegs;
   out[7] = static_cast<long long>(bwd.localSizeBytes);
+  out[8] = rest.numRegs;
+  out[9] = static_cast<long long>(rest.localSizeBytes);
   for (int C = 1; C <= kMaxCluster; ++C) {
     int active = 0;
     if (vals[3]) {
@@ -1289,7 +1605,7 @@ extern "C" int slstm_scan_device(int device, long long* out) {
         cudaGetLastError();  // a size the device refuses: none of it
       }
     }
-    out[7 + C] = active;
+    out[9 + C] = active;
   }
   return 0;
 }

@@ -1,12 +1,14 @@
 """Build and load ``csrc/slstm_scan.cu`` (nvcc -> shared library -> ctypes).
 
 Built by ``repro_torch.kernels._build`` into ``build/`` beside this file at
-first use. Nothing here runs at import time. The library holds four
+first use. Nothing here runs at import time. The library holds five
 entries: ``slstm_scan_launch`` (the kernel in the layout the caller names,
 or with ``serial_floor`` set its serial floor), ``slstm_scan_bwd_launch``
-(its backward, the same way), ``slstm_scan_plan`` (the cooperative layout's
-launch of a shape, either direction) and ``slstm_scan_device`` (the
-device's attributes that the cluster layout's plan reads).
+(its backward, the same way; in the cluster layout its loop alone),
+``slstm_scan_bwd_rest_launch`` (the cluster layout's rest of the backward,
+after the loop), ``slstm_scan_plan`` (the cooperative layout's launch of a
+shape, either direction) and ``slstm_scan_device`` (the device's attributes
+that the cluster layout's plan reads).
 """
 
 from __future__ import annotations
@@ -45,15 +47,28 @@ _BWD_ARGTYPES = [
     _P, _P, _P, _P,           # cs, ns, ms, zs: the forward's saved steps
     _P, _P, _P, _P,           # dzx, dix, dfx, dox
     _P, _P, _P, _P,           # dc0, dn0, dh0, dm0
+    _P,                       # gs: every step's dh_t (the cluster layout's loop writes it)
     _I64, _I64, _I64,         # B, S, d
     _I32, _I32, _I32,         # layout (0 cooperative, 1 cluster), C, R
     _I32,                     # serial_floor
     _P,                       # stream
 ]
+_REST_ARGTYPES = [
+    _I32,                     # device
+    _P, _P, _P, _P,           # gs, dc, dn, dm: every step's dh_t, the final state's (null: zero)
+    _P, _P, _P,               # ix, fx, ox
+    _P, _P, _P,               # c0, n0, m0
+    _P, _P, _P, _P,           # cs, ns, ms, zs
+    _P, _P, _P,               # dix, dfx, dox
+    _P, _P, _P,               # dc0, dn0, dm0
+    _I64, _I64, _I64,         # B, S, d
+    _P,                       # stream
+]
 _PLAN_KEYS = ("grid", "groups", "groups_per_block", "chunk", "rows", "rw_resident",
               "smem_bytes", "blocks_per_sm", "registers", "local_bytes")
 _DEVICE_KEYS = ("sms", "smem_optin", "cooperative_launch", "cluster_launch", "registers",
-                "local_bytes", "bwd_registers", "bwd_local_bytes")
+                "local_bytes", "bwd_registers", "bwd_local_bytes", "rest_registers",
+                "rest_local_bytes")
 
 
 def load_library() -> ctypes.CDLL:
@@ -63,6 +78,9 @@ def load_library() -> ctypes.CDLL:
     bwd = lib.slstm_scan_bwd_launch
     bwd.argtypes = _BWD_ARGTYPES
     bwd.restype = ctypes.c_int
+    rest = lib.slstm_scan_bwd_rest_launch
+    rest.argtypes = _REST_ARGTYPES
+    rest.restype = ctypes.c_int
     plan = lib.slstm_scan_plan
     plan.argtypes = [_I32, _I64, _I64, _I32, ctypes.POINTER(_I64)]
     plan.restype = ctypes.c_int
@@ -89,7 +107,8 @@ def launch_plan(B: int, d: int, device: int = 0, backward: bool = False) -> dict
 def device_attributes(device: int = 0) -> dict:
     """The device's SMs and opt-in shared bytes a block, whether it takes
     cooperative and cluster launches, the forward cluster kernel's registers
-    and local (spilled) bytes a thread and the backward's (``bwd_``), and
+    and local (spilled) bytes a thread, the backward cluster loop's
+    (``bwd_``) and its rest kernel's (``rest_``), and
     ``active_clusters``: for C = 1 ..
     ``MAX_CLUSTER`` the clusters of C blocks it holds at once (0 where
     none)."""

@@ -14,11 +14,13 @@ makes the outputs' shapes.
 Under grad mode, where an input requires grad, the call goes through
 ``_SLSTMScan``, a ``torch.autograd.Function``: its forward also saves every
 step's c, n, m and z, and its backward is ``slstm_scan_bwd``, on CUDA
-tensors the hand-written ``slstm_scan_bwd`` kernel (in the same source, in
-the layout ``plan`` names), on CPU tensors its plain version
-``ref.slstm_scan_bwd_ref``; then ``rw``'s gradient is one float32 matrix
-product over the B S rows of the previous outputs and dzx, at the caller's
-float32 matmul precision. On meta tensors both only make shapes.
+tensors the hand-written backward (in the same source, in the layout
+``plan`` names: in the cooperative layout one kernel, in the cluster layout
+two, ``slstm_scan_bwd_chain``'s loop and then ``slstm_scan_bwd_rest``), on
+CPU tensors its plain version ``ref.slstm_scan_bwd_ref``; then ``rw``'s
+gradient is one float32 matrix product over the B S rows of the previous
+outputs and dzx, at the caller's float32 matmul precision. On meta tensors
+both only make shapes.
 
 The layouts (the source's header says how each runs):
 
@@ -26,8 +28,9 @@ The layouts (the source's header says how each runs):
   ``MAX_ROWS`` rows, block c holding ``rw[:, its columns]`` (the backward:
   ``rw[its rows, :]``) in registers, h (dz_pre) exchanged through
   distributed shared memory and waited for on an mbarrier of each block: no
-  barrier across clusters. It takes d up to ``MAX_CLUSTER_D`` (48 columns a
-  block at most, C up to 16).
+  barrier across clusters (the backward: one pair of buffers and mbarriers
+  a row, each row's exchange a phase of its own). It takes d up to
+  ``MAX_CLUSTER_D`` (48 columns a block at most, C up to 16).
 - ``"cooperative"``: one cooperative launch over the whole card, a grid
   barrier a step; every shape.
 """
@@ -40,17 +43,21 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.slstm_scan.kernel import MAX_CLUSTER
-from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref, slstm_scan_ref
+from repro_torch.kernels.slstm_scan.ref import (slstm_scan_bwd_chain_ref, slstm_scan_bwd_ref,
+                                                 slstm_scan_bwd_rest_ref, slstm_scan_ref)
 
 __all__ = ["CLUSTER_MIN_STEPS", "LAUNCHES", "LAYOUTS", "MAX_CLUSTER_D",
-           "MAX_ROWS", "MAX_WIDTH", "Device", "bwd_serial_floor", "cluster_size", "cluster_smem",
-           "column_split", "device", "plan", "reset_launches", "serial_floor", "slice_width",
-           "slstm_scan", "slstm_scan_bwd"]
+           "MAX_ROWS", "MAX_WIDTH", "Device", "bwd_serial_floor", "cluster_bwd_smem",
+           "cluster_size", "cluster_smem", "column_split", "device", "plan", "reset_launches",
+           "serial_floor", "slice_width", "slstm_scan", "slstm_scan_bwd", "slstm_scan_bwd_chain",
+           "slstm_scan_bwd_rest"]
 
 # Kernel launches since the last reset. Only a launch of a CUDA kernel
 # counts; the CPU path, empty inputs and the serial floors launch nothing
-# that counts.
-LAUNCHES = {"slstm_scan": 0, "slstm_scan_bwd": 0}
+# that counts. ``slstm_scan_bwd`` counts the backward's kernel in the
+# cooperative layout and its loop in the cluster layout,
+# ``slstm_scan_bwd_rest`` the cluster layout's rest kernel.
+LAUNCHES = {"slstm_scan": 0, "slstm_scan_bwd": 0, "slstm_scan_bwd_rest": 0}
 
 LAYOUTS = ("cluster", "cooperative")
 _LAYOUT_IDS = {"cooperative": 0, "cluster": 1}
@@ -121,6 +128,13 @@ def cluster_smem(R: int) -> int:
     return 16 + 8 * R * MAX_CLUSTER_D
 
 
+def cluster_bwd_smem(R: int) -> int:
+    """Dynamic shared bytes of a backward cluster block of R rows: a pair of
+    mbarriers a row (16 bytes) and dz_pre double-buffered a row (2 R
+    ``MAX_CLUSTER_D`` floats)."""
+    return 16 * R + 8 * R * MAX_CLUSTER_D
+
+
 def _cannot(d: int, why: str) -> ValueError:
     return ValueError(f"the cluster layout cannot take d = {d}: {why}; the cooperative "
                       f"layout takes every shape")
@@ -136,8 +150,10 @@ def plan(B: int, S: int, d: int, dev: Device, layout: str | None = None) -> dict
     its ``columns`` (``column_split``), the device's ``active_clusters`` of
     C, R rows a cluster (as few as the resident clusters allow, at most
     ``MAX_ROWS`` and what shared memory holds, spread evenly over ``waves``
-    of resident clusters), ``clusters`` = ceil(B / R) and the shared bytes a
-    block."""
+    of resident clusters), ``clusters`` = ceil(B / R), the rows of the last
+    (``last_rows``) and the shared bytes a block; the backward's exchange
+    runs one phase a row, each expecting one row's ``phase_bytes`` (4 d) from
+    the cluster's blocks, in ``bwd_smem_bytes`` a block."""
     if layout is not None and layout not in LAYOUTS:
         raise ValueError(f"unknown slstm_scan layout {layout!r}: one of {LAYOUTS}")
     C = cluster_size(d, len(dev.active_clusters))
@@ -159,9 +175,12 @@ def plan(B: int, S: int, d: int, dev: Device, layout: str | None = None) -> dict
     r_max = min(MAX_ROWS, (dev.smem_optin - 16) // (cluster_smem(1) - 16))
     waves = _ceil(_ceil(B, r_max), active)
     R = _ceil(B, waves * active)
-    return {"layout": "cluster", "C": C, "R": R, "clusters": _ceil(B, R), "waves": waves,
-            "active_clusters": active, "width": slice_width(d, C), "columns": column_split(d, C),
-            "smem_bytes": cluster_smem(R)}
+    clusters = _ceil(B, R)
+    return {"layout": "cluster", "C": C, "R": R, "clusters": clusters, "waves": waves,
+            "last_rows": B - (clusters - 1) * R, "active_clusters": active,
+            "width": slice_width(d, C), "columns": column_split(d, C),
+            "smem_bytes": cluster_smem(R), "phase_bytes": 4 * d,
+            "bwd_smem_bytes": cluster_bwd_smem(R)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -318,24 +337,52 @@ def _check_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved) -> None:
         raise ValueError(f"slstm_scan_bwd runs on cpu, cuda or meta tensors, not {ix.device}")
 
 
-def _launch_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved, layout: str | None, floor: bool):
+def _bwd_plan(ix, layout: str | None) -> dict:
+    B, S, d = ix.shape
+    return plan(B, S, d, device(_device_index(ix)), layout)
+
+
+def _launch_chain(grads, ix, fx, ox, rw, c0, n0, m0, saved, p: dict, floor: bool):
+    """The backward's kernel in ``p``'s layout (the cooperative layout's
+    whole backward, or the cluster layout's loop, which also fills every
+    step's dh_t): (dzx, dix, dfx, dox, dc0, dn0, dh0, dm0, dh_all), the
+    cluster layout's dix, dfx, dox, dc0, dn0 and dm0 still empty and the
+    cooperative layout's dh_all None."""
     from repro_torch.kernels.slstm_scan.kernel import load_library
 
     B, S, d = ix.shape
-    index = _device_index(ix)
-    p = plan(B, S, d, device(index), layout)
     gates = [torch.empty_like(ix) for _ in range(4)]
     state = [torch.empty_like(c0) for _ in range(4)]
+    dh_all = torch.empty_like(ix) if p["layout"] == "cluster" and not floor else None
     err = load_library().slstm_scan_bwd_launch(
-        index, *(_ptr(t) for t in grads),
+        _device_index(ix), *(_ptr(t) for t in grads),
         *(t.data_ptr() for t in (ix, fx, ox, rw, c0, n0, m0, *saved)),
-        *(t.data_ptr() for t in gates + state), B, S, d, _LAYOUT_IDS[p["layout"]],
+        *(t.data_ptr() for t in gates + state), _ptr(dh_all), B, S, d, _LAYOUT_IDS[p["layout"]],
         p.get("C", 0), p.get("R", 0), int(floor), torch.cuda.current_stream(ix.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"slstm_scan_bwd kernel launch ({p['layout']} layout) failed with "
                            f"CUDA error {err}")
-    return (*gates, *state)
+    return (*gates, *state, dh_all)
+
+
+def _launch_rest(dh_all, dc, dn, dm, ix, fx, ox, c0, n0, m0, cs, ns, ms, zs, out=None):
+    """The cluster layout's rest kernel: (dix, dfx, dox, dc0, dn0, dm0),
+    into ``out`` where given."""
+    from repro_torch.kernels.slstm_scan.kernel import load_library
+
+    B, S, d = ix.shape
+    if out is None:
+        out = [torch.empty_like(ix) for _ in range(3)] + [torch.empty_like(c0) for _ in range(3)]
+    err = load_library().slstm_scan_bwd_rest_launch(
+        _device_index(ix), dh_all.data_ptr(), *(_ptr(t) for t in (dc, dn, dm)),
+        *(t.data_ptr() for t in (ix, fx, ox, c0, n0, m0, cs, ns, ms, zs, *out)), B, S, d,
+        torch.cuda.current_stream(ix.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"slstm_scan_bwd_rest kernel launch failed with CUDA error {err}")
+    LAUNCHES["slstm_scan_bwd_rest"] += 1
+    return tuple(out)
 
 
 def slstm_scan_bwd(dhs, dc, dn, dh, dm, ix, fx, ox, rw, c0, n0, m0, cs, ns, ms, zs,
@@ -349,9 +396,11 @@ def slstm_scan_bwd(dhs, dc, dn, dh, dm, ix, fx, ox, rw, c0, n0, m0, cs, ns, ms, 
     (B, S, d), rw (d, d), the entering state c0, n0, m0 (B, d) and the
     forward's saved c, n, m, z of every step (``slstm_scan_ref(...,
     save=True)``'s last four). All float32, contiguous, on one device. On
-    CUDA tensors the kernel (one launch, counted) in ``layout`` (``plan``'s
-    by default), on CPU tensors ``ref.slstm_scan_bwd_ref``, on meta tensors
-    shapes only.
+    CUDA tensors the kernels in ``layout`` (``plan``'s by default): one
+    launch in the cooperative layout; in the cluster layout the loop
+    (``slstm_scan_bwd_chain``) and then the rest (``slstm_scan_bwd_rest``),
+    each counted. On CPU tensors ``ref.slstm_scan_bwd_ref``, on meta
+    tensors shapes only.
     """
     grads, saved = (dhs, dc, dn, dh, dm), (cs, ns, ms, zs)
     _check_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved)
@@ -363,24 +412,64 @@ def slstm_scan_bwd(dhs, dc, dn, dh, dm, ix, fx, ox, rw, c0, n0, m0, cs, ns, ms, 
     if ix.numel() == 0:  # no step: the entering state's gradients are the final state's
         return (*(torch.empty_like(ix) for _ in range(4)),
                 *(torch.zeros_like(c0) if g is None else g.clone() for g in grads[1:]))
-    out = _launch_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved, layout, floor=False)
+    p = _bwd_plan(ix, layout)
+    *out, dh_all = _launch_chain(grads, ix, fx, ox, rw, c0, n0, m0, saved, p, floor=False)
     LAUNCHES["slstm_scan_bwd"] += 1
-    return out
+    if dh_all is not None:
+        _launch_rest(dh_all, dc, dn, dm, ix, fx, ox, c0, n0, m0, *saved,
+                     out=out[1:4] + [out[4], out[5], out[7]])
+    return tuple(out)
+
+
+def slstm_scan_bwd_chain(dhs, dc, dn, dh, dm, ix, fx, ox, rw, c0, n0, m0, cs, ns, ms, zs):
+    """The backward's serial part, ``slstm_scan_bwd``'s arguments: (dzx,
+    dh_all, dh0), dz_pre and dh_t of every step (B, S, d) and the entering
+    h's gradient (B, d). On CUDA tensors the cluster layout's loop kernel
+    (one launch, counted as ``slstm_scan_bwd``; a d the layout cannot take
+    raises by name), on CPU tensors ``ref.slstm_scan_bwd_chain_ref``."""
+    grads, saved = (dhs, dc, dn, dh, dm), (cs, ns, ms, zs)
+    _check_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved)
+    _check_layout("cluster", ix.shape[2])
+    if ix.device.type != "cuda":
+        return slstm_scan_bwd_chain_ref(*grads, ix, fx, ox, rw, c0, n0, m0, *saved)
+    if ix.numel() == 0:
+        return (torch.empty_like(ix), torch.empty_like(ix),
+                torch.zeros_like(c0) if dh is None else dh.clone())
+    out = _launch_chain(grads, ix, fx, ox, rw, c0, n0, m0, saved, _bwd_plan(ix, "cluster"),
+                        floor=False)
+    LAUNCHES["slstm_scan_bwd"] += 1
+    return out[0], out[8], out[6]
+
+
+def slstm_scan_bwd_rest(dh_all, dc, dn, dm, ix, fx, ox, c0, n0, m0, cs, ns, ms, zs):
+    """The backward's rest from every step's dh_t (``slstm_scan_bwd_chain``'s
+    second output): (dix, dfx, dox (B, S, d), dc0, dn0, dm0 (B, d)). dc,
+    dn, dm: the final state's gradients, each None for zero. On CUDA
+    tensors the rest kernel (one launch, counted as ``slstm_scan_bwd_rest``),
+    on CPU tensors ``ref.slstm_scan_bwd_rest_ref``."""
+    _check_bwd((dh_all, dc, dn, None, dm), ix, fx, ox, None, c0, n0, m0, (cs, ns, ms, zs))
+    if ix.device.type != "cuda":
+        return slstm_scan_bwd_rest_ref(dh_all, dc, dn, dm, ix, fx, ox, c0, n0, m0, cs, ns, ms, zs)
+    if ix.numel() == 0:
+        return (*(torch.empty_like(ix) for _ in range(3)),
+                *(torch.zeros_like(c0) if g is None else g.clone() for g in (dc, dn, dm)))
+    return _launch_rest(dh_all, dc, dn, dm, ix, fx, ox, c0, n0, m0, cs, ns, ms, zs)
 
 
 def bwd_serial_floor(dhs, dc, dn, dh, dm, ix, fx, ox, rw, c0, n0, m0, cs, ns, ms, zs,
                      layout: str | None = None) -> None:
     """The backward kernel's serial floor on these CUDA inputs in
     ``layout`` (the plan's by default): the same launch with the arithmetic
-    removed, its S barriers (cooperative) or its dz_pre exchange (cluster)
-    alone. Timed beside the kernel; not counted as a launch of it."""
+    removed, its S barriers (cooperative) or its loop's dz_pre exchange,
+    phased by row, alone (cluster). Timed beside the kernel; not counted as
+    a launch of it."""
     grads, saved = (dhs, dc, dn, dh, dm), (cs, ns, ms, zs)
     _check_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved)
     _check_layout(layout, ix.shape[2])
     if ix.device.type != "cuda":
         raise ValueError(f"the serial floor runs on CUDA tensors, not {ix.device}")
     if ix.numel():
-        _launch_bwd(grads, ix, fx, ox, rw, c0, n0, m0, saved, layout, floor=True)
+        _launch_chain(grads, ix, fx, ox, rw, c0, n0, m0, saved, _bwd_plan(ix, layout), floor=True)
 
 
 class _SLSTMScan(torch.autograd.Function):

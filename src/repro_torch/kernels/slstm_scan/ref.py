@@ -1,14 +1,17 @@
 """Plain PyTorch versions of the sLSTM recurrence kernel and of its
 backward: the time loop of ``repro.models.xlstm.slstm_block``'s
 ``lax.scan``, as the port ran it in ``models/xlstm.py`` before the kernel,
-and a reverse loop in the backward kernel's order of operations."""
+a reverse loop in the backward kernel's order of operations, and that loop
+split as the cluster layout's two kernels split it: a chain loop, then a
+rest pass."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["slstm_scan_bwd_ref", "slstm_scan_ref"]
+__all__ = ["slstm_scan_bwd_chain_ref", "slstm_scan_bwd_ref", "slstm_scan_bwd_rest_ref",
+           "slstm_scan_ref"]
 
 
 def slstm_scan_ref(zx, ix, fx, ox, rw, c, n, h, m, save: bool = False):
@@ -119,3 +122,82 @@ def slstm_scan_bwd_ref(dhs, dc, dn, dh, dm, ix, fx, ox, rw, c0, n0, m0, cs, ns, 
         dm = gf + torch.where(a < b, zero, half)
         dfx[:, t] = dm * lsg[:, t]
     return dzx, dix, dfx, dox, dc, dn, carry, dm
+
+
+def _previous(first, steps):
+    """Every step's value of the step before: ``first`` (B, d) at step 0."""
+    return torch.cat([first[:, None], steps[:, :-1]], dim=1)
+
+
+def slstm_scan_bwd_chain_ref(dhs, dc, dn, dh, dm, ix, fx, ox, rw, c0, n0, m0, cs, ns, ms, zs):
+    """The serial part of ``slstm_scan_bwd_ref``: the plain version of the
+    cluster layout's loop kernel. Takes that function's arguments (it reads
+    dhs, dc, dh, ix, fx, ox, rw, m0, ns, ms, zs) and returns (dzx, dh_all,
+    dh0): dz_pre of every step, every step's dh_t = dhs_t + (the final dh at
+    t = S - 1, else dzx_{t+1} @ rw^T) (B, S, d), and the entering h's
+    gradient. Per step only the chain: dq = dh_t / max(n_t, 1), dc' = dc + dq
+    o, dzx_t = dc' i' (1 - z_t^2), dc = dc' f'. Each value rounds as in
+    ``slstm_scan_bwd_ref``."""
+    B, S, d = ix.shape
+    zero = ix.new_zeros(B, d)
+    o = torch.sigmoid(ox)
+    lfm = F.logsigmoid(fx) + _previous(m0, ms)
+    i_p = torch.exp(ix - ms)
+    f_p = torch.exp(lfm - ms)
+    nd = ns.clamp_min(1.0)
+    zz = 1.0 - zs * zs
+    dzx, dh_all = torch.empty_like(ix), torch.empty_like(ix)
+    dc = zero if dc is None else dc
+    carry = zero if dh is None else dh
+    rwt = rw.t()
+    for t in range(S - 1, -1, -1):
+        g = carry if dhs is None else dhs[:, t] + carry
+        dh_all[:, t] = g
+        dcp = dc + g / nd[:, t] * o[:, t]
+        da = dcp * i_p[:, t] * zz[:, t]
+        dzx[:, t] = da
+        carry = da @ rwt
+        dc = dcp * f_p[:, t]
+    return dzx, dh_all, carry
+
+
+def slstm_scan_bwd_rest_ref(dh_all, dc, dn, dm, ix, fx, ox, c0, n0, m0, cs, ns, ms, zs):
+    """The rest of ``slstm_scan_bwd_ref`` given every step's dh_t
+    (``slstm_scan_bwd_chain_ref``'s second output): the plain version of the
+    cluster layout's rest kernel. dn, dm and dc are recurrences of one
+    (row, column) each, so no step of it waits on another column. Returns
+    (dix, dfx, dox (B, S, d), dc0, dn0, dm0 (B, d)), each value rounded as
+    in ``slstm_scan_bwd_ref``."""
+    B, S, d = ix.shape
+    zero = ix.new_zeros(B, d)
+    o = torch.sigmoid(ox)
+    c_prev, n_prev = _previous(c0, cs), _previous(n0, ns)
+    lfm = F.logsigmoid(fx) + _previous(m0, ms)
+    i_p = torch.exp(ix - ms)
+    f_p = torch.exp(lfm - ms)
+    nd = ns.clamp_min(1.0)
+    qnn = o * cs / nd / nd
+    lsg = _log_sigmoid_grad(fx)
+    dix, dfx, dox = (torch.empty_like(ix) for _ in range(3))
+    dc = zero if dc is None else dc
+    dn = zero if dn is None else dn
+    dm = zero if dm is None else dm
+    for t in range(S - 1, -1, -1):
+        g = dh_all[:, t]
+        dq = g / nd[:, t]
+        dcp = dc + dq * o[:, t]
+        dnp = dn + torch.where(ns[:, t] >= 1.0, -g * qnn[:, t], zero)
+        dox[:, t] = dq * cs[:, t] * (1.0 - o[:, t]) * o[:, t]
+        di = dcp * zs[:, t] + dnp
+        df = dcp * c_prev[:, t] + dnp * n_prev[:, t]
+        dc = dcp * f_p[:, t]
+        dn = dnp * f_p[:, t]
+        gi = di * i_p[:, t]
+        gf = df * f_p[:, t]
+        dmt = dm - gi - gf
+        a, b = lfm[:, t], ix[:, t]
+        half = torch.where(a == b, dmt / 2, dmt)
+        dix[:, t] = gi + torch.where(a > b, zero, half)
+        dm = gf + torch.where(a < b, zero, half)
+        dfx[:, t] = dm * lsg[:, t]
+    return dix, dfx, dox, dc, dn, dm

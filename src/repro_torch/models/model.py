@@ -52,8 +52,8 @@ backward. With ``remat=True`` every repeat of a segment and every loss
 chunk runs in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
 under ``cfg.remat``; the port's config keeps no ``remat`` field, so the
 caller passes it). RG-LRU blocks train through B5 and its backward kernel;
-sLSTM blocks through the ``slstm_scan`` kernel and its backward kernel
-``slstm_scan_bwd``.
+sLSTM blocks through the ``slstm_scan`` kernel and its backward kernels
+(``slstm_scan_bwd``; in the cluster layout its loop and rest pass).
 Serving drops the aux loss, as the reference's ``prefill`` and
 ``decode_step`` do.
 

@@ -24,7 +24,8 @@ on the card (the reference's ``lax.scan``; ``_slstm_scan`` dispatches), on
 the CPU the plain loop of ``kernels/slstm_scan/ref.py``. Under autograd
 (training) the same call goes through the kernel package's
 ``torch.autograd.Function``, whose backward is the hand-written
-``slstm_scan_bwd`` kernel on the card and its plain version on the CPU.
+``slstm_scan_bwd`` kernels on the card (a loop and a rest pass in the
+cluster layout) and their plain version on the CPU.
 
 The mLSTM recurrence is eager torch ops. Both are float32 throughout, with
 the reference's stabilisers and its -1e30 mask fill. Both blocks return a

@@ -36,7 +36,7 @@ from repro_torch.models import xlstm
 TOL = dict(atol=1e-5, rtol=1e-5)
 CTX = MeshCtx(mesh=None)
 B = 2
-NO_LAUNCH = {"slstm_scan": 0, "slstm_scan_bwd": 0}
+NO_LAUNCH = {"slstm_scan": 0, "slstm_scan_bwd": 0, "slstm_scan_bwd_rest": 0}
 
 
 @pytest.fixture(scope="module")
@@ -212,6 +212,21 @@ def test_plan_of_the_xlstm_prefill(dev, R, clusters):
     assert (p["R"], p["clusters"], p["waves"]) == (R, clusters, 1)
     assert p["active_clusters"] == dev.active_clusters[15]
     assert p["smem_bytes"] == slstm_ops.cluster_smem(R) <= dev.smem_optin
+
+
+@pytest.mark.parametrize("dev,B,R,last", [(H100, 8, 2, 2), (EIGHT_16, 8, 1, 1), (H100, 9, 2, 1),
+                                           (H100, 1, 1, 1), (H100, 3, 1, 1)])
+def test_plan_of_the_backward_row_phases(dev, B, R, last):
+    """The backward's exchange at xlstm-125m's prefill shapes (and B = 1, 3
+    and 9 rows): one phase a row of a cluster, each expecting one row of
+    dz_pre from the cluster's blocks (4 d bytes); a pair of mbarriers and
+    buffers a row; the last cluster's rows what is left of B."""
+    p = slstm_ops.plan(B, 512, 768, dev)
+    assert p["layout"] == "cluster" and (p["R"], p["last_rows"]) == (R, last)
+    assert p["phase_bytes"] == 4 * 768 == sum(4 * width for _, width in p["columns"])
+    assert p["bwd_smem_bytes"] == slstm_ops.cluster_bwd_smem(R) == R * (16 + 2 * 4 * 768)
+    assert p["bwd_smem_bytes"] <= dev.smem_optin
+    assert (p["clusters"] - 1) * R + p["last_rows"] == B
 
 
 @pytest.mark.parametrize("d", [768, 64])

@@ -21,19 +21,23 @@ that plain version differs from autograd through the plain loop by at
 most 1.02e-6 of a gradient's max-abs (``rw``'s, a sum over B S rows), and
 the kernel's products sum in yet another order; ten times that leaves room.
 NaN where the plain version has NaN; reruns equal bit for bit; under
-autograd one forward and one backward launch.
+autograd one forward and one backward launch (in the cluster layout the
+backward is two kernels, its loop and its rest pass, one launch each; each
+is also held to its own plain version, ``ref.slstm_scan_bwd_chain_ref`` and
+``ref.slstm_scan_bwd_rest_ref``, within ``BWD_TOL``).
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
-from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref, slstm_scan_ref
+from repro_torch.kernels.slstm_scan.ref import (slstm_scan_bwd_chain_ref, slstm_scan_bwd_ref,
+                                                 slstm_scan_bwd_rest_ref, slstm_scan_ref)
 
 TOL = dict(atol=1e-5, rtol=1e-5, equal_nan=True)
 BWD_TOL = 1e-5
 LAYOUTS = list(slstm_ops.LAYOUTS)
-NO_LAUNCH = {"slstm_scan": 0, "slstm_scan_bwd": 0}
+NO_LAUNCH = {"slstm_scan": 0, "slstm_scan_bwd": 0, "slstm_scan_bwd_rest": 0}
 EDGES = [(8, 512, 768), (3, 7, 100), (130, 3, 64), (2, 3, 4100), (1, 2, 1), (9, 5, 768),
          (130, 3, 768), (2, 3, 769)]
 
@@ -77,7 +81,7 @@ def _run(args, layout):
         return None
     got = slstm_ops.slstm_scan(*args, layout=layout)
     torch.cuda.synchronize()
-    assert slstm_ops.LAUNCHES == {"slstm_scan": 1, "slstm_scan_bwd": 0}
+    assert slstm_ops.LAUNCHES == {**NO_LAUNCH, "slstm_scan": 1}
     return got
 
 
@@ -137,7 +141,7 @@ def test_reruns_are_bit_identical(cuda_device, layout, B):
     slstm_ops.reset_launches()
     second = slstm_ops.slstm_scan(*args, layout=layout)
     torch.cuda.synchronize()
-    assert slstm_ops.LAUNCHES == {"slstm_scan": 1, "slstm_scan_bwd": 0}
+    assert slstm_ops.LAUNCHES == {**NO_LAUNCH, "slstm_scan": 1}
     assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(first, second))
 
@@ -185,8 +189,14 @@ def _bwd_close(got, want):
             assert float((g - w)[finite].abs().max()) <= BWD_TOL * scale
 
 
+def _bwd_launches(layout):
+    """One backward's launches in ``layout``: the cooperative kernel, or the
+    cluster layout's loop and rest pass."""
+    return {**NO_LAUNCH, "slstm_scan_bwd": 1, "slstm_scan_bwd_rest": int(layout == "cluster")}
+
+
 def _run_bwd(args, layout):
-    """The backward in ``layout`` (one launch counted), or the cluster
+    """The backward in ``layout`` (its launches counted), or the cluster
     layout's refusal by name and no launch."""
     slstm_ops.reset_launches()
     if layout == "cluster" and slstm_ops.cluster_size(args[5].shape[2]) is None:
@@ -196,15 +206,18 @@ def _run_bwd(args, layout):
         return None
     got = slstm_ops.slstm_scan_bwd(*args, layout=layout)
     torch.cuda.synchronize()
-    assert slstm_ops.LAUNCHES == {"slstm_scan": 0, "slstm_scan_bwd": 1}
+    assert slstm_ops.LAUNCHES == _bwd_launches(layout)
     return got
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
-@pytest.mark.parametrize("B,S,d", EDGES + [(8, 1, 768)])
+@pytest.mark.parametrize("B,S,d", EDGES + [(8, 1, 768), (1, 64, 768), (3, 64, 768),
+                                   (9, 64, 768), (8, 2, 768), (8, 3, 768), (1, 1, 100),
+                                   (9, 3, 100)])
 def test_backward_matches_its_plain_version(cuda_device, layout, B, S, d):
-    """The forward's shapes, from a fresh state, and a one-step call."""
+    """The forward's shapes, from a fresh state, and one to three steps;
+    rows in clusters of R rows whose last holds fewer (B 1, 3, 9)."""
     args = _bwd_inputs(B, S, d, seed=10)
     got = _run_bwd(args, layout)
     if got is not None:
@@ -277,7 +290,7 @@ def test_autograd_launches_the_forward_and_the_backward_once(cuda_device, layout
     g = [torch.randn(o.shape, device="cuda", generator=gen) for o in out]
     got = torch.autograd.grad(out, args, g)
     torch.cuda.synchronize()
-    assert slstm_ops.LAUNCHES == {"slstm_scan": 1, "slstm_scan_bwd": 1}
+    assert slstm_ops.LAUNCHES == {**_bwd_launches(layout), "slstm_scan": 1}
     _bwd_close(got, torch.autograd.grad(slstm_scan_ref(*args), args, g))
 
 
@@ -292,3 +305,24 @@ def test_backward_of_no_step_launches_nothing(cuda_device):
     assert got[0].shape == (2, 0, 64) and torch.equal(got[4], dc)
     assert not bool(got[5].any())
     assert slstm_ops.LAUNCHES == NO_LAUNCH
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d", [(8, 512, 768), (9, 3, 100), (1, 2, 768), (3, 17, 64)])
+def test_the_cluster_loop_and_rest_pass_match_their_plain_versions(cuda_device, B, S, d):
+    """The cluster layout's two kernels apart: the loop (dzx, every step's
+    dh_t, dh0) against ``slstm_scan_bwd_chain_ref``, and the rest pass on
+    the loop's dh_t against ``slstm_scan_bwd_rest_ref`` on the same dh_t;
+    one launch each, counted under its own name."""
+    args = _bwd_inputs(B, S, d, seed=21)
+    slstm_ops.reset_launches()
+    chain = slstm_ops.slstm_scan_bwd_chain(*args)
+    torch.cuda.synchronize()
+    assert slstm_ops.LAUNCHES == {**NO_LAUNCH, "slstm_scan_bwd": 1}
+    _bwd_close(chain, slstm_scan_bwd_chain_ref(*args))
+    rest_args = (chain[1], *args[1:3], args[4], *args[5:8], *args[9:])
+    slstm_ops.reset_launches()
+    rest = slstm_ops.slstm_scan_bwd_rest(*rest_args)
+    torch.cuda.synchronize()
+    assert slstm_ops.LAUNCHES == {**NO_LAUNCH, "slstm_scan_bwd_rest": 1}
+    _bwd_close(rest, slstm_scan_bwd_rest_ref(*rest_args))

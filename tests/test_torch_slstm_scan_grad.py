@@ -42,7 +42,7 @@ from repro_torch.models.convert import params_from_jax
 from torch_train_common import TOL, tree
 
 CTX = MeshCtx(mesh=None)
-NO_LAUNCH = {"slstm_scan": 0, "slstm_scan_bwd": 0}
+NO_LAUNCH = {"slstm_scan": 0, "slstm_scan_bwd": 0, "slstm_scan_bwd_rest": 0}
 STATE = ("c", "n", "h", "m")
 
 
